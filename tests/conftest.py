@@ -22,3 +22,8 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc; skips on a host without one")
