@@ -6,22 +6,38 @@
 Phases, each printing one JSON line as it ends:
 
 1. device  -- refuse to run without CUDA; name the card and its power limit.
-2. build   -- compile ``ops/csrc/permuto_gather.cu`` with nvcc (ctypes route).
-3. kernels -- at the flagship shapes (L=24 levels, C=2^18 entries, F=2, V=4,
-   N = 3072 rays (camera 0's 64x48 image) x 512 steps = 1,572,864 samples),
-   with idx/bary from the port's own lattice at the flagship render's sample
-   coordinates, hold the single- and dual-table gather kernels against their
-   plain PyTorch versions in float32 (the flagship's gather dtype) and
-   bfloat16, and time kernel, plain version and
-   ``torch.nn.functional.embedding_bag`` (the library yardstick).
-4. tiny    -- the tiny configuration rendered on the card against the same
+2. build   -- compile ``ops/csrc/permuto_gather.cu`` and
+   ``ops/csrc/permuto_scatter.cu`` with nvcc (ctypes route), one nvcc each,
+   both started together.
+3. kernels -- the forward gathers at the flagship render's shapes (L=24
+   levels, C=2^18 entries, F=2, V=4, N = 3072 rays (camera 0's 64x48 image)
+   x 512 steps = 1,572,864 samples), idx/bary from the port's lattice at the
+   render's sample coordinates: single and dual kernels against their plain
+   PyTorch versions in float32 (the flagship's gather dtype) and bfloat16,
+   timed beside ``torch.nn.functional.embedding_bag``.
+4. kernels_bwd -- the backward kernels at the flagship training shapes
+   (N = 4096 rays x 512 steps = 2,097,152 samples of one microbatch), idx/bary
+   from the port's lattice at a real training microbatch's jittered samples:
+   table-gradient scatter (single, dual) and dbary against their plain
+   versions, timed beside ``index_add_`` (the scatter's library yardstick),
+   with the single scatter's time per level.
+5. tiny    -- the tiny configuration rendered on the card against the same
    render on the CPU (whose plain path the CPU tests hold against the JAX
    package), float32 decoders.
-5. render  -- the main path: launch counts set to 0, the flagship render
+6. render  -- main path 1: launch counts set to 0, the flagship render
    ``entry()`` (rgb, depth, semantics, inst_embedding; dual kernel) and the
    same render with rgb and depth only (single kernel), counts read. Outputs
    must be finite, of the right shapes, and match the render routed through
    the plain gathers on the card.
+7. train   -- main paths 2 and 3: launch counts set to 0, then
+   ``train_flagship("rgb", steps=3)`` and ``train_flagship("panoptic",
+   steps=3)`` at full width (6 images requested, 4 training views, 4096
+   rays each, one image per microbatch), counts read: the forward gather and
+   the table-gradient kernel once per microbatch (single in the RGB stage,
+   dual in the panoptic stage), dbary once per microbatch whose camera is not
+   an anchor frame. Losses must be finite. Then one microbatch's gradients
+   through the kernels against the same microbatch through the plain
+   backward versions on the card. Step times, rays/s and peak memory.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -39,7 +55,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory rate and
-# float32 rate outside the tensor cores. The gather's arithmetic is float32.
+# float32 rate outside the tensor cores. The kernels' arithmetic is float32.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 F32_EPS = 2.0 ** -23
@@ -73,6 +89,12 @@ def cuda_ms(fn, reps: int = 10, flush=None) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
 def gather_bound(l, c, f, n, num_tables, itemsize):
     """Least time for the gather at these shapes: bytes (idx read once, bary
     and each table read once, each output written once) over the memory rate,
@@ -80,47 +102,57 @@ def gather_bound(l, c, f, n, num_tables, itemsize):
     v = 4
     nbytes = l * v * n * 4 + l * v * n * itemsize \
         + num_tables * (l * c * f * itemsize + l * f * n * itemsize)
-    flops = num_tables * l * f * n * v * 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+    return _bound(nbytes, num_tables * l * f * n * v * 2)
 
 
-def main() -> None:
-    # import the port first: without it (or without a card) nothing is printed
+def scatter_bound(l, c, f, n, num_tables):
+    """Least time for the table-gradient scatter: idx and bary read once,
+    each table's cotangent g [L, F, N] read once and gradient [L, C, F]
+    written once (float32); one product and one sum per event and feature."""
+    v = 4
+    nbytes = 2 * l * v * n * 4 + num_tables * (l * f * n * 4 + l * c * f * 4)
+    return _bound(nbytes, num_tables * l * v * n * f * 2)
+
+
+def dbary_bound(l, c, f, n):
+    """Least time for dbary: idx, g and the table read once, dbary written
+    once (float32); F products and sums per output."""
+    v = 4
+    nbytes = l * v * n * 4 + l * f * n * 4 + l * c * f * 4 + l * v * n * 4
+    return _bound(nbytes, l * v * n * f * 2)
+
+
+def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pagnerf_tpu_torch.ops import _build, table_gather
+
+    def timed(name):
+        t = time.perf_counter()
+        path = _build.build(name)
+        return os.path.relpath(path, ROOT), time.perf_counter() - t
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        futures = {n: ex.submit(timed, n) for n in ("permuto_gather", "permuto_scatter")}
+        built = {n: f.result() for n, f in futures.items()}
+    table_gather._kernel()
+    table_gather._scatter_kernels()
+    emit("build", wall_seconds=time.perf_counter() - t,
+         seconds={n: s for n, (_, s) in built.items()},
+         libraries={n: p for n, (p, _) in built.items()},
+         flags=" ".join(_build.NVCC_FLAGS))
+
+
+def phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush):
     import torch
     import torch.nn.functional as F
-    from unittest import mock
 
     from pagnerf_tpu_torch.core.rays import Rays
-    from pagnerf_tpu_torch.entry import entry
-    from pagnerf_tpu_torch.ops import _build, permuto_encoding, table_gather
+    from pagnerf_tpu_torch.ops import permuto_encoding, table_gather
     from pagnerf_tpu_torch.ops.occupancy import OccupancyGrid
     from pagnerf_tpu_torch.ops.raymarch import raymarch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-
-    # ---------------------------------------------------------------- device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=20, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-    emit("device", card=smi_line, kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda,
-         tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
-
-    # ----------------------------------------------------------------- build
-    t = time.perf_counter()
-    lib = _build.build("permuto_gather")
-    table_gather._kernel()
-    emit("build", seconds=time.perf_counter() - t,
-         library=os.path.relpath(lib, ROOT), flags=" ".join(_build.NVCC_FLAGS))
-
-    # --------------------------------------------------------------- kernels
-    fn, (pipe, origins, dirs, cam_idx) = entry(device=dev)
     spec = pipe.nef.grid.spec
     occ = OccupancyGrid.create(level=7, device=dev)
     with torch.inference_mode():
@@ -133,8 +165,6 @@ def main() -> None:
     l, _, n = idx.shape
     c, f = spec.capacity, spec.feature_dim
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    flush = flush_buf.zero_
     offs = torch.arange(l, device=dev, dtype=torch.int64)[:, None, None] * c
     bag_idx = (idx.to(torch.int64) + offs).permute(0, 2, 1).reshape(l * n, 4)
 
@@ -197,10 +227,154 @@ def main() -> None:
             emit("kernels", kernel=name, dtype=str(dtype).replace("torch.", ""),
                  L=l, C=c, F=f, N=n, **results[(name, dtype)])
         del ta, tb, bary, bag_w
-    del idx, bary32, bag_idx, flush_buf, flush
-    torch.cuda.empty_cache()
+    return results
 
-    # ------------------------------------------------------------------ tiny
+
+def _training_microbatch(dev, seed=0):
+    """idx/bary of one flagship training microbatch (a non-anchor camera,
+    4096 rays x 512 jittered steps) from the port's own march and lattice."""
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch.core.rays import Rays
+    from pagnerf_tpu_torch.entry import flagship, train_config
+    from pagnerf_tpu_torch.ops import permuto_encoding
+    from pagnerf_tpu_torch.ops.occupancy import OccupancyGrid
+    from pagnerf_tpu_torch.ops.raymarch import raymarch
+
+    pipe, ds = flagship(device=dev, seed=seed)
+    cfg = train_config("rgb")
+    batch = ds.sample_batch(np.random.default_rng(seed), cfg.batch_size,
+                            cfg.num_rays_sampled_per_img)
+    m = int(np.nonzero(batch["cam_idx"] != 0)[0][0])
+    steps = pipe.tracer_cfg.num_steps
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        base = Rays(origins=torch.from_numpy(batch["base_rays_origins"][m:m + 1]).to(dev),
+                    dirs=torch.from_numpy(batch["base_rays_dirs"][m:m + 1]).to(dev),
+                    dist_min=0.0, dist_max=6.0)
+        rays = pipe.transform_rays(base, torch.tensor([int(batch["cam_idx"][m])],
+                                                      device=dev))
+        rm = raymarch(rays, OccupancyGrid.create(level=7, device=dev), steps,
+                      jitter=gen)
+        idx, bary = permuto_encoding.lattice(
+            pipe.nef.grid.tables, rm.positionsT.reshape(3, -1),
+            pipe.nef.grid.spec.scales)
+    return pipe.nef.grid.spec, idx, bary
+
+
+def phase_kernels_bwd(dev, flush):
+    import torch
+
+    from pagnerf_tpu_torch.ops import table_gather as tg
+
+    spec, idx, bary = _training_microbatch(dev)
+    l, _, n = idx.shape
+    c, f = spec.capacity, spec.feature_dim
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_a = torch.randn((l, f, n), generator=gen, device=dev)
+    g_b = torch.randn((l, f, n), generator=gen, device=dev)
+    table = torch.randn((l, c, f), generator=gen, device=dev)
+    rows = tg._flat_rows(idx, c)
+    vals_a = (bary[..., None] * g_a.permute(0, 2, 1)[:, None]).reshape(-1, f)
+    vals_b = (bary[..., None] * g_b.permute(0, 2, 1)[:, None]).reshape(-1, f)
+    vals_ab = torch.cat([vals_a, vals_b], dim=1)
+    del vals_b
+
+    def scatter_check(got, gs):
+        """(max abs err, largest err / tol): per entry, the tolerance is
+        64 eps_f32 * the sum over its events of |bary * g| (float64 atomics in
+        a varying order, rounded once, against a float64 sum)."""
+        worst, err = 0.0, 0.0
+        for d, g in zip(got, gs):
+            diff = (d - tg.table_grad_plain(idx, bary, g, c)).abs()
+            tol = 64 * F32_EPS * tg.table_grad_plain(idx, bary.abs(), g.abs(), c)
+            err = max(err, diff.max().item())
+            worst = max(worst, (diff / tol.clamp(min=1e-30)).max().item())
+            del diff, tol
+        return err, worst
+
+    def require(ok_, name, fields):
+        if not ok_:
+            emit("kernels_bwd", kernel=name, ok=False, **fields)
+            raise AssertionError(f"{name} kernel outside its tolerance of the "
+                                 f"plain version: {fields}")
+
+    results = {}
+    # single scatter
+    single = tg.multilevel_table_grad(idx, bary, g_a, c)
+    err, worst = scatter_check((single,), (g_a,))
+    del single
+    require(worst <= 1.0, "table_grad_single", dict(max_abs_err=err, worst_err_over_tol=worst))
+    lib_single = lambda: torch.zeros((l * c, f), device=dev).index_add_(0, rows, vals_a)
+    lib_err = (lib_single().reshape(l, c, f)
+               - tg.table_grad_plain(idx, bary, g_a, c)).abs().max().item()
+    bound_ms, bound_by, nbytes, flops = scatter_bound(l, c, f, n, 1)
+    per_level = [cuda_ms(lambda lv=lv: tg.multilevel_table_grad(
+        idx[lv:lv + 1], bary[lv:lv + 1], g_a[lv:lv + 1], c), reps=3, flush=flush)
+        for lv in range(l)]
+    results["table_grad_single"] = dict(
+        max_abs_err=err, tol="64 eps_f32 * sum|bary*g| per entry",
+        worst_err_over_tol=worst,
+        ms=cuda_ms(lambda: tg.multilevel_table_grad(idx, bary, g_a, c), flush=flush),
+        plain_ms=cuda_ms(lambda: tg.table_grad_plain(idx, bary, g_a, c), flush=flush),
+        library_ms=cuda_ms(lib_single, flush=flush), library_max_abs_err=lib_err,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+        per_level_ms=per_level)
+    emit("kernels_bwd", kernel="table_grad_single", L=l, C=c, F=f, N=n,
+         **results["table_grad_single"])
+
+    # dual scatter
+    da, db = tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c)
+    err, worst = scatter_check((da, db), (g_a, g_b))
+    del da, db
+    require(worst <= 1.0, "table_grad_dual", dict(max_abs_err=err, worst_err_over_tol=worst))
+    lib_dual = lambda: torch.zeros((l * c, 2 * f), device=dev).index_add_(0, rows, vals_ab)
+    lib_out = lib_dual().reshape(l, c, 2 * f)
+    lib_err = max((lib_out[..., :f] - tg.table_grad_plain(idx, bary, g_a, c)).abs().max().item(),
+                  (lib_out[..., f:] - tg.table_grad_plain(idx, bary, g_b, c)).abs().max().item())
+    del lib_out
+    bound_ms, bound_by, nbytes, flops = scatter_bound(l, c, f, n, 2)
+    results["table_grad_dual"] = dict(
+        max_abs_err=err, tol="64 eps_f32 * sum|bary*g| per entry",
+        worst_err_over_tol=worst,
+        ms=cuda_ms(lambda: tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c),
+                   flush=flush),
+        plain_ms=cuda_ms(lambda: tg.dual_table_grad_plain(idx, bary, g_a, g_b, c),
+                         flush=flush),
+        library_ms=cuda_ms(lib_dual, flush=flush), library_max_abs_err=lib_err,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+    emit("kernels_bwd", kernel="table_grad_dual", L=l, C=c, F=f, N=n,
+         **results["table_grad_dual"])
+    del rows, vals_a, vals_ab
+
+    # dbary: within 4 eps_f32 of its sum over F of |g * T| (fma chain vs products)
+    got = tg.multilevel_gather_dbary(table, idx, g_a)
+    want = tg.gather_dbary_plain(table, idx, g_a)
+    mag = tg.gather_dbary_plain(table.abs(), idx, g_a.abs())
+    diff = (got - want).abs()
+    err = diff.max().item()
+    worst = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+    del got, want, mag, diff
+    require(worst <= 1.0, "gather_dbary", dict(max_abs_err=err, worst_err_over_tol=worst))
+    bound_ms, bound_by, nbytes, flops = dbary_bound(l, c, f, n)
+    results["gather_dbary"] = dict(
+        max_abs_err=err, tol="4 eps_f32 * sum_f |g*T| per entry",
+        worst_err_over_tol=worst,
+        ms=cuda_ms(lambda: tg.multilevel_gather_dbary(table, idx, g_a), flush=flush),
+        plain_ms=cuda_ms(lambda: tg.gather_dbary_plain(table, idx, g_a), flush=flush),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+        flops=flops)
+    emit("kernels_bwd", kernel="gather_dbary", L=l, C=c, F=f, N=n,
+         **results["gather_dbary"])
+    return results
+
+
+def phase_tiny(dev):
+    import torch
+
+    from pagnerf_tpu_torch.entry import entry
+
     outs = []
     for d in (dev, torch.device("cpu")):
         tfn, targs = entry(device=d, tiny=True, compute_dtype=torch.float32)
@@ -211,21 +385,25 @@ def main() -> None:
     emit("tiny", max_abs_err=tiny_err, tol=1e-4,
          shapes=[list(o.shape) for o in outs[0]])
 
-    # ---------------------------------------------------------------- render
-    kernels = {"single": table_gather.multilevel_table_gather,
-               "dual": table_gather.dual_multilevel_table_gather}
+
+def phase_render(fn, pipe, origins, dirs, cam_idx):
+    import torch
+    from unittest import mock
+
+    from pagnerf_tpu_torch.ops import table_gather
+
     rd = frozenset({"rgb", "depth"})
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    table_gather.reset_launches()
     out = fn(pipe, origins, dirs, cam_idx)
     out_rd = fn(pipe, origins, dirs, cam_idx, channels=rd)
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = {k: f.launches for k, f in table_gather.KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"the main path launched the {name} kernel {count} times")
+    for name in ("gather", "dual_gather"):
+        if launches[name] < 1:
+            raise AssertionError(f"the render launched the {name} kernel "
+                                 f"{launches[name]} times")
 
     n_rays = dirs.shape[1]
     nef = pipe.nef
@@ -276,23 +454,190 @@ def main() -> None:
          vs_plain_tol=tols, render_ms_median=statistics.median(render_ms),
          render_ms=render_ms, plain_gather_render_ms_median=statistics.median(plain_ms),
          peak_allocated_gib=peak_gb)
+    return launches
+
+
+def _plain_backward_grads(trainer, stage, sub, jitter):
+    """The microbatch's gradients with the three backward kernels swapped
+    for their plain versions (the forward kernel stays, so both runs see the
+    same cotangents), and each table's per-entry sum of |bary * g|."""
+    from unittest import mock
+
+    from pagnerf_tpu_torch.ops import table_gather as tg
+
+    mags = {}
+
+    def single(idx, bary, g, c):
+        mags["nef.grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g.abs(), c)
+        return tg.table_grad_plain(idx, bary, g, c)
+
+    def dual(idx, bary, g_a, g_b, c):
+        mags["nef.grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g_a.abs(), c)
+        mags["nef.delta_grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g_b.abs(), c)
+        return tg.dual_table_grad_plain(idx, bary, g_a, g_b, c)
+
+    with mock.patch.object(tg, "multilevel_table_grad", single), \
+         mock.patch.object(tg, "dual_multilevel_table_grad", dual), \
+         mock.patch.object(tg, "multilevel_gather_dbary", tg.gather_dbary_plain):
+        grads, losses = trainer.grad_step(stage, sub, jitter)
+    return grads, losses, mags
+
+
+def phase_train(dev, stage_name):
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch.entry import train_flagship
+    from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.ops.assignment import lap_assign
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    assign_s = lap_assign.seconds
+    tg.reset_launches()
+    trainer, log = train_flagship(stage_name, steps=3, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in tg.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    assign_s = lap_assign.seconds - assign_s
+
+    anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+    micro = sum(len(s["cam_idx"]) for s in log)
+    non_anchor = sum(int(not anchor[c]) for s in log for c in s["cam_idx"])
+    fwd, grad = (("gather", "table_grad") if stage_name == "rgb"
+                 else ("dual_gather", "dual_table_grad"))
+    other_fwd, other_grad = (("dual_gather", "dual_table_grad") if stage_name == "rgb"
+                             else ("gather", "table_grad"))
+    expected = {fwd: micro, grad: micro, other_fwd: 0, other_grad: 0,
+                "dbary": non_anchor}
+    if launches != expected:
+        raise AssertionError(f"{stage_name} training launched {launches}, "
+                             f"expected {expected}")
+    for s in log:
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            raise AssertionError(f"{stage_name} step losses not finite: {s}")
+
+    # one microbatch through the kernels and through the plain backward
+    stage = trainer.stage_for_epoch(log[-1]["epoch"])
+    cfg = trainer.cfg
+    batch = trainer.dataset.sample_batch(np.random.default_rng(1), cfg.batch_size,
+                                         cfg.num_rays_sampled_per_img)
+    m = int(np.nonzero(~anchor[batch["cam_idx"]])[0][0])
+    sub = {k: v[m:m + 1] if getattr(v, "ndim", 0) >= 1
+           and v.shape[0] == batch["imgs"].shape[0] else v for k, v in batch.items()}
+    jitter = torch.rand((cfg.num_rays_sampled_per_img, stage.num_steps),
+                        generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    g_k, l_k = trainer.grad_step(stage, sub, jitter)
+    g_p, l_p, mags = _plain_backward_grads(trainer, stage, sub, jitter)
+    table_err, worst = {}, {}
+    for name, mag in mags.items():
+        diff = (g_k[name] - g_p[name]).abs()
+        table_err[name] = diff.max().item()
+        worst[name] = (diff / (64 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+    # extrinsics: dbary's fused dot rounds 1 ulp apart from the plain
+    # products per sample; 2.1M samples sum into 9 numbers through the
+    # lattice and ray-transform backward
+    ext_ref = g_p["extrinsics"].abs().max().item()
+    ext_err = (g_k["extrinsics"] - g_p["extrinsics"]).abs().max().item()
+    loss_err = max(abs(float(l_k[k]) - float(l_p[k])) for k in l_k)
+    check = dict(plain_check_microbatch_cam=int(sub["cam_idx"][0]),
+                 plain_check_table_max_abs_err=table_err,
+                 plain_check_table_worst_err_over_tol=worst,
+                 plain_check_extrinsics_err=ext_err,
+                 plain_check_extrinsics_max=ext_ref, plain_check_loss_err=loss_err)
+    if not (all(w <= 1.0 for w in worst.values()) and ext_ref > 0
+            and ext_err <= 1e-3 * ext_ref):
+        emit(f"train_{stage_name}", ok=False, launches=launches, **check)
+        raise AssertionError(f"{stage_name}: gradients through the kernels vs the "
+                             f"plain backward outside tolerance: {check}")
+
+    step_ms = [s["seconds"] * 1e3 for s in log]
+    imgs = len(log[-1]["cam_idx"])
+    steady_ms = statistics.median(step_ms[1:])
+    result = dict(
+        steps=len(log), microbatches_per_step=imgs,
+        rays_per_step=imgs * cfg.num_rays_sampled_per_img,
+        samples_per_microbatch=cfg.num_rays_sampled_per_img * stage.num_steps,
+        launches=launches, expected_launches=expected,
+        losses=[s["losses"] for s in log], cam_idx=[s["cam_idx"] for s in log],
+        step_ms=step_ms, step_ms_steady_median=steady_ms,
+        rays_per_s=imgs * cfg.num_rays_sampled_per_img / (steady_ms / 1e3),
+        peak_allocated_gib=peak_gb,
+        host_assignment_s=assign_s, **check)
+    emit(f"train_{stage_name}", **result)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main() -> None:
+    # import the port first: without it (or without a card) nothing is printed
+    import torch
+
+    from pagnerf_tpu_torch.entry import entry
+    from pagnerf_tpu_torch.ops import table_gather
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+
+    # ---------------------------------------------------------------- device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=20, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    emit("device", card=smi_line, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+
+    phase_build()
+
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_
+    fn, (pipe, origins, dirs, cam_idx) = entry(device=dev)
+    fwd = phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush)
+    torch.cuda.empty_cache()
+    bwd = phase_kernels_bwd(dev, flush)
+    del flush_buf, flush
+    torch.cuda.empty_cache()
+    phase_tiny(dev)
+    paths = {"render": phase_render(fn, pipe, origins, dirs, cam_idx)}
+    del fn, pipe
+    torch.cuda.empty_cache()
+    for stage_name in ("rgb", "panoptic"):
+        paths[f"train_{stage_name}"] = phase_train(dev, stage_name)
 
     # ---------------------------------------------------------------- report
-    source = "pagnerf_tpu_torch/ops/csrc/permuto_gather.cu"
-    replaces = {"single": "pagnerf_tpu/ops/pallas_gather.py:101",
-                "dual": "pagnerf_tpu/ops/pallas_gather.py:119"}
+    sources = {"fwd": "pagnerf_tpu_torch/ops/csrc/permuto_gather.cu",
+               "bwd": "pagnerf_tpu_torch/ops/csrc/permuto_scatter.cu"}
     rows = []
-    for name in ("single", "dual"):
-        r32 = results[(name, torch.float32)]
-        r16 = results[(name, torch.bfloat16)]
+    for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
+                                ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):
+        r32 = fwd[(name, torch.float32)]
+        r16 = fwd[(name, torch.bfloat16)]
         rows.append({
-            "name": f"permuto_gather_{name}", "route": "cuda", "source": source,
-            "replaces": replaces[name], "launches": launches[name],
-            "dtype": "float32",
+            "name": f"permuto_gather_{name}", "route": "cuda", "source": sources["fwd"],
+            "replaces": replaces, "launches": sum(p[key] for p in paths.values()),
+            "launches_by_path": {p: c[key] for p, c in paths.items()},
+            "dtype": "float32", "shapes": "render N=1,572,864",
             **{k: r32[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
             "bf16": {k: r16[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                          "bound_ms", "library_ms")},
+        })
+    for name, key, replaces in (
+            ("table_grad_single", "table_grad", "pagnerf_tpu/ops/pallas_scatter.py:339"),
+            ("table_grad_dual", "dual_table_grad", "pagnerf_tpu/ops/pallas_scatter.py:243"),
+            ("gather_dbary", "dbary", "pagnerf_tpu/ops/pallas_gather.py:110")):
+        r = bwd[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": sources["bwd"],
+            "replaces": replaces, "launches": sum(p[key] for p in paths.values()),
+            "launches_by_path": {p: c[key] for p, c in paths.items()},
+            "dtype": "float32", "shapes": "training microbatch N=2,097,152",
+            **{k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -85,6 +85,11 @@ def inv_transform_rays(params: torch.Tensor, origins: torch.Tensor,
     return o_w, d_w
 
 
+def rays_to_3d_points(rays: Rays, depth: torch.Tensor) -> torch.Tensor:
+    """World points at the rendered depth [R, 1] along world rays [R]."""
+    return rays.origins + rays.dirs * depth.reshape(depth.shape[0], 1)
+
+
 def transform_rays(params: torch.Tensor, base_rays: Rays,
                    cam_idx: torch.Tensor) -> Rays:
     """Apply the extrinsics of cameras ``cam_idx`` [B] to camera-space base rays

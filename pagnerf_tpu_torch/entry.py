@@ -15,6 +15,8 @@ raise on a host without one. Weights come from a seeded init
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import FrozenSet
 
 import torch
@@ -27,6 +29,8 @@ from .models.nefs import GridConfig, PanopticDeltaNeF
 from .models.pipeline import BAPipeline
 from .models.tracer import TracerConfig
 from .ops.occupancy import OccupancyGrid
+from .train.optimizer import OptimizerConfig
+from .train.trainer import PanopticTrainer, TrainerConfig
 
 FLAGSHIP_CHANNELS = frozenset({"rgb", "depth", "semantics", "inst_embedding"})
 
@@ -56,7 +60,7 @@ def flagship(tiny: bool = False, device="cuda", seed: int = 0,
     pipe = BAPipeline(nef, tracer, torch.from_numpy(data["view_matrices"]),
                       anchor_frame_idxs=[0])
     pipe.reset_parameters(torch.Generator().manual_seed(seed))
-    pipe.requires_grad_(False)     # serving: the gathers are forward only
+    pipe.requires_grad_(False)     # serving; the trainer turns gradients on
     return pipe.to(dev), ds
 
 
@@ -85,3 +89,54 @@ def entry(device="cuda", tiny: bool = False, seed: int = 0,
         return rb.rgb, rb.depth, rb.semantics, rb.inst_embedding
 
     return fn, (pipe, origins, dirs, cam_idx)
+
+
+TRAIN_STAGES = ("rgb", "panoptic")
+
+
+def train_config(stage: str, tiny: bool = False) -> TrainerConfig:
+    """The flagship's trainer settings: batches of 6 images x 4096 rays (32
+    rays when ``tiny``), one image per microbatch. A batch holds at most the
+    training views: 4 of the flagship's 8 (2 of the tiny scene's 4). 'rgb' is the default
+    ``TrainerConfig`` (the RGB phase: colour only, extrinsics on); 'panoptic'
+    switches the semantic and instance heads on from epoch 0, as the JAX
+    package's multichip dryrun does, with no prune and no voxel march."""
+    if stage not in TRAIN_STAGES:
+        raise ValueError(f"stage must be one of {TRAIN_STAGES}, got {stage!r}")
+    cfg = TrainerConfig(batch_size=6, num_rays_sampled_per_img=32 if tiny else 4096,
+                        micro_batch_imgs=1)
+    if stage == "panoptic":
+        cfg = dataclasses.replace(cfg, sem_epoch_start=0, inst_epoch_start=0,
+                                  prune_every=-1, optimize_val_extrinsics=False,
+                                  voxel_raymarch_epoch_start=1000)
+    return cfg
+
+
+def train_flagship(stage: str = "rgb", steps: int = 3, device="cuda",
+                   tiny: bool = False, seed: int = 0,
+                   compute_dtype: torch.dtype = torch.bfloat16):
+    """Train the flagship for ``steps`` steps of ``stage`` ('rgb' or
+    'panoptic'); step k runs the stage of epoch k // steps_per_epoch (one
+    step per epoch on the flagship's 4 training views, so a panoptic run of
+    3 steps reaches the segment regulariser of epoch 2). Returns (trainer,
+    log): one dict per step with its ``epoch``, the batch's ``cam_idx``, its
+    wall ``seconds`` (host clock; the losses' read-back ends the step) and
+    its ``losses`` as floats."""
+    dev = resolve_device(device)
+    pipe, ds = flagship(tiny=tiny, device=dev, seed=seed,
+                        compute_dtype=compute_dtype)
+    pipe.requires_grad_(True)
+    cfg = dataclasses.replace(train_config(stage, tiny), seed=seed)
+    trainer = PanopticTrainer(pipe, ds, cfg, OptimizerConfig())
+    log = []
+    for k in range(steps):
+        epoch = k // trainer.steps_per_epoch
+        batch = ds.sample_batch(trainer.rng, cfg.batch_size,
+                                cfg.num_rays_sampled_per_img)
+        t0 = time.perf_counter()
+        losses = trainer.train_step(trainer.stage_for_epoch(epoch), batch)
+        losses = {name: float(v) for name, v in losses.items()}
+        log.append({"epoch": epoch, "cam_idx": batch["cam_idx"].tolist(),
+                    "seconds": time.perf_counter() - t0, "losses": losses})
+        trainer.epoch = epoch
+    return trainer, log

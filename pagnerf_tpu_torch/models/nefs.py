@@ -1,4 +1,4 @@
-"""Panoptic neural fields, forward only (counterpart of
+"""Panoptic neural fields (counterpart of
 ``pagnerf_tpu/models/nefs.py``).
 
 ``PanopticNeF`` is the base model: grid -> density and colour MLPs plus the
@@ -10,7 +10,7 @@ table-gather kernel (``_dual_feats``).
 
 Layout: coordinates and ray directions enter feature-major ``[3, N]``;
 every channel comes out ``[C, N]``. ``.detach()`` stands where the JAX package
-has ``stop_gradient``, so the contracts survive the later training slice.
+has ``stop_gradient``; the training step's gradients keep those contracts.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ from ..core.camera import extrinsics_params_from_view_matrix, transform_rays
 from ..core.rays import Rays
 from ..core.render_buffer import RenderBuffer
 from ..ops.occupancy import OccupancyGrid
+from ..ops.raymarch import Jitter
 from .tracer import TracerConfig, trace
 
 
@@ -39,16 +40,22 @@ class Pipeline(nn.Module):
         return fn
 
     def forward(self, rays: Rays, channels: FrozenSet[str], occ: OccupancyGrid,
-                lod_weights: Optional[torch.Tensor] = None,
-                stage: str = "val") -> RenderBuffer:
-        return trace(self.nef_fn(lod_weights), rays, occ, self.tracer_cfg,
-                     frozenset(channels), stage)
+                lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
+                jitter: Jitter = None,
+                tracer_cfg: Optional[TracerConfig] = None) -> RenderBuffer:
+        """``jitter`` stands where the JAX package takes a ``key``: None for
+        midpoint samples, or stratified samples' uniforms [R, S] (or a
+        generator to draw them)."""
+        return trace(self.nef_fn(lod_weights), rays, occ,
+                     tracer_cfg or self.tracer_cfg, frozenset(channels), stage,
+                     jitter)
 
 
 class BAPipeline(Pipeline):
     """Bundle-adjustment pipeline: per-camera learnable extrinsics
     ``[num_cams, 9]`` applied to camera-space base rays each forward. Anchor
-    frames' extrinsics are detached."""
+    frames' extrinsics are detached, so a batch of anchor rays carries no
+    coordinate gradient and its encode skips ``dbary``."""
 
     def __init__(self, nef: nn.Module, tracer_cfg: TracerConfig,
                  view_matrices: torch.Tensor,
@@ -68,17 +75,27 @@ class BAPipeline(Pipeline):
         with torch.no_grad():
             self.extrinsics.copy_(self._init_extrinsics)
 
-    def camera_params(self) -> torch.Tensor:
+    def camera_params(self, cam_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Extrinsics with the anchor frames' rows detached. When every camera
+        of ``cam_idx`` is an anchor, the whole tensor is detached, so the rays
+        (and the samples' coordinates) carry no gradient at all and the
+        encode's backward skips ``dbary``; this reads ``cam_idx`` on the host."""
         p = self.extrinsics
+        if (cam_idx is not None and p.requires_grad and torch.is_grad_enabled()
+                and bool(self.anchor_mask[cam_idx].all())):
+            return p.detach()
         return torch.where(self.anchor_mask[:, None], p.detach(), p)
 
     def transform_rays(self, base_rays: Rays, cam_idx: torch.Tensor) -> Rays:
         """Camera-space base rays [B, R] -> world rays [B*R]."""
-        return transform_rays(self.camera_params(), base_rays, cam_idx).reshape(-1)
+        return transform_rays(self.camera_params(cam_idx), base_rays,
+                              cam_idx).reshape(-1)
 
     def forward(self, rays: Rays, channels: FrozenSet[str], occ: OccupancyGrid,
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
-                cam_idx: Optional[torch.Tensor] = None) -> RenderBuffer:
+                cam_idx: Optional[torch.Tensor] = None, jitter: Jitter = None,
+                tracer_cfg: Optional[TracerConfig] = None) -> RenderBuffer:
         if cam_idx is not None:
             rays = self.transform_rays(rays, cam_idx)
-        return super().forward(rays, channels, occ, lod_weights, stage)
+        return super().forward(rays, channels, occ, lod_weights, stage, jitter,
+                               tracer_cfg)

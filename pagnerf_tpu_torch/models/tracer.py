@@ -8,7 +8,8 @@ detached transmittance; white background composites as
 ``panoptic_alpha * integrated features``, with the optional background
 residual in slot 0.
 
-Ported: the dense single-block trace in 'ray' mode. The packed and compacted
+Ported: the dense single-block trace in 'ray' mode, with midpoint samples or,
+for training, stratified ``jitter`` (``ops/raymarch.py``). The packed and compacted
 layouts, ray and sample chunking, the delta-density (DD) tracer and the
 ray-sparsity loss are not ported yet; a config that asks for them raises.
 """
@@ -24,7 +25,7 @@ from ..core.render_buffer import RenderBuffer
 from ..ops.composite import (composite_channel_T, composite_scalar,
                              exponential_integration_weights)
 from ..ops.occupancy import OccupancyGrid
-from ..ops.raymarch import raymarch
+from ..ops.raymarch import Jitter, raymarch
 
 RENDER_CHANNELS = frozenset({"depth", "alpha", "hit"})
 PANOPTIC_CHANNELS = frozenset({"semantics", "inst_embedding"})
@@ -75,15 +76,18 @@ class TracerConfig:
 
 
 def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
-          channels: FrozenSet[str], stage: str = "val") -> RenderBuffer:
-    """Trace rays [R] against the neural field; midpoint samples (no jitter)."""
+          channels: FrozenSet[str], stage: str = "val",
+          jitter: Jitter = None) -> RenderBuffer:
+    """Trace rays [R] against the neural field; midpoint samples unless
+    ``jitter`` (a [R, S] tensor or a generator) stratifies them."""
     cfg.check_ported(stage)
-    return _trace_block(nef_fn, rays, occ, cfg, channels)
+    return _trace_block(nef_fn, rays, occ, cfg, channels, jitter)
 
 
 def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
-                 cfg: TracerConfig, channels: FrozenSet[str]) -> RenderBuffer:
-    rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type)
+                 cfg: TracerConfig, channels: FrozenSet[str],
+                 jitter: Jitter = None) -> RenderBuffer:
+    rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type, jitter)
     r, s = rm.depths.shape
 
     # feature-major samples [3, R*S]

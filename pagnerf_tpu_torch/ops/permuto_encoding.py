@@ -1,10 +1,20 @@
 """Multiresolution permutohedral-lattice encoding (counterpart of
-``pagnerf_tpu/ops/permuto_encoding.py``), forward only.
+``pagnerf_tpu/ops/permuto_encoding.py``).
 
 The lattice math (elevation, rounding, rank, barycentric weights, direct or
 hashed vertex indices) is plain PyTorch in float32, written to give the JAX
 package's indices exactly and its weights to float32 rounding. The table
-gather behind it is the hand-written CUDA kernel (``ops/table_gather.py``).
+gather behind it, and its backward, are hand-written CUDA kernels
+(``ops/table_gather.py``).
+
+Gradients: the encodes are differentiable in the tables (through the
+gather's scatter backward) and in the coordinates. The coordinate gradient
+runs through ``_Lattice``, an autograd Function around all levels' lattice
+math that saves only the coordinates: its backward recomputes each level's
+rank from x and turns ``dbary`` into ``dx`` (the JAX package's
+``_lattice_levels_bwd``). Autograd through the rank masks would keep
+``[L, 5, V, N]``-sized multiply partners alive, gigabytes at a training
+microbatch's N.
 
 Layout: sample tensors are feature-major, coordinates ``[3, N]``, indices and
 weights ``[L, V=4, N]``, features ``[L*F, N]`` -- the JAX package's layout, so
@@ -150,10 +160,7 @@ def _index_keys_T(keys: torch.Tensor, log2_capacity: int, mm: int, dm: int,
     return (r_off + lin).to(torch.int32)
 
 
-def lattice_all_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm,
-                       direct):
-    """idx [L, V, N] int32 and bary [L, V, N] float32 for coords x [3, N],
-    one level at a time (the JAX package's per-level scan)."""
+def _lattice_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm, direct):
     idx, bary = [], []
     for inv_s, mm_l, dm_l, dir_l in zip(inv_scales, mm, dm, direct):
         keys, b = simplex_vertices_and_weights_T(
@@ -161,6 +168,54 @@ def lattice_all_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm,
         idx.append(_index_keys_T(keys, log2_c, int(mm_l), int(dm_l), bool(dir_l)))
         bary.append(b)
     return torch.stack(idx), torch.stack(bary)
+
+
+def _lattice_levels_dx(x: torch.Tensor, inv_scales, dbary: torch.Tensor):
+    """dx [3, N] of x [3, N] from dbary [L, V, N], one level at a time: with
+    bary5[b] = sum_v (plus - minus)[b, v] * delta[v], delta = (el - gr) / 4 and
+    el = E @ (x * inv_s), dx += inv_s * E^T @ ddelta / 4 (rank recomputed)."""
+    e_t = torch.as_tensor(_E, dtype=x.dtype, device=x.device).T   # [3, 4]
+    b5 = torch.arange(_VERTS + 1, dtype=torch.int32, device=x.device)[:, None, None]
+    dx = torch.zeros_like(x)
+    for inv_s, dbary_l in zip(inv_scales, dbary):
+        s = torch.tensor(inv_s, dtype=torch.float32, device=x.device)
+        _, _, rank = _rank_and_el(x * s)
+        pm = (((_D - rank)[None] == b5).to(dbary_l.dtype)
+              - ((_D + 1 - rank)[None] == b5).to(dbary_l.dtype))   # [5, 4, N]
+        # bary = bary5[:V] with bary5[0] folded += bary5[V]: transpose the fold
+        db5 = torch.cat([dbary_l, dbary_l[:1]], dim=0)             # [5, N]
+        ddelta = torch.einsum("bvn,bn->vn", pm, db5) / _VERTS      # [4, N]
+        dx = dx + (e_t @ ddelta) * s
+    return dx
+
+
+class _Lattice(torch.autograd.Function):
+    """idx and bary of all levels; the coordinate gradient flows through bary
+    only (idx is integer and piecewise constant). Saves x alone."""
+
+    @staticmethod
+    def forward(ctx, x, log2_c, inv_scales, mm, dm, direct):
+        ctx.save_for_backward(x)
+        ctx.inv_scales = inv_scales
+        idx, bary = _lattice_levels(x, log2_c, inv_scales, mm, dm, direct)
+        ctx.mark_non_differentiable(idx)
+        return idx, bary
+
+    @staticmethod
+    def backward(ctx, _didx, dbary):
+        (x,) = ctx.saved_tensors
+        dx = None
+        if dbary is not None and ctx.needs_input_grad[0]:
+            dx = _lattice_levels_dx(x, ctx.inv_scales, dbary.to(x.dtype))
+        return dx, None, None, None, None, None
+
+
+def lattice_all_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm,
+                       direct):
+    """idx [L, V, N] int32 and bary [L, V, N] float32 for coords x [3, N],
+    one level at a time (the JAX package's per-level scan); differentiable
+    in x through bary."""
+    return _Lattice.apply(x, log2_c, inv_scales, mm, dm, direct)
 
 
 def lattice(tables: torch.Tensor, coordsT: torch.Tensor, scales):

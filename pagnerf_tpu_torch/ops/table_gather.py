@@ -1,25 +1,44 @@
-"""Multi-level table gather (counterpart of ``pagnerf_tpu/ops/table_gather.py``
-and ``pagnerf_tpu/ops/pallas_gather.py``), forward only.
+"""Multi-level table gather and its gradients (counterpart of
+``pagnerf_tpu/ops/table_gather.py``, ``pallas_gather.py`` and
+``pallas_scatter.py``).
+
+Forward:
 
     out[l, f, n] = sum_v bary[l, v, n] * tables[l, idx[l, v, n], f]
 
 ``multilevel_table_gather`` (one table stack) and
 ``dual_multilevel_table_gather`` (two stacks read at shared indices and
-weights: the main grid and the delta grid) launch the CUDA kernel
-``csrc/permuto_gather.cu`` for CUDA tensors and take the plain PyTorch
-version beside it (``multilevel_gather_plain`` / ``dual_gather_plain``) for
-CPU tensors. There is no other fallback: a CUDA tensor the kernel does not
-take raises.
+weights: the main grid and the delta grid) are differentiable with respect to
+the tables and the weights (``torch.autograd.Function``). Their backward:
 
-Contract (both paths): tables ``[L, C, F]`` with F in (1, 2, 4), ``idx
+    dtables[l, c, f] = sum_{v, n : idx[l, v, n] = c} bary[l, v, n] * g[l, f, n]
+    dbary[l, v, n]   = sum_f g[l, f, n] * tables[l, idx[l, v, n], f]
+
+The dual backward scatters both tables' gradients from one event stream and
+takes ``dbary`` from the A side only: the B side reads stop-gradient weights
+(the delta grid is queried at detached coordinates). ``dbary`` is computed
+only when autograd asks for it, i.e. when the coordinates need a gradient.
+
+Each of the five functions -- gather, dual gather, table-gradient scatter,
+dual scatter, dbary -- has a hand-written CUDA kernel (``csrc/permuto_gather.cu``
+for the forward, ``csrc/permuto_scatter.cu`` for the backward) and a plain
+PyTorch version beside it here. A wrapper launches the kernel for CUDA
+tensors (and counts the launch in its ``.launches``) and takes the plain
+version for CPU tensors; a CUDA tensor the kernel does not take raises.
+
+The scatter kernel sums in float64 and rounds once, so it stays within one
+float32 rounding of its plain version (which sums in float64 too) however
+many events share a table row.
+
+Contract of the gathers: tables ``[L, C, F]`` with F in (1, 2, 4), ``idx
 [L, 4, N]`` int32 with entries in ``[0, C)``, ``bary [L, 4, N]``; tables and
 bary in one dtype, float32 or bfloat16; all contiguous, on one device.
-Outputs ``[L, F, N]`` in that dtype. Products and sums run in float32 and
-round once to the output dtype. The kernel does not check that idx lies in
-``[0, C)``; the lattice (``ops/permuto_encoding.py``) guarantees it.
-
-Forward only: the table and weight gradients are the next slice's kernels,
-so these functions raise if autograd would need a gradient of their inputs.
+Outputs ``[L, F, N]`` in that dtype; products and sums run in float32 and
+round once. The backward kernels take float32 only: for bfloat16 tables the
+backward widens g, bary and the tables to float32 first, and casts the
+float32 table gradient to the table dtype, as the JAX package's ``_ml_bwd``
+does. The kernels do not check that idx lies in ``[0, C)``; the lattice
+(``ops/permuto_encoding.py``) guarantees it.
 """
 from __future__ import annotations
 
@@ -34,15 +53,26 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FEATS = (1, 2, 4)
 
 
+# --------------------------------------------------------------- plain versions
+def _flat_rows(idx: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Level-offset flat row of every event: idx [L, V, N] -> [L*V*N] int64."""
+    offs = torch.arange(idx.shape[0], device=idx.device,
+                        dtype=torch.int64)[:, None, None] * capacity
+    return (idx.to(torch.int64) + offs).reshape(-1)
+
+
+def _gather_rows(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """tables [L, C, F], idx [L, V, N] -> float32 features [L, V, N, F]."""
+    l, c, f = tables.shape
+    feats = torch.index_select(tables.reshape(l * c, f), 0, _flat_rows(idx, c))
+    return feats.reshape(*idx.shape, f).float()
+
+
 def multilevel_gather_plain(tables: torch.Tensor, idx: torch.Tensor,
                             bary: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: gather, weight in float32, sum over V, round
     once. tables [L, C, F], idx/bary [L, V, N] -> [L, F, N]."""
-    l, c, f = tables.shape
-    offs = torch.arange(l, device=idx.device, dtype=torch.int64)[:, None, None] * c
-    rows = (idx.to(torch.int64) + offs).reshape(-1)                  # [L*V*N]
-    feats = torch.index_select(tables.reshape(l * c, f), 0, rows)    # [L*V*N, F]
-    feats = feats.reshape(*idx.shape, f).float()                     # [L, V, N, F]
+    feats = _gather_rows(tables, idx)                                # [L, V, N, F]
     out = torch.sum(feats * bary.float()[..., None], dim=1)         # [L, N, F]
     return out.permute(0, 2, 1).contiguous().to(tables.dtype)
 
@@ -54,38 +84,114 @@ def dual_gather_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
             multilevel_gather_plain(tables_b, idx, bary))
 
 
-def _check(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
-           bary: torch.Tensor) -> None:
-    t0 = tables[0]
+def table_grad_plain(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor,
+                     capacity: int) -> torch.Tensor:
+    """Plain table gradient: ``index_add_`` of the float32 products
+    ``bary * g`` at level-offset flat rows, summed in float64 and rounded once
+    to float32, as the kernel sums (in another order). idx/bary [L, V, N],
+    g [L, F, N] -> [L, C, F] float32."""
+    l, v, n = idx.shape
+    f = g.shape[1]
+    vals = bary.float()[..., None] * g.float().permute(0, 2, 1)[:, None]  # [L,V,N,F]
+    out = torch.zeros((l * capacity, f), dtype=torch.float64, device=idx.device)
+    out.index_add_(0, _flat_rows(idx, capacity), vals.reshape(-1, f).double())
+    return out.reshape(l, capacity, f).float()
+
+
+def dual_table_grad_plain(idx: torch.Tensor, bary: torch.Tensor,
+                          g_a: torch.Tensor, g_b: torch.Tensor, capacity: int):
+    """Plain dual table gradient: two single scatters of one event stream."""
+    return (table_grad_plain(idx, bary, g_a, capacity),
+            table_grad_plain(idx, bary, g_b, capacity))
+
+
+def gather_dbary_plain(tables: torch.Tensor, idx: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient: dot over F of the gathered rows with g, in
+    float32. tables [L, C, F], idx [L, V, N], g [L, F, N] -> [L, V, N] float32."""
+    feats = _gather_rows(tables, idx)                                # [L, V, N, F]
+    return torch.sum(feats * g.float().permute(0, 2, 1)[:, None], dim=-1)
+
+
+# ------------------------------------------------------------------ checks
+def _check_device(tensors) -> None:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all inputs must be contiguous")
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+
+
+def _check_tables(t0: torch.Tensor, idx: torch.Tensor) -> None:
     if t0.dim() != 3:
         raise ValueError(f"tables must be [L, C, F], got {tuple(t0.shape)}")
     l, _, f = t0.shape
     if f not in _FEATS:
         raise ValueError(f"feature width {f} not supported; use one of {_FEATS}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.dim() != 3 or idx.shape[:2] != (l, VERTS):
+        raise ValueError(f"idx must be [L={l}, {VERTS}, N], got {tuple(idx.shape)}")
+
+
+def _check(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
+           bary: torch.Tensor) -> None:
+    """Contract of the forward gathers."""
+    t0 = tables[0]
+    _check_tables(t0, idx)
     if t0.dtype not in _DTYPE_CODE:
         raise TypeError(f"tables must be float32 or bfloat16, got {t0.dtype}")
     for t in tables[1:]:
         if t.shape != t0.shape or t.dtype != t0.dtype:
             raise ValueError("dual tables must share shape and dtype")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
     if bary.dtype != t0.dtype:
         raise TypeError(f"bary dtype {bary.dtype} != tables dtype {t0.dtype}")
-    if idx.dim() != 3 or idx.shape[:2] != (l, VERTS) or bary.shape != idx.shape:
-        raise ValueError(f"idx and bary must both be [L={l}, {VERTS}, N], got "
+    if bary.shape != idx.shape:
+        raise ValueError(f"idx and bary must both be [L, {VERTS}, N], got "
                          f"{tuple(idx.shape)} and {tuple(bary.shape)}")
-    devices = {t.device for t in (*tables, idx, bary)}
-    if len(devices) != 1:
-        raise ValueError(f"all inputs must be on one device, got {devices}")
-    if not all(t.is_contiguous() for t in (*tables, idx, bary)):
-        raise ValueError("tables, idx and bary must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*tables, bary)):
-        raise RuntimeError("the table gather is forward only; run it under "
-                           "torch.no_grad() or torch.inference_mode()")
-    if t0.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t0.device}")
+    _check_device((*tables, idx, bary))
 
 
+def _check_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int) -> None:
+    """Contract of the table-gradient scatters: idx [L, 4, N] int32, float32
+    bary [L, 4, N] and cotangents [L, F, N]."""
+    g0 = gs[0]
+    if g0.dim() != 3 or g0.shape[1] not in _FEATS:
+        raise ValueError(f"g must be [L, F, N] with F in {_FEATS}, got "
+                         f"{tuple(g0.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.dim() != 3 or idx.shape[1] != VERTS or bary.shape != idx.shape:
+        raise ValueError(f"idx and bary must both be [L, {VERTS}, N], got "
+                         f"{tuple(idx.shape)} and {tuple(bary.shape)}")
+    l, _, n = idx.shape
+    for g in gs:
+        if g.shape != (l, g0.shape[1], n):
+            raise ValueError(f"g must be [L={l}, F, N={n}], got {tuple(g.shape)}")
+    for t in (bary, *gs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"bary and g must be float32, got {t.dtype}")
+    if capacity <= 0:
+        raise ValueError(f"capacity must be positive, got {capacity}")
+    _check_device((idx, bary, *gs))
+
+
+def _check_dbary(tables: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> None:
+    """Contract of dbary: float32 tables [L, C, F] and g [L, F, N]."""
+    _check_tables(tables, idx)
+    l, _, f = tables.shape
+    if tables.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"tables and g must be float32, got {tables.dtype} "
+                        f"and {g.dtype}")
+    if g.shape != (l, f, idx.shape[2]):
+        raise ValueError(f"g must be [L={l}, F={f}, N={idx.shape[2]}], got "
+                         f"{tuple(g.shape)}")
+    _check_device((tables, idx, g))
+
+
+# ------------------------------------------------------------------ kernels
 @functools.cache
 def _kernel():
     from . import _build
@@ -93,6 +199,28 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _scatter_kernels():
+    from . import _build
+    lib = _build.load("permuto_scatter")
+    grad = lib.pagnerf_table_grad
+    grad.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    grad.restype = ctypes.c_int
+    dbary = lib.pagnerf_gather_dbary
+    dbary.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    dbary.restype = ctypes.c_int
+    return grad, dbary
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
@@ -105,26 +233,154 @@ def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
         return outs
     fn = _kernel()
     with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = fn(tables[0].data_ptr(), tables[-1].data_ptr(), idx.data_ptr(),
                  bary.data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
-                 l, c, n, f, len(tables), _DTYPE_CODE[tables[0].dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"permuto_gather kernel launch failed: cudaError_t {err}")
+                 l, c, n, f, len(tables), _DTYPE_CODE[tables[0].dtype],
+                 _stream(idx.device))
+    _raise_on(err, "permuto_gather")
     return outs
+
+
+def _launch_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int):
+    """The kernel sums into zero-filled float64 scratch and rounds once into
+    the float32 outputs (see ``csrc/permuto_scatter.cu``, "Accuracy")."""
+    l, _, n = idx.shape
+    f = gs[0].shape[1]
+    if n == 0:
+        return tuple(torch.zeros((l, capacity, f), dtype=torch.float32,
+                                 device=idx.device) for _ in gs)
+    outs = tuple(torch.empty((l, capacity, f), dtype=torch.float32,
+                             device=idx.device) for _ in gs)
+    acc = tuple(torch.zeros((l, capacity, f), dtype=torch.float64,
+                            device=idx.device) for _ in gs)
+    grad, _ = _scatter_kernels()
+    with torch.cuda.device(idx.device):
+        err = grad(idx.data_ptr(), bary.data_ptr(), gs[0].data_ptr(),
+                   gs[-1].data_ptr(), acc[0].data_ptr(), acc[-1].data_ptr(),
+                   outs[0].data_ptr(), outs[-1].data_ptr(),
+                   l, capacity, n, f, len(gs), _stream(idx.device))
+    _raise_on(err, "permuto_scatter table_grad")
+    return outs
+
+
+# ------------------------------------------------------------ kernel wrappers
+def multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor,
+                          capacity: int) -> torch.Tensor:
+    """Table gradient [L, C, F] float32 from idx [L, 4, N] int32, bary [L, 4, N]
+    and g [L, F, N] (both float32). CUDA tensors launch the scatter kernel
+    (counted in ``.launches``); CPU tensors take ``table_grad_plain``."""
+    _check_grad(idx, bary, (g,), capacity)
+    if idx.device.type == "cpu":
+        return table_grad_plain(idx, bary, g, capacity)
+    (out,) = _launch_grad(idx, bary, (g,), capacity)
+    multilevel_table_grad.launches += 1
+    return out
+
+
+def dual_multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor,
+                               g_a: torch.Tensor, g_b: torch.Tensor,
+                               capacity: int):
+    """Both tables' gradients from one event stream -> (dT_a, dT_b), each
+    [L, C, F] float32. One kernel launch (counted in ``.launches``) reads
+    idx and bary once for both; CPU tensors take ``dual_table_grad_plain``."""
+    _check_grad(idx, bary, (g_a, g_b), capacity)
+    if idx.device.type == "cpu":
+        return dual_table_grad_plain(idx, bary, g_a, g_b, capacity)
+    out = _launch_grad(idx, bary, (g_a, g_b), capacity)
+    dual_multilevel_table_grad.launches += 1
+    return out
+
+
+def multilevel_gather_dbary(tables: torch.Tensor, idx: torch.Tensor,
+                            g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient [L, 4, N] float32 from float32 tables [L, C, F], idx
+    [L, 4, N] int32 and g [L, F, N]. CUDA tensors launch the dbary kernel
+    (counted in ``.launches``); CPU tensors take ``gather_dbary_plain``."""
+    _check_dbary(tables, idx, g)
+    if idx.device.type == "cpu":
+        return gather_dbary_plain(tables, idx, g)
+    l, c, f = tables.shape
+    n = idx.shape[2]
+    out = torch.empty((l, VERTS, n), dtype=torch.float32, device=idx.device)
+    if n == 0:
+        return out
+    _, dbary = _scatter_kernels()
+    with torch.cuda.device(idx.device):
+        err = dbary(tables.data_ptr(), idx.data_ptr(), g.data_ptr(),
+                    out.data_ptr(), l, c, n, f, _stream(idx.device))
+    _raise_on(err, "permuto_scatter dbary")
+    multilevel_gather_dbary.launches += 1
+    return out
+
+
+# ------------------------------------------------------------ autograd
+class _Gather(torch.autograd.Function):
+    """Single-table gather; backward = table scatter (+ dbary on request)."""
+
+    @staticmethod
+    def forward(ctx, tables, idx, bary):
+        ctx.save_for_backward(tables, idx, bary)
+        if tables.device.type == "cpu":
+            return multilevel_gather_plain(tables, idx, bary)
+        (out,) = _launch((tables,), idx, bary)
+        multilevel_table_gather.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        tables, idx, bary = ctx.saved_tensors
+        g = g.float().contiguous()
+        dtables = dbary = None
+        if ctx.needs_input_grad[0]:
+            dtables = multilevel_table_grad(idx, bary.float().contiguous(), g,
+                                            tables.shape[1]).to(tables.dtype)
+        if ctx.needs_input_grad[2]:
+            dbary = multilevel_gather_dbary(tables.float().contiguous(), idx,
+                                            g).to(bary.dtype)
+        return dtables, None, dbary
+
+
+class _DualGather(torch.autograd.Function):
+    """Dual-table gather at shared idx/bary; backward = one dual scatter for
+    both tables, dbary from the A side only (B's weights are stop-gradient)."""
+
+    @staticmethod
+    def forward(ctx, tables_a, tables_b, idx, bary):
+        ctx.save_for_backward(tables_a, idx, bary)
+        ctx.capacity = tables_b.shape[1]
+        ctx.dtype_b = tables_b.dtype
+        if tables_a.device.type == "cpu":
+            return dual_gather_plain(tables_a, tables_b, idx, bary)
+        out = _launch((tables_a, tables_b), idx, bary)
+        dual_multilevel_table_gather.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g_a, g_b):
+        tables_a, idx, bary = ctx.saved_tensors
+        l, c, f = tables_a.shape
+        n = idx.shape[2]
+        zeros = lambda: torch.zeros((l, f, n), dtype=torch.float32, device=idx.device)
+        g_a = zeros() if g_a is None else g_a.float().contiguous()
+        g_b = zeros() if g_b is None else g_b.float().contiguous()
+        dta = dtb = dbary = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dta, dtb = dual_multilevel_table_grad(
+                idx, bary.float().contiguous(), g_a, g_b, ctx.capacity)
+            dta, dtb = dta.to(tables_a.dtype), dtb.to(ctx.dtype_b)
+        if ctx.needs_input_grad[3]:
+            dbary = multilevel_gather_dbary(tables_a.float().contiguous(), idx,
+                                            g_a).to(bary.dtype)
+        return dta, dtb, None, dbary
 
 
 def multilevel_table_gather(tables: torch.Tensor, idx: torch.Tensor,
                             bary: torch.Tensor) -> torch.Tensor:
-    """tables [L, C, F], idx [L, 4, N] int32, bary [L, 4, N] -> [L, F, N].
-    CUDA tensors launch the kernel (counted in ``.launches``); CPU tensors
-    take ``multilevel_gather_plain``."""
+    """tables [L, C, F], idx [L, 4, N] int32, bary [L, 4, N] -> [L, F, N],
+    differentiable in tables and bary. CUDA tensors launch the kernel
+    (counted in ``.launches``); CPU tensors take ``multilevel_gather_plain``."""
     _check((tables,), idx, bary)
-    if tables.device.type == "cpu":
-        return multilevel_gather_plain(tables, idx, bary)
-    (out,) = _launch((tables,), idx, bary)
-    multilevel_table_gather.launches += 1
-    return out
+    return _Gather.apply(tables, idx, bary)
 
 
 def dual_multilevel_table_gather(tables_a: torch.Tensor, tables_b: torch.Tensor,
@@ -132,14 +388,26 @@ def dual_multilevel_table_gather(tables_a: torch.Tensor, tables_b: torch.Tensor,
     """Two same-shape table stacks at shared idx/bary -> (out_a, out_b), each
     [L, F, N], bit-identical to two single gathers. One kernel launch reads
     both tables' entries of a vertex in one pass (counted in ``.launches``);
-    CPU tensors take ``dual_gather_plain``."""
+    CPU tensors take ``dual_gather_plain``. Differentiable in both tables and
+    in bary, whose gradient comes from the A side only."""
     _check((tables_a, tables_b), idx, bary)
-    if tables_a.device.type == "cpu":
-        return dual_gather_plain(tables_a, tables_b, idx, bary)
-    out = _launch((tables_a, tables_b), idx, bary)
-    dual_multilevel_table_gather.launches += 1
-    return out
+    return _DualGather.apply(tables_a, tables_b, idx, bary)
 
 
 multilevel_table_gather.launches = 0
 dual_multilevel_table_gather.launches = 0
+multilevel_table_grad.launches = 0
+dual_multilevel_table_grad.launches = 0
+multilevel_gather_dbary.launches = 0
+
+KERNELS = {"gather": multilevel_table_gather,
+           "dual_gather": dual_multilevel_table_gather,
+           "table_grad": multilevel_table_grad,
+           "dual_table_grad": dual_multilevel_table_grad,
+           "dbary": multilevel_gather_dbary}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0

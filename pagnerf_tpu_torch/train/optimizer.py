@@ -1,0 +1,143 @@
+"""Optimizer: per-group learning rates and the masked Adam update
+(counterpart of ``pagnerf_tpu/train/optimizer.py``).
+
+Parameters are grouped by name (``label_for_path``: decoder, sem, inst,
+delta_grid, grid, rest, extrinsics) with per-group learning rates: the grids
+at lr x 100, the extrinsics at 1e-4. Each group runs Adam (eps = 1e-15) with
+its own step count, as optax's ``multi_transform`` keeps one count per
+group. ``torch.optim.Adam`` cannot stand in: it keeps a count per parameter
+and skips parameters whose gradient is None, so its bias correction drifts
+from the JAX package's after a frozen span or a stage that leaves a head
+unused. Here a missing gradient is a zero gradient, as it is in JAX.
+
+``MaskedAdam.update`` is ``masked_update``:
+- frozen parameters (``frozen_fn(name)``) keep their values and their Adam
+  moments, while their group's count advances;
+- a global-norm clip (``clip_grad_norm > 0``) scales all gradients after the
+  freeze zeroing;
+- a step with any non-finite gradient changes nothing: parameters, moments
+  and counts stay bit-identical.
+
+Ported: Adam with the constant schedule. The other optimizers, weight decay
+and the learning-rate schedules raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """The JAX package's optimizer settings, same names and defaults."""
+
+    optimizer_type: str = "adam"
+    lr: float = 0.001
+    eps: float = 1e-15
+    weight_decay: float = 0.0
+    grid_lr_weight: float = 100.0
+    delta_grid_lr_weight: float = 100.0
+    extrinsics_lr: float = 0.0001
+    use_lr_scheduler: bool = False
+    lr_scheduler_type: str = "step"
+    lr_step_size: int = 0
+    lr_step_gamma: float = 0.1
+    lr_warmup_epochs: int = 0
+    lr_div_factor: float = 10000.0
+    num_epochs: int = 800
+    steps_per_epoch: int = 1
+    clip_grad_norm: float = 0.0
+
+
+GROUPS = ("decoder", "sem", "inst", "delta_grid", "grid", "rest", "extrinsics")
+_B1, _B2 = 0.9, 0.999
+
+
+def label_for_path(path: str) -> str:
+    """Group of a parameter path ('/'- or '.'-joined), with the reference's
+    precedence of name matches."""
+    if path.startswith("extrinsics"):
+        return "extrinsics"
+    if "decoder" in path:
+        return "decoder"
+    if "inst" in path:
+        return "inst"
+    if "sem" in path:
+        return "sem"
+    if "delta_grid" in path:
+        return "delta_grid"
+    if "grid" in path:
+        return "grid"
+    return "rest"
+
+
+def group_lr(cfg: OptimizerConfig, group: str) -> float:
+    return {"decoder": cfg.lr, "sem": cfg.lr, "inst": cfg.lr, "rest": cfg.lr,
+            "grid": cfg.lr * cfg.grid_lr_weight,
+            "delta_grid": cfg.lr * cfg.delta_grid_lr_weight,
+            "extrinsics": cfg.extrinsics_lr if cfg.extrinsics_lr >= 0 else cfg.lr,
+            }[group]
+
+
+class MaskedAdam:
+    """Adam over named parameters, one step count per group (the JAX
+    package's ``build_optimizer`` + ``masked_update``)."""
+
+    def __init__(self, cfg: OptimizerConfig,
+                 params: Mapping[str, torch.Tensor]):
+        unported = [name for name, on in (
+            (f"optimizer_type={cfg.optimizer_type!r}", cfg.optimizer_type != "adam"),
+            ("weight_decay", cfg.weight_decay > 0),
+            ("use_lr_scheduler", cfg.use_lr_scheduler)) if on]
+        if unported:
+            raise NotImplementedError(f"optimizer settings not ported yet: {unported}")
+        self.cfg = cfg
+        self.params = dict(params)
+        self.group = {name: label_for_path(name) for name in self.params}
+        self.lr = {g: group_lr(cfg, g) for g in GROUPS}
+        self.count = {g: 0 for g in GROUPS}
+        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, Optional[torch.Tensor]],
+               frozen_fn: Optional[Callable[[str], bool]] = None,
+               clip_norm: float = 0.0) -> bool:
+        """One masked step; returns False (and changes nothing) when a
+        gradient is not finite. A name missing from ``grads`` or mapped to
+        None has a zero gradient."""
+        frozen = {n for n in self.params if frozen_fn is not None and frozen_fn(n)}
+        g = {}
+        for n, p in self.params.items():
+            gn = grads.get(n)
+            g[n] = (torch.zeros_like(p) if gn is None or n in frozen
+                    else gn.to(p.dtype))
+        if clip_norm and clip_norm > 0:
+            gnorm = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
+            scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
+            g = {n: x * scale for n, x in g.items()}
+        finite = all(bool(torch.isfinite(x).all()) for x in g.values())
+        if not finite:
+            return False
+        for grp in GROUPS:
+            self.count[grp] += 1
+        for n, p in self.params.items():
+            if n in frozen:
+                continue
+            grp = self.group[n]
+            t = self.count[grp]
+            mu = g[n] * (1 - _B1) + self.mu[n] * _B1
+            nu = (g[n] * g[n]) * (1 - _B2) + self.nu[n] * _B2
+            bc1 = 1 - torch.tensor(_B1, dtype=torch.float32) ** t
+            bc2 = 1 - torch.tensor(_B2, dtype=torch.float32) ** t
+            step = (mu / bc1.to(mu.device)) / (
+                torch.sqrt(nu / bc2.to(nu.device)) + self.cfg.eps)
+            p.add_(step * (-self.lr[grp]))
+            self.mu[n], self.nu[n] = mu, nu
+        return True
+
+    def state(self) -> Dict:
+        """Counts and moments (for tests and checkpoints)."""
+        return {"count": dict(self.count), "mu": self.mu, "nu": self.nu}

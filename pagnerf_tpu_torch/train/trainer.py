@@ -1,0 +1,386 @@
+"""Panoptic trainer (counterpart of ``pagnerf_tpu/train/trainer.py``).
+
+The step is the JAX package's host-loop microbatch accumulation: the batch is
+cut into image microbatches; for each, the losses go through one forward and
+one backward (gradients add into ``.grad`` in microbatch order), then the
+summed gradients are scaled by ``1 / num_micro`` and the masked Adam update
+runs once. Per-microbatch stratified jitter is drawn from the trainer's
+``torch.Generator``, or handed in (``jitters``) so a test can give the port
+the very numbers the JAX step drew from its key.
+
+On the card each microbatch runs the table gather forward kernel (single in
+an RGB stage, dual once the panoptic heads render), its table-gradient
+scatter kernel, and -- for a camera that is not an anchor frame -- the
+``dbary`` kernel that carries the pose gradient (``ops/table_gather.py``).
+
+Ported: ``TrainerConfig``, ``StageConfig`` and ``snap_microbatch`` with the
+JAX package's names and defaults; ``stage_for_epoch``; the losses of the
+RGB, semantic and ``linear_assignment_things`` heads (with the repeated-ID
+rejection and the segment-consistency regulariser); ``train_step``. Not
+ported yet, and refused by ``stage_for_epoch``: the voxel march, the packed
+and compacted sample layouts, prune and seed prune, val-pose epochs, the TV
+regularisers, ``sup_contrastive`` and the plain linear-assignment loss, LoD
+annealing and random LoD, the fused micro-step. Checkpoints and validation
+are not ported either.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.camera import rays_to_3d_points
+from ..core.rays import Rays
+from ..data.multiview import MultiviewDataset
+from ..losses.lin_assignment import lin_assignment_things_loss
+from ..losses.photometric import rgb_l1_loss, semantic_loss
+from ..losses.regularizers import segment_consistency_regularizer
+from ..models.pipeline import BAPipeline, Pipeline
+from ..ops.occupancy import OccupancyGrid
+from ..utils.lod_annealing import constant_lod_weights
+from .optimizer import MaskedAdam, OptimizerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """The JAX package's trainer settings, same names and defaults (best.yaml)."""
+
+    epochs: int = 800
+    batch_size: int = 6
+    num_rays_sampled_per_img: int = 4096
+
+    rgb_weight: float = 10.0
+    sem_weight: float = 0.1
+    sem_epoch_start: int = 601
+    sem_conf_enable: bool = False
+    sem_temperature: float = 1.0
+    sem_softmax: bool = True
+    sem_segment_reg_weight: float = 0.0
+    contrast_sem_weight: float = 0.0
+
+    inst_loss: str = "linear_assignment_things"
+    inst_weight: float = 1000.0
+    inst_epoch_start: int = 601
+    inst_conf_enable: bool = False
+    inst_outlier_rejection: bool = True
+    inst_segment_reg_weight: float = 1.0
+    inst_temperature: float = 0.07
+    base_temperature: float = 0.07
+    inst_pn_ratio: float = 0.5
+
+    optimize_extrinsics: bool = True
+    extrinsics_epoch_start: int = 0
+    extrinsics_epoch_end: int = -1
+    optimize_val_extrinsics: bool = True
+    val_extrinsics_start: int = 1
+    val_extrinsics_end: int = -1
+    val_extrinsics_every: int = 10
+
+    prune_every: int = 201
+    prune_at_epoch: int = -1
+    prune_at_start: bool = False
+    prune_samples_per_cell: int = 4
+    prune_dilate: int = 1
+    prune_monotone: bool = True
+    voxel_raymarch_epoch_start: int = 201
+    samples_per_voxel: int = 2
+
+    grid_tvl1_reg: float = 0.0
+    grid_tvl2_reg: float = 0.0
+    delta_grid_tvl1_reg: float = 0.0
+    delta_grid_tvl2_reg: float = 0.0
+    tv_window_size: float = 0.0001
+    tv_edge_num_samples: int = 100
+
+    lod_anneling: bool = False
+    lod_annel_epochs: int = 400
+    lod_annel_epoch_start: int = 0
+
+    compact_steps_after_prune: int = -1
+    packed_compaction: bool = True
+    seed_prune_epoch: int = -1
+    seed_keep_frac: float = 0.2
+    seed_refresh_every: int = 0
+    seed_refresh_keep_frac: float = 0.02
+    random_lod: bool = False
+    micro_batch_imgs: int = 1
+    fused_micro_step: bool = False
+    dispatch_ahead: int = 4
+
+    valid_every: int = 100
+    render_batch: int = 8000
+    val_mip: int = 2
+    inst_num_dilations: int = 1
+    inst_min_mask_px: int = 100
+    num_val_frames_to_save: int = 1
+    render_val_labels: bool = True
+    log_2d: bool = False
+    save_preds: bool = False
+    save_grid: bool = False
+    num_clustering_samples: int = 20000
+    low_res_val: bool = False
+    seed: int = 0
+
+
+def snap_microbatch(batch_size: int, micro_batch_imgs: int) -> int:
+    """Largest divisor of ``batch_size`` that is <= ``micro_batch_imgs``, so
+    microbatches tile the batch exactly."""
+    mb = max(1, min(micro_batch_imgs, batch_size))
+    while batch_size % mb != 0:
+        mb -= 1
+    return mb
+
+
+@dataclasses.dataclass(frozen=True)
+class StageConfig:
+    """Per-epoch snapshot of what the step does (the JAX package's key of its
+    jitted step)."""
+
+    channels: frozenset
+    raymarch_type: str
+    num_steps: int
+    compact_steps: int
+    pack_steps: int
+    use_sem: bool
+    use_inst: bool
+    use_inst_segment_reg: bool
+    training_val_poses: bool
+    extrinsics_on: bool
+
+
+class PanopticTrainer:
+    """Trainer over a (BA)Pipeline and a MultiviewDataset; the pipeline's
+    parameters must require grad and live on the trainer's device."""
+
+    def __init__(self, pipeline: Pipeline, dataset: MultiviewDataset,
+                 cfg: TrainerConfig = TrainerConfig(),
+                 opt_cfg: OptimizerConfig = OptimizerConfig(),
+                 occ_level: int = 7):
+        self.pipeline = pipeline
+        self.dataset = dataset
+        self.cfg = cfg
+        steps = dataset.steps_per_epoch(cfg.batch_size)
+        self.opt_cfg = dataclasses.replace(opt_cfg, num_epochs=cfg.epochs,
+                                           steps_per_epoch=steps)
+        self.steps_per_epoch = steps
+        self.device = pipeline.extrinsics.device if isinstance(
+            pipeline, BAPipeline) else next(pipeline.parameters()).device
+        self.rng = np.random.default_rng(cfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.params = dict(pipeline.named_parameters())
+        self.opt = MaskedAdam(self.opt_cfg, self.params)
+        self.occ = OccupancyGrid.create(level=occ_level, device=self.device)
+        nef = pipeline.nef
+        self.lod_w = torch.from_numpy(constant_lod_weights(
+            nef.grid_cfg.num_lods, nef.grid_cfg.feature_dim)).to(self.device)
+        self.epoch = 0
+        self.global_step = 0
+
+        si = dataset.semantic_info
+        self.num_classes = si["num_classes"]
+        self.num_instances = si["num_instances"]
+        self.stuff_ids = tuple(si["stuff_ids"])
+        ee = cfg.extrinsics_epoch_end if cfg.extrinsics_epoch_end >= 0 else cfg.epochs
+        ve = cfg.val_extrinsics_end if cfg.val_extrinsics_end >= 0 else cfg.epochs
+        self._extrinsics_end = ee
+        self._val_extrinsics_end = ve
+
+    # ------------------------------------------------------------- stages
+    def stage_for_epoch(self, epoch: int) -> StageConfig:
+        """The JAX package's stage at ``epoch``; raises NotImplementedError
+        for a stage that needs a part not ported yet."""
+        cfg = self.cfg
+        training_val_poses = (cfg.optimize_val_extrinsics
+                              and isinstance(self.pipeline, BAPipeline)
+                              and cfg.val_extrinsics_start <= epoch <= self._val_extrinsics_end
+                              and epoch % cfg.val_extrinsics_every == 0)
+        use_sem = (epoch >= cfg.sem_epoch_start and cfg.sem_weight > 0
+                   and "semantics" in self.dataset.data and not training_val_poses)
+        use_inst = (epoch >= cfg.inst_epoch_start and epoch >= cfg.sem_epoch_start
+                    and cfg.inst_weight > 0 and bool(cfg.inst_loss)
+                    and "instance" in self.dataset.data and not training_val_poses)
+        channels = {"rgb"}
+        if use_sem:
+            channels.add("semantics")
+        if use_inst:
+            channels.add("inst_embedding")
+        if cfg.inst_outlier_rejection and use_inst:
+            channels.add("depth")
+        voxel = epoch > cfg.voxel_raymarch_epoch_start
+        pruned = ((cfg.prune_every > 0 and epoch >= cfg.prune_every)
+                  or 0 <= cfg.prune_at_epoch <= epoch or cfg.prune_at_start
+                  or 0 <= cfg.seed_prune_epoch <= epoch)
+        unported = {
+            "voxel raymarch": voxel,
+            "prune / packed or compacted layout": pruned,
+            "val-pose epochs": training_val_poses,
+            "grid TV regularisers": (cfg.grid_tvl1_reg > 0 or cfg.grid_tvl2_reg > 0
+                                     or cfg.delta_grid_tvl1_reg > 0
+                                     or cfg.delta_grid_tvl2_reg > 0),
+            f"inst_loss={cfg.inst_loss!r}": (use_inst and cfg.inst_loss
+                                             != "linear_assignment_things"),
+            "contrast_sem_weight (sup_contrastive)": use_sem and cfg.contrast_sem_weight > 0,
+            "LoD annealing / random LoD": cfg.lod_anneling or cfg.random_lod,
+            "fused_micro_step": cfg.fused_micro_step,
+        }
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"the training stage at epoch {epoch} needs parts not ported yet: "
+                f"{asked}")
+        base = self.pipeline.tracer_cfg
+        return StageConfig(
+            channels=frozenset(channels),
+            raymarch_type=base.raymarch_type,
+            num_steps=base.num_steps,
+            compact_steps=0,
+            pack_steps=0,
+            use_sem=use_sem,
+            use_inst=use_inst,
+            # the JAX package reproduces a reference quirk: the threshold is
+            # the WEIGHT, so the reg switches on at epoch > weight
+            use_inst_segment_reg=(cfg.inst_segment_reg_weight > 0
+                                  and epoch > cfg.inst_segment_reg_weight),
+            training_val_poses=training_val_poses,
+            extrinsics_on=(cfg.optimize_extrinsics
+                           and cfg.extrinsics_epoch_start <= epoch <= self._extrinsics_end),
+        )
+
+    # --------------------------------------------------------------- loss
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def compute_losses(self, batch: Dict[str, torch.Tensor], stage: StageConfig,
+                       jitter=None):
+        """(total, {name: loss}) of one microbatch; ``jitter`` is a [B*R, S]
+        tensor of uniforms or a generator (the JAX package's ``key``)."""
+        cfg = self.cfg
+        tracer_cfg = dataclasses.replace(self.pipeline.tracer_cfg,
+                                         raymarch_type=stage.raymarch_type,
+                                         num_steps=stage.num_steps,
+                                         compact_steps=stage.compact_steps,
+                                         pack_steps=stage.pack_steps)
+        b, r = batch["imgs"].shape[:2]
+        base_rays = Rays(origins=batch["base_rays_origins"],
+                         dirs=batch["base_rays_dirs"], dist_min=0.0, dist_max=6.0)
+        cam_idx = batch["cam_idx"].to(torch.int64)
+        if not isinstance(self.pipeline, BAPipeline):
+            raise NotImplementedError("only the BAPipeline is ported for training")
+        rb = self.pipeline(base_rays, stage.channels, self.occ, self.lod_w,
+                           stage="train", cam_idx=cam_idx, jitter=jitter,
+                           tracer_cfg=tracer_cfg)
+
+        losses: Dict[str, torch.Tensor] = {}
+        total = 0.0
+        if cfg.rgb_weight > 0.0:
+            rloss = rgb_l1_loss(rb.rgb, batch["imgs"].reshape(-1, 3))
+            total = total + cfg.rgb_weight * rloss
+            losses["rgb_loss"] = rloss
+
+        if stage.use_sem:
+            sem_gts = batch.get("semantics_pred", batch["semantics"]).reshape(-1)
+            conf = batch["sem_conf"].reshape(-1) if (
+                cfg.sem_conf_enable and "sem_conf" in batch) else None
+            sloss = semantic_loss(rb.semantics, sem_gts, cfg.sem_softmax,
+                                  cfg.sem_temperature, conf)
+            if cfg.sem_segment_reg_weight > 0.0:
+                sloss = sloss + cfg.sem_segment_reg_weight * \
+                    segment_consistency_regularizer(
+                        (rb.semantics + 1e-27).reshape(b, r, -1),
+                        sem_gts.reshape(b, r), self.num_classes)
+            total = total + cfg.sem_weight * sloss
+            losses["sem_loss"] = sloss
+
+        if stage.use_inst:
+            inst_gts = batch.get("instance_pred", batch["instance"]).reshape(b, r)
+            sem_gts = batch.get("semantics_pred", batch["semantics"]).reshape(b, r)
+            inst_embed = rb.inst_embedding.reshape(b, r, -1)
+            stuff = torch.isin(sem_gts, torch.tensor(
+                self.stuff_ids, dtype=sem_gts.dtype, device=sem_gts.device))
+            points_3d = None
+            if cfg.inst_outlier_rejection:
+                with torch.no_grad():
+                    world = self.pipeline.transform_rays(base_rays, cam_idx)
+                    points_3d = rays_to_3d_points(world, rb.depth).reshape(b, r, 3)
+            lmap = lin_assignment_things_loss(
+                inst_embed, inst_gts, stuff, self.num_instances,
+                points_3d=points_3d, outlier_rejection=cfg.inst_outlier_rejection)
+            if stage.use_inst_segment_reg:
+                lmap = lmap + cfg.inst_segment_reg_weight * \
+                    segment_consistency_regularizer(
+                        inst_embed + 1e-27, inst_gts, self.num_instances)
+            if cfg.inst_conf_enable and "inst_conf" in batch:
+                lmap = lmap * batch["inst_conf"].reshape(b, r)
+            iloss = lmap.mean()
+            total = total + cfg.inst_weight * iloss
+            losses["inst_loss"] = iloss
+
+        losses["total_loss"] = total
+        return total, losses
+
+    # ---------------------------------------------------------- train step
+    def frozen_fn(self, stage: StageConfig):
+        def frozen(name: str) -> bool:
+            if stage.training_val_poses:
+                return not name.startswith("extrinsics")
+            if name.startswith("extrinsics"):
+                return not stage.extrinsics_on
+            return False
+        return frozen
+
+    def _micro_batches(self, batch: Dict[str, np.ndarray]):
+        b = batch["imgs"].shape[0]
+        mb = snap_microbatch(b, self.cfg.micro_batch_imgs or b)
+        subs = []
+        for m in range(b // mb):
+            sl = slice(m * mb, (m + 1) * mb)
+            subs.append({k: v[sl] if getattr(v, "ndim", 0) >= 1 and v.shape[0] == b
+                         else v for k, v in batch.items()})
+        return subs
+
+    def _backward(self, sub: Dict[str, np.ndarray], stage: StageConfig, jitter):
+        """Forward + backward of one microbatch; gradients add into .grad."""
+        total, losses = self.compute_losses(self._to_device(sub), stage,
+                                            self.generator if jitter is None
+                                            else jitter)
+        total.backward()
+        return {k: v.detach() for k, v in losses.items()}
+
+    def grad_step(self, stage: StageConfig, sub: Dict[str, np.ndarray],
+                  jitter=None):
+        """One microbatch's (gradients by parameter name, losses): the JAX
+        package's ``grad_step``. A parameter the losses do not reach has a
+        zero gradient."""
+        for p in self.params.values():
+            p.grad = None
+        losses = self._backward(sub, stage, jitter)
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                 for n, p in self.params.items()}
+        for p in self.params.values():
+            p.grad = None
+        return grads, losses
+
+    def train_step(self, stage: StageConfig, batch: Dict[str, np.ndarray],
+                   jitters: Optional[List] = None) -> Dict[str, torch.Tensor]:
+        """One optimisation step with image-axis gradient accumulation; returns
+        the losses averaged over the microbatches. ``jitters`` (one [R, S]
+        tensor per microbatch) replaces the generator's draws."""
+        subs = self._micro_batches(batch)
+        num_micro = len(subs)
+        for p in self.params.values():
+            p.grad = None
+        acc_l = None
+        for m, sub in enumerate(subs):
+            losses = self._backward(sub, stage, None if jitters is None else jitters[m])
+            acc_l = losses if acc_l is None else {k: acc_l[k] + v
+                                                  for k, v in losses.items()}
+        grads = {n: None if p.grad is None else p.grad * (1.0 / num_micro)
+                 for n, p in self.params.items()}
+        for p in self.params.values():
+            p.grad = None
+        self.opt.update(grads, self.frozen_fn(stage), self.opt_cfg.clip_grad_norm)
+        self.global_step += 1
+        return {k: v / num_micro for k, v in acc_l.items()}

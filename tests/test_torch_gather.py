@@ -117,7 +117,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         fn = tg_t.dual_multilevel_table_gather
         args = [ta, tb[:, :256], idx, bary]
     elif case == "grad":
-        args[0] = ta.requires_grad_()
+        # the gather is differentiable now; its table-gradient kernel takes
+        # float32 cotangents [L, F, N] only
+        fn = tg_t.multilevel_table_grad
+        args = [idx, bary, torch.zeros((L, F, idx.shape[2]), dtype=torch.bfloat16), C]
     with pytest.raises((TypeError, ValueError, RuntimeError)):
         fn(*args)
 

@@ -54,11 +54,11 @@ def test_build_uses_nvcc_and_ctypes_only():
         bad = [m for m in _imported_modules(path)
                if "cpp_extension" in m or m.split(".")[0] == "pybind11"]
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
-    with open(os.path.join(ROOT, "pagnerf_tpu_torch", "ops", "csrc",
-                           "permuto_gather.cu")) as f:
-        includes = [ln for ln in f if ln.startswith("#include")]
-    assert includes and not [i for i in includes
-                             if "torch" in i or "pybind" in i or "ATen" in i]
+    for name in ("permuto_gather.cu", "permuto_scatter.cu"):
+        with open(os.path.join(ROOT, "pagnerf_tpu_torch", "ops", "csrc", name)) as f:
+            includes = [ln for ln in f if ln.startswith("#include")]
+        assert includes and not [i for i in includes
+                                 if "torch" in i or "pybind" in i or "ATen" in i]
 
 
 def test_build_flags_and_library_name():
@@ -92,6 +92,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         entry.entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.train_flagship(tiny=True, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.resolve_device()
     assert device.resolve_device("cpu") == torch.device("cpu")
