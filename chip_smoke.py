@@ -7,8 +7,9 @@ Phases, each printing one JSON line as it ends:
 
 1. device  -- refuse to run without CUDA; name the card and its power limit.
 2. build   -- compile ``ops/csrc/permuto_gather.cu`` and
-   ``ops/csrc/permuto_scatter.cu`` with nvcc (ctypes route), one nvcc each,
-   both started together.
+   ``ops/csrc/permuto_scatter.cu`` (backward kernels and the row
+   scatter-add) with nvcc (ctypes route), one nvcc each, both started
+   together.
 3. kernels -- the forward gathers at the flagship render's shapes (L=24
    levels, C=2^18 entries, F=2, V=4, N = 3072 rays (camera 0's 64x48 image)
    x 512 steps = 1,572,864 samples), idx/bary from the port's lattice at the
@@ -18,9 +19,16 @@ Phases, each printing one JSON line as it ends:
 4. kernels_bwd -- the backward kernels at the flagship training shapes
    (N = 4096 rays x 512 steps = 2,097,152 samples of one microbatch), idx/bary
    from the port's lattice at a real training microbatch's jittered samples:
-   table-gradient scatter (single, dual) and dbary against their plain
-   versions, timed beside ``index_add_`` (the scatter's library yardstick),
-   with the single scatter's time per level.
+   first the microbatch's per-level statistics (events per row, distinct
+   rows per 256-sample block), then the table-gradient scatter (single,
+   dual; the main path's per-level live rows and modes) with random and
+   with same-signed cotangents, and dbary, against their plain versions,
+   timed beside ``index_add_`` (the scatter's library yardstick), with the
+   single scatter's device time per level.
+   scatter_rows -- the row scatter-add (no main path runs it): M = 2,097,152
+   same-signed rows of 128 into 4096 rows (the microbatch's level-0 indices
+   // 64), into 640 and into 128 rows, and no events, against its plain
+   version, timed beside ``index_add_``.
 5. tiny    -- the tiny configuration rendered on the card against the same
    render on the CPU (whose plain path the CPU tests hold against the JAX
    package), float32 decoders.
@@ -35,9 +43,9 @@ Phases, each printing one JSON line as it ends:
    rays each, one image per microbatch), counts read: the forward gather and
    the table-gradient kernel once per microbatch (single in the RGB stage,
    dual in the panoptic stage), dbary once per microbatch whose camera is not
-   an anchor frame. Losses must be finite. Then one microbatch's gradients
-   through the kernels against the same microbatch through the plain
-   backward versions on the card. Step times, rays/s and peak memory.
+   an anchor frame, the row scatter-add never. Losses must be finite. Then
+   one microbatch's gradients through the kernels against the same
+   microbatch through the plain backward versions on the card. Step times, rays/s and peak memory.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -120,6 +128,21 @@ def dbary_bound(l, c, f, n):
     v = 4
     nbytes = l * v * n * 4 + l * f * n * 4 + l * c * f * 4 + l * v * n * 4
     return _bound(nbytes, l * v * n * f * 2)
+
+
+def _kernel_wrappers():
+    """Every kernel wrapper of the port, by name, with its launch count."""
+    from pagnerf_tpu_torch.ops import scatter_rows, table_gather
+    return {**table_gather.KERNELS, "scatter_rows": scatter_rows.scatter_rows}
+
+
+def _reset_launches() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    return {k: fn.launches for k, fn in _kernel_wrappers().items()}
 
 
 def phase_build():
@@ -230,47 +253,24 @@ def phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush):
     return results
 
 
-def _training_microbatch(dev, seed=0):
-    """idx/bary of one flagship training microbatch (a non-anchor camera,
-    4096 rays x 512 jittered steps) from the port's own march and lattice."""
-    import numpy as np
-    import torch
-
-    from pagnerf_tpu_torch.core.rays import Rays
-    from pagnerf_tpu_torch.entry import flagship, train_config
-    from pagnerf_tpu_torch.ops import permuto_encoding
-    from pagnerf_tpu_torch.ops.occupancy import OccupancyGrid
-    from pagnerf_tpu_torch.ops.raymarch import raymarch
-
-    pipe, ds = flagship(device=dev, seed=seed)
-    cfg = train_config("rgb")
-    batch = ds.sample_batch(np.random.default_rng(seed), cfg.batch_size,
-                            cfg.num_rays_sampled_per_img)
-    m = int(np.nonzero(batch["cam_idx"] != 0)[0][0])
-    steps = pipe.tracer_cfg.num_steps
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad():
-        base = Rays(origins=torch.from_numpy(batch["base_rays_origins"][m:m + 1]).to(dev),
-                    dirs=torch.from_numpy(batch["base_rays_dirs"][m:m + 1]).to(dev),
-                    dist_min=0.0, dist_max=6.0)
-        rays = pipe.transform_rays(base, torch.tensor([int(batch["cam_idx"][m])],
-                                                      device=dev))
-        rm = raymarch(rays, OccupancyGrid.create(level=7, device=dev), steps,
-                      jitter=gen)
-        idx, bary = permuto_encoding.lattice(
-            pipe.nef.grid.tables, rm.positionsT.reshape(3, -1),
-            pipe.nef.grid.spec.scales)
-    return pipe.nef.grid.spec, idx, bary
-
-
 def phase_kernels_bwd(dev, flush):
     import torch
 
     from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.ops.permuto_encoding import scatter_plan
+    from pagnerf_tpu_torch.profile_scatter import device_ms, level_stats, training_microbatch
 
-    spec, idx, bary = _training_microbatch(dev)
+    spec, idx, bary = training_microbatch(dev)
     l, _, n = idx.shape
     c, f = spec.capacity, spec.feature_dim
+    # the main path's per-level live rows and accumulation modes
+    rows_used, modes = scatter_plan(spec.scales, c, f)
+    plan = dict(rows_used=rows_used, modes=modes)
+    stats = level_stats(idx, c)
+    emit("kernels_bwd", part="level_stats", L=l, C=c, N=n, modes=list(modes),
+         levels=[{k: e[k] for k in ("level", "events_per_row_max", "events_per_row_mean",
+                                    "touched_rows", "distinct_rows_per_256",
+                                    "rows_over_120")} for e in stats])
     gen = torch.Generator(device=dev).manual_seed(1)
     g_a = torch.randn((l, f, n), generator=gen, device=dev)
     g_b = torch.randn((l, f, n), generator=gen, device=dev)
@@ -283,8 +283,9 @@ def phase_kernels_bwd(dev, flush):
 
     def scatter_check(got, gs):
         """(max abs err, largest err / tol): per entry, the tolerance is
-        64 eps_f32 * the sum over its events of |bary * g| (float64 atomics in
-        a varying order, rounded once, against a float64 sum)."""
+        64 eps_f32 * the sum over its events of |bary * g| (the kernel's
+        accumulations in a varying order against a float64 sum rounded once;
+        csrc/permuto_scatter.cu, "Accuracy")."""
         worst, err = 0.0, 0.0
         for d, g in zip(got, gs):
             diff = (d - tg.table_grad_plain(idx, bary, g, c)).abs()
@@ -300,35 +301,47 @@ def phase_kernels_bwd(dev, flush):
             raise AssertionError(f"{name} kernel outside its tolerance of the "
                                  f"plain version: {fields}")
 
+    def checks(name, kernel, gs):
+        """The kernel against the plain version with random cotangents and
+        with same-signed ones (|randn|: a coarse row's ~1e5 events then
+        all add up, as the delta grid's real gradients do)."""
+        out = {}
+        for kind, g in (("random", gs), ("same_signed", [x.abs() for x in gs])):
+            got = kernel(*g)
+            out[kind] = scatter_check(got if isinstance(got, tuple) else (got,), g)
+            del got
+        fields = dict(max_abs_err=out["random"][0], worst_err_over_tol=out["random"][1],
+                      same_signed_max_abs_err=out["same_signed"][0],
+                      same_signed_worst_err_over_tol=out["same_signed"][1])
+        require(max(w for _, w in out.values()) <= 1.0, name, fields)
+        return fields
+
     results = {}
     # single scatter
-    single = tg.multilevel_table_grad(idx, bary, g_a, c)
-    err, worst = scatter_check((single,), (g_a,))
-    del single
-    require(worst <= 1.0, "table_grad_single", dict(max_abs_err=err, worst_err_over_tol=worst))
+    single = lambda g: tg.multilevel_table_grad(idx, bary, g, c, **plan)
+    fields = checks("table_grad_single", single, [g_a])
     lib_single = lambda: torch.zeros((l * c, f), device=dev).index_add_(0, rows, vals_a)
     lib_err = (lib_single().reshape(l, c, f)
                - tg.table_grad_plain(idx, bary, g_a, c)).abs().max().item()
     bound_ms, bound_by, nbytes, flops = scatter_bound(l, c, f, n, 1)
-    per_level = [cuda_ms(lambda lv=lv: tg.multilevel_table_grad(
-        idx[lv:lv + 1], bary[lv:lv + 1], g_a[lv:lv + 1], c), reps=3, flush=flush)
-        for lv in range(l)]
+    # each level alone: device time of its kernels (the profiler), since a
+    # call this small is dominated by launch gaps on the host clock
+    per_level = [device_ms(lambda lv=lv: tg.multilevel_table_grad(
+        idx[lv:lv + 1], bary[lv:lv + 1], g_a[lv:lv + 1], c, rows_used[lv:lv + 1],
+        modes[lv:lv + 1]))["total"] for lv in range(l)]
     results["table_grad_single"] = dict(
-        max_abs_err=err, tol="64 eps_f32 * sum|bary*g| per entry",
-        worst_err_over_tol=worst,
-        ms=cuda_ms(lambda: tg.multilevel_table_grad(idx, bary, g_a, c), flush=flush),
+        **fields, tol="64 eps_f32 * sum|bary*g| per entry",
+        ms=cuda_ms(lambda: single(g_a), flush=flush),
         plain_ms=cuda_ms(lambda: tg.table_grad_plain(idx, bary, g_a, c), flush=flush),
         library_ms=cuda_ms(lib_single, flush=flush), library_max_abs_err=lib_err,
         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-        per_level_ms=per_level)
+        per_level_device_ms=per_level)
     emit("kernels_bwd", kernel="table_grad_single", L=l, C=c, F=f, N=n,
          **results["table_grad_single"])
 
     # dual scatter
-    da, db = tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c)
-    err, worst = scatter_check((da, db), (g_a, g_b))
-    del da, db
-    require(worst <= 1.0, "table_grad_dual", dict(max_abs_err=err, worst_err_over_tol=worst))
+    dual = lambda ga, gb: tg.dual_multilevel_table_grad(idx, bary, ga, gb, c, **plan)
+    fields = checks("table_grad_dual", dual, [g_a, g_b])
     lib_dual = lambda: torch.zeros((l * c, 2 * f), device=dev).index_add_(0, rows, vals_ab)
     lib_out = lib_dual().reshape(l, c, 2 * f)
     lib_err = max((lib_out[..., :f] - tg.table_grad_plain(idx, bary, g_a, c)).abs().max().item(),
@@ -336,10 +349,8 @@ def phase_kernels_bwd(dev, flush):
     del lib_out
     bound_ms, bound_by, nbytes, flops = scatter_bound(l, c, f, n, 2)
     results["table_grad_dual"] = dict(
-        max_abs_err=err, tol="64 eps_f32 * sum|bary*g| per entry",
-        worst_err_over_tol=worst,
-        ms=cuda_ms(lambda: tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c),
-                   flush=flush),
+        **fields, tol="64 eps_f32 * sum|bary*g| per entry",
+        ms=cuda_ms(lambda: dual(g_a, g_b), flush=flush),
         plain_ms=cuda_ms(lambda: tg.dual_table_grad_plain(idx, bary, g_a, g_b, c),
                          flush=flush),
         library_ms=cuda_ms(lib_dual, flush=flush), library_max_abs_err=lib_err,
@@ -367,7 +378,58 @@ def phase_kernels_bwd(dev, flush):
         flops=flops)
     emit("kernels_bwd", kernel="gather_dbary", L=l, C=c, F=f, N=n,
          **results["gather_dbary"])
-    return results
+    return results, idx[0, 0].clone()
+
+
+def phase_scatter_rows(dev, level0_rows, flush):
+    """The row scatter-add (no main path runs it) at the flagship table's 2 MB
+    legacy layout: M = 2,097,152 events into 4096 rows of 128, rows = a real
+    microbatch's level-0 indices // 64 (about 84 rows of ~1e5 events each),
+    same-signed values; then the same events into 640 rows, into 128 rows
+    (each block then copies the whole output into shared memory, not only the
+    rows it touches), and no events."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import scatter_rows as sr
+
+    m = level0_rows.numel()
+    row = (level0_rows // 64).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vals = torch.randn((m, sr.WIDTH), generator=gen, device=dev).abs()
+    checks = {}
+    for num_rows in (4096, 640, 128):
+        got = sr.scatter_rows(row, vals, num_rows)
+        want = sr.scatter_rows_plain(row, vals, num_rows)
+        tol = 64 * F32_EPS * sr.scatter_rows_plain(row, vals.abs(), num_rows)
+        diff = (got - want).abs()
+        checks[num_rows] = dict(max_abs_err=diff.max().item(),
+                                worst_err_over_tol=(diff / tol.clamp(min=1e-30)).max().item())
+        if not checks[num_rows]["worst_err_over_tol"] <= 1.0:
+            emit("scatter_rows", ok=False, num_rows=num_rows, **checks[num_rows])
+            raise AssertionError(f"scatter_rows kernel vs plain at {num_rows} rows: "
+                                 f"{checks[num_rows]}")
+    empty = sr.scatter_rows(row[:0], vals[:0], 640)
+    if not (empty.shape == (640, sr.WIDTH) and bool((empty == 0).all())):
+        emit("scatter_rows", ok=False, zero_events="not all zeros")
+        raise AssertionError("scatter_rows with no events is not zeros")
+    num_rows = 4096
+    lib = lambda: torch.zeros((num_rows, sr.WIDTH), device=dev).index_add_(0, row.long(), vals)
+    lib_err = (lib() - sr.scatter_rows_plain(row, vals, num_rows)).abs().max().item()
+    nbytes = m * 4 + m * sr.WIDTH * 4 + num_rows * sr.WIDTH * 4
+    bound_ms, bound_by, _, flops = _bound(nbytes, m * sr.WIDTH)
+    result = dict(
+        M=m, num_rows=num_rows, touched_rows=int(torch.unique(row).numel()),
+        max_abs_err=checks[num_rows]["max_abs_err"],
+        worst_err_over_tol=checks[num_rows]["worst_err_over_tol"],
+        tol="64 eps_f32 * sum|vals| per entry", checks_by_num_rows=checks,
+        zero_events_ok=True,
+        ms=cuda_ms(lambda: sr.scatter_rows(row, vals, num_rows), flush=flush),
+        ms_128_rows=cuda_ms(lambda: sr.scatter_rows(row, vals, 128), flush=flush),
+        plain_ms=cuda_ms(lambda: sr.scatter_rows_plain(row, vals, num_rows), flush=flush),
+        library_ms=cuda_ms(lib, flush=flush), library_max_abs_err=lib_err,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+    emit("scatter_rows", **result)
+    return result
 
 
 def phase_tiny(dev):
@@ -394,11 +456,11 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
 
     rd = frozenset({"rgb", "depth"})
     torch.cuda.reset_peak_memory_stats()
-    table_gather.reset_launches()
+    _reset_launches()
     out = fn(pipe, origins, dirs, cam_idx)
     out_rd = fn(pipe, origins, dirs, cam_idx, channels=rd)
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in table_gather.KERNELS.items()}
+    launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("gather", "dual_gather"):
         if launches[name] < 1:
@@ -420,9 +482,11 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
                              f"panoptic render (dual kernel) by {rd_err}")
 
     with mock.patch.object(table_gather, "multilevel_table_gather",
-                           table_gather.multilevel_gather_plain), \
+                           lambda t, i, b, rows_used=None, modes=None:
+                           table_gather.multilevel_gather_plain(t, i, b)), \
          mock.patch.object(table_gather, "dual_multilevel_table_gather",
-                           table_gather.dual_gather_plain):
+                           lambda ta, tb, i, b, rows_used=None, modes=None:
+                           table_gather.dual_gather_plain(ta, tb, i, b)):
         plain_out = fn(pipe, origins, dirs, cam_idx)
         plain_ms = [0.0] * 3
         for i in range(3):
@@ -467,14 +531,17 @@ def _plain_backward_grads(trainer, stage, sub, jitter):
 
     mags = {}
 
-    def single(idx, bary, g, c):
-        mags["nef.grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g.abs(), c)
-        return tg.table_grad_plain(idx, bary, g, c)
+    def single(idx, bary, g, c, rows_used=None, modes=None):
+        mags["nef.grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g.abs(), c,
+                                                      rows_used)
+        return tg.table_grad_plain(idx, bary, g, c, rows_used)
 
-    def dual(idx, bary, g_a, g_b, c):
-        mags["nef.grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g_a.abs(), c)
-        mags["nef.delta_grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g_b.abs(), c)
-        return tg.dual_table_grad_plain(idx, bary, g_a, g_b, c)
+    def dual(idx, bary, g_a, g_b, c, rows_used=None, modes=None):
+        mags["nef.grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g_a.abs(), c,
+                                                      rows_used)
+        mags["nef.delta_grid.tables"] = tg.table_grad_plain(idx, bary.abs(), g_b.abs(),
+                                                            c, rows_used)
+        return tg.dual_table_grad_plain(idx, bary, g_a, g_b, c, rows_used)
 
     with mock.patch.object(tg, "multilevel_table_grad", single), \
          mock.patch.object(tg, "dual_multilevel_table_grad", dual), \
@@ -494,10 +561,10 @@ def phase_train(dev, stage_name):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     assign_s = lap_assign.seconds
-    tg.reset_launches()
+    _reset_launches()
     trainer, log = train_flagship(stage_name, steps=3, device=dev)
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in tg.KERNELS.items()}
+    launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     assign_s = lap_assign.seconds - assign_s
 
@@ -509,7 +576,7 @@ def phase_train(dev, stage_name):
     other_fwd, other_grad = (("dual_gather", "dual_table_grad") if stage_name == "rgb"
                              else ("gather", "table_grad"))
     expected = {fwd: micro, grad: micro, other_fwd: 0, other_grad: 0,
-                "dbary": non_anchor}
+                "dbary": non_anchor, "scatter_rows": 0}
     if launches != expected:
         raise AssertionError(f"{stage_name} training launched {launches}, "
                              f"expected {expected}")
@@ -598,8 +665,9 @@ def main() -> None:
     fn, (pipe, origins, dirs, cam_idx) = entry(device=dev)
     fwd = phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush)
     torch.cuda.empty_cache()
-    bwd = phase_kernels_bwd(dev, flush)
-    del flush_buf, flush
+    bwd, level0_rows = phase_kernels_bwd(dev, flush)
+    bwd["scatter_rows"] = phase_scatter_rows(dev, level0_rows, flush)
+    del flush_buf, flush, level0_rows
     torch.cuda.empty_cache()
     phase_tiny(dev)
     paths = {"render": phase_render(fn, pipe, origins, dirs, cam_idx)}
@@ -626,16 +694,21 @@ def main() -> None:
             "bf16": {k: r16[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                          "bound_ms", "library_ms")},
         })
-    for name, key, replaces in (
-            ("table_grad_single", "table_grad", "pagnerf_tpu/ops/pallas_scatter.py:339"),
-            ("table_grad_dual", "dual_table_grad", "pagnerf_tpu/ops/pallas_scatter.py:243"),
-            ("gather_dbary", "dbary", "pagnerf_tpu/ops/pallas_gather.py:110")):
+    for name, key, replaces, shapes in (
+            ("table_grad_single", "table_grad", "pagnerf_tpu/ops/pallas_scatter.py:339",
+             "training microbatch N=2,097,152"),
+            ("table_grad_dual", "dual_table_grad", "pagnerf_tpu/ops/pallas_scatter.py:243",
+             "training microbatch N=2,097,152"),
+            ("gather_dbary", "dbary", "pagnerf_tpu/ops/pallas_gather.py:110",
+             "training microbatch N=2,097,152"),
+            ("scatter_rows", "scatter_rows", "pagnerf_tpu/ops/pallas_scatter.py:84",
+             "M=2,097,152 events into 4096 rows x 128 (off the main path)")):
         r = bwd[name]
         rows.append({
             "name": name, "route": "cuda", "source": sources["bwd"],
             "replaces": replaces, "launches": sum(p[key] for p in paths.values()),
             "launches_by_path": {p: c[key] for p, c in paths.items()},
-            "dtype": "float32", "shapes": "training microbatch N=2,097,152",
+            "dtype": "float32", "shapes": shapes,
             **{k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
         })

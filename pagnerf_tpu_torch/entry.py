@@ -5,8 +5,9 @@ and ``__graft_entry__.entry``).
 ``PanopticDeltaNeF`` with two permutohedral grids (24 LoDs x 2^18 x F=2,
 float32 tables and gathers), hidden width 64, bfloat16 decoders, and a
 512-step dense tracer, over the synthetic 8-view scene. ``entry()`` returns
-the flagship render -- 4096 rays of camera 0, channels rgb, depth, semantics
-and inst_embedding -- and its example inputs.
+the flagship render -- min(4096, H x W) rays of camera 0, i.e. all 3072
+pixels of the 64x48 scene, channels rgb, depth, semantics and
+inst_embedding -- and its example inputs.
 
 Both run on the CUDA card unless the caller passes ``device="cpu"``, and
 raise on a host without one. Weights come from a seeded init

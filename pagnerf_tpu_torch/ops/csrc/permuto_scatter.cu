@@ -1,8 +1,10 @@
 // Backward of the multi-level permutohedral table gather, for Hopper: the
-// table-gradient scatter (single and dual table) and the weight gradient.
+// table-gradient scatter (single and dual table), the weight gradient, and
+// a generic row scatter-add.
 //
 //   dtable_t[l, idx[l, v, n], f] += bary[l, v, n] * g_t[l, f, n]    (scatter)
 //   dbary[l, v, n] = sum_f g[l, f, n] * table[l, idx[l, v, n], f]   (dbary)
+//   out[row[m], :] += vals[m, :]                                    (rows)
 //
 // for t in {a} (single) or {a, b} (dual: the main grid and the delta grid
 // share one event stream). idx and bary are [L, V=4, N], g [L, F, N], tables
@@ -13,42 +15,72 @@
 // table_grad_matmul_T (_table_grad_kernel_T), table_grad_matmul_dual_T
 // (_table_grad_kernel_dual_T) -- and their legacy [M, 1]-layout twins
 // table_grad_matmul / table_grad_matmul_dual, which compute the same sums --
-// and pagnerf_tpu/ops/pallas_gather.py multilevel_gather_dbary
-// (_dbary_kernel). The TPU scatter builds one-hot matrices of each event
-// chunk and accumulates them on the MXU with a bf16 multiply, over lane-packed
-// [R, 128] tables kept whole in VMEM; none of that carries over. Here each
-// event adds into an [L, C, F] gradient in device memory with atomics.
+// scatter_rows_matmul (_scatter_kernel, _scatter_kernel_resident), and
+// pagnerf_tpu/ops/pallas_gather.py multilevel_gather_dbary (_dbary_kernel).
+// The TPU scatters build one-hot matrices of each event chunk and accumulate
+// them on the MXU with a bf16 multiply, over lane-packed [R, 128] tables kept
+// whole in VMEM; none of that carries over. Here events add into accumulators
+// with atomics, in shared memory where a block's events repeat rows and in
+// device memory where they do not.
 //
-// What bounds them on an H100: bytes. At the flagship training shapes (L=24,
-// C=2^18, F=2, N=2^21) the scatter must read idx (805 MB), bary (805 MB) and
-// g (403 MB per table) once and write the 50 MB gradient per table; dbary
-// reads idx and g and writes 805 MB. Arithmetic is a few flops per event.
-// Design against that bound: one thread per (level, sample), so every read is
-// coalesced along N, and the 4 vertices of a sample are handled by its thread.
+// What bounds them on an H100. Bytes, in principle: at the flagship training
+// shapes (L=24, C=2^18, F=2, N=2^21) the scatter must read idx (805 MB),
+// bary (805 MB) and g (403 MB per table) once and write the 50 MB gradient
+// per table; dbary reads idx and g and writes 805 MB; the row scatter-add
+// reads its 512-byte rows once. Arithmetic is a few flops per event. In
+// practice the table-gradient scatter is bound by the L2's rate of atomic
+// operations, each a read-modify-write of a 32-byte sector whatever its
+// width: on a fine hashed level every event goes to a row of its own, so
+// the design spends one vector atomic per event there (two for the dual
+// scatter) and merges events wherever rows repeat (PERF.md has the rates).
 //
-// Accuracy. A coarse, direct-indexed level has a few hundred rows for the
-// whole [-1, 1]^3 cube, so one row receives ~1e5 events per microbatch, and
-// the cotangents of the panoptic heads often share a sign along a ray.
-// Summed by float32 atomics in a varying order, such rows drifted past the
-// 64 ulp of their sum of |bary * g| that the port holds the kernel to (the
-// flagship panoptic step on an H100, delta grid). So the products bary * g are
-// formed in float32, as the plain version forms them, and summed in float64:
-// a float64 scratch [L, C, F] per table, zero-filled by the caller, takes the
-// atomics, and a second pass rounds it once to the float32 gradient. The
-// kernel then differs from the plain version's float64 sum by at most one
-// float32 rounding.
+// Accuracy contract of the table-gradient scatter: each entry within
+// 64 eps_f32 (= 128 u, u = 2^-24) of its sum of |bary * g| to the plain
+// version, which sums the same float32 products in float64 and rounds once.
+// Float32 atomics everywhere broke it on the delta grid's real panoptic
+// gradients, whose coarse rows take ~1e5 same-signed events. The kernel
+// picks one of three accumulations per level (host side, `LevelPlan`). In
+// all of them a warp first sums each run of equal rows over its lanes (see
+// "Atomic contention") in float32: at most 32 addends, within
+// gamma_31 sum|x| of exact.
+//
+// - kGlobal (coarse levels): each run's sum goes to a float64 accumulator
+//   in device memory, sized by the level's live rows, NT*F atomics per run;
+//   a pass at the end rounds it once. The float64 additions add under
+//   2^-53 sum|x| each and the rounding u|s|: with the plain version's u|s|,
+//   under 34 u sum|x| < 128 u sum|x|, however many events a row takes.
+// - kShared (the coarsest direct levels: a few thousand live rows, of which
+//   a few dozen take ~1e5 events each, so atomics on them queue at the same
+//   addresses): each block takes kChunk consecutive samples (two rays) and
+//   adds its runs into a block-private float64 hash table of its live rows
+//   in shared memory, then adds each touched row once into the float64
+//   accumulator. The kGlobal bound.
+// - kFloat (hashed fine levels, whose rows take a few dozen events spread
+//   over the whole table): one vector float32 atomic per event carries all
+//   NT*F sums of the row and, in a spare lane (or a second atomic when the
+//   row has none), the number k of nonzero addends the row has taken. A
+//   float32 sum of k addends, in any order or tree, is within
+//   gamma_{k-1} sum|x| of the exact sum; the plain version is within u|s|.
+//   For k <= kMaxAddends = 120 that is under 120 u sum|x| < 128 u sum|x|,
+//   for any input. A row that took more addends is summed again, exactly:
+//   a later pass zeroes its float64 row, a redo pass adds that row's events
+//   in float64, and the finishing pass rounds it once. The redo costs one
+//   more read of the level's events and is skipped where no row overflowed
+//   (its warp runs are summed in float32 too: the kShared bound).
 //
 // Atomic contention. Samples are laid out ray-major, so neighbouring lanes of
 // a warp are neighbouring samples of one ray and, on a coarse level, mostly
 // fall in the same simplex: equal indices come in runs of consecutive lanes.
-// The scatter sums each run with a segmented warp scan (5 shuffle steps) and
-// lets only the run's last lane issue the atomics, which takes the atomics
-// on hot rows down by up to 32x; on fine hashed levels runs have length 1
-// and it costs the shuffles only. A run whose sum is exactly zero (masked
-// samples carry zero cotangents) issues no atomic: adding 0 changes nothing.
+// A ballot finds the runs; where there are any, a segmented warp scan sums
+// each run in float32 and only its last lane goes on (on fine levels the
+// ballot shows none and the scan is skipped). A sum that is exactly zero
+// is not added (masked samples carry zero cotangents): adding 0 changes
+// nothing. A kFloat run counts its nonzero products only, and a run with
+// none issues nothing.
 //
 // Plain C interface for ctypes (no PyTorch headers): the caller passes raw
-// device pointers and the CUDA stream, and reads back a cudaError_t.
+// device pointers, a device scratch buffer and the CUDA stream, and reads
+// back a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +92,23 @@ namespace {
 constexpr int kVerts = 4;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxLevels = 64;
+constexpr int kChunk = 1024;            // samples per block of the scatter kernels
+constexpr int kMaxProbes = 8;           // hash probes before an event goes straight out
+constexpr float kMaxAddends = 120.0f;   // float32 rows beyond this are summed again
+
+enum Mode : int32_t { kShared = 0, kFloat = 1, kGlobal = 2 };
+constexpr int kModes = 3;
+
+// Per-level plan, built on the host from the caller's modes and live rows.
+struct LevelPlan {
+  int32_t mode[kMaxLevels];    // kShared, kFloat or kGlobal
+  int32_t rows[kMaxLevels];    // live rows: events at rows >= rows are dropped
+  int64_t offset[kMaxLevels];  // first row of the level in its accumulator
+  int32_t order[kMaxLevels];   // the levels grouped by mode
+  int32_t first[kModes];       // where each mode's levels start in order
+  int32_t count[kModes];       // and how many there are
+};
 
 // One aligned vector load of F floats through the read-only path.
 template <int F>
@@ -79,75 +128,370 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, float (&
   }
 }
 
-// grid = (ceil(N / kThreads), L); one thread per (level, sample). Every lane
-// of every warp runs the shuffles: lanes past N carry key -1 and zero values.
+// One sample's events at one level: its cotangents g[t][f] for both tables,
+// and the row and weight of each of its 4 vertices.
 template <int F, int NT>
-__global__ void __launch_bounds__(kThreads)
-    table_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
-                      const float* __restrict__ g_a, const float* __restrict__ g_b,
-                      double* __restrict__ acc_a, double* __restrict__ acc_b, int64_t capacity,
-                      int64_t n) {
-  const int lane = threadIdx.x & 31;
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool active = s < n;
-  const int64_t l = blockIdx.y;
-
+struct Tile {
   float g[NT][F];
+  int key[kVerts];
+  float w[kVerts];
+};
+
+// Load sample s of level l (all of its loads issued together); an inactive
+// sample has rows -1 and zero weights.
+template <int F, int NT>
+__device__ __forceinline__ void load_tile(const int32_t* __restrict__ idx,
+                                          const float* __restrict__ bary,
+                                          const float* __restrict__ g_a,
+                                          const float* __restrict__ g_b, int64_t l, int64_t n,
+                                          int64_t s, bool active, Tile<F, NT>& t) {
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    g[0][f] = active ? __ldg(g_a + (l * F + f) * n + s) : 0.0f;
-    if constexpr (NT == 2) g[1][f] = active ? __ldg(g_b + (l * F + f) * n + s) : 0.0f;
+    t.g[0][f] = active ? __ldg(g_a + (l * F + f) * n + s) : 0.0f;
+    if constexpr (NT == 2) t.g[1][f] = active ? __ldg(g_b + (l * F + f) * n + s) : 0.0f;
   }
-  double* const dst[2] = {acc_a + l * capacity * F,
-                          NT == 2 ? acc_b + l * capacity * F : nullptr};
-
 #pragma unroll
   for (int v = 0; v < kVerts; ++v) {
     const int64_t e = (l * kVerts + v) * n + s;
-    const int key = active ? __ldg(idx + e) : -1;
-    const float w = active ? __ldg(bary + e) : 0.0f;
-    double val[NT][F];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int f = 0; f < F; ++f) val[t][f] = static_cast<double>(w * g[t][f]);
+    t.key[v] = active ? __ldg(idx + e) : -1;
+    t.w[v] = active ? __ldg(bary + e) : 0.0f;
+  }
+}
 
-    // Runs of equal keys over consecutive lanes; seg(i) numbers lane i's run.
-    const int prev = __shfl_up_sync(kFull, key, 1);
-    const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
-    const int seg = __popc(heads & (kFull >> (31 - lane)));
+// Vertex v of a loaded sample: its row (-1 when inactive or beyond the live
+// rows) and its float32 products p[t * F + f] = bary * g_t[f], as the plain
+// version forms them.
+template <int F, int NT>
+__device__ __forceinline__ int tile_event(const Tile<F, NT>& t, int v, int rows,
+                                          float (&p)[NT * F]) {
+#pragma unroll
+  for (int k = 0; k < NT; ++k)
+#pragma unroll
+    for (int f = 0; f < F; ++f) p[k * F + f] = t.w[v] * t.g[k][f];
+  return t.key[v] < rows ? t.key[v] : -1;
+}
+
+// Run fn(tile) over samples begin + threadIdx.x, + stride, ... below end
+// (the trip count is the same for every thread of a block), loading the
+// next sample while the current one is processed.
+template <int F, int NT, typename Fn>
+__device__ __forceinline__ void for_each_sample(const int32_t* __restrict__ idx,
+                                                const float* __restrict__ bary,
+                                                const float* __restrict__ g_a,
+                                                const float* __restrict__ g_b, int64_t l,
+                                                int64_t n, int64_t begin, int64_t end,
+                                                int64_t stride, Fn&& fn) {
+  Tile<F, NT> cur, nxt;
+  int64_t s = begin + threadIdx.x;
+  load_tile<F, NT>(idx, bary, g_a, g_b, l, n, s, s < end, cur);
+  for (int64_t t0 = begin; t0 < end; t0 += stride) {
+    const int64_t s1 = t0 + stride + threadIdx.x;
+    if (t0 + stride < end) load_tile<F, NT>(idx, bary, g_a, g_b, l, n, s1, s1 < end, nxt);
+    fn(cur);
+    cur = nxt;
+  }
+}
+
+// Sum runs of equal keys over consecutive lanes; true on the last lane of
+// its run, whose val then holds the run's sum. The ballot is warp-uniform,
+// so a warp without runs skips the scan whole.
+template <typename T, int K>
+__device__ __forceinline__ bool merge_runs(int key, T (&val)[K], int lane) {
+  const int prev = __shfl_up_sync(kFull, key, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
+  if (heads != kFull) {
+    const int start = 31 - __clz(heads & (kFull >> (31 - lane)));  // my run's first lane
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const bool same = lane >= off && __popc(heads & (kFull >> (31 - (lane - off)))) == seg;
+      const bool same = lane - off >= start;
 #pragma unroll
-      for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const double o = __shfl_up_sync(kFull, val[t][f], off);
-          if (same) val[t][f] += o;
-        }
-    }
-    const int next = __shfl_down_sync(kFull, key, 1);
-    if (key >= 0 && (lane == 31 || next != key)) {  // last lane of its run
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        double* row = dst[t] + static_cast<int64_t>(key) * F;
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          if (val[t][f] != 0.0) atomicAdd(row + f, val[t][f]);
+      for (int k = 0; k < K; ++k) {
+        const T o = __shfl_up_sync(kFull, val[k], off);
+        if (same) val[k] += o;
       }
+    }
+  }
+  const int next = __shfl_down_sync(kFull, key, 1);
+  return lane == 31 || next != key;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ bool any_nonzero(const T (&val)[K]) {
+  bool nz = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) nz |= val[k] != T(0);
+  return nz;
+}
+
+// ------------------------------------------------------------ kShared levels
+// grid = (ceil(N / kChunk), levels in kShared mode); dynamic shared memory
+// holds the block's hash table: 2^slots_log2 rows of NT*F doubles, then
+// their keys. Rows that find no slot within kMaxProbes go straight to
+// device memory (still float64).
+template <int F, int NT>
+__global__ void __launch_bounds__(kThreads)
+    shared_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
+                       const float* __restrict__ g_a, const float* __restrict__ g_b,
+                       double* __restrict__ acc, const LevelPlan plan, int64_t n,
+                       int slots_log2) {
+  constexpr int W = NT * F;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int slots = 1 << slots_log2;
+  double* const vals = reinterpret_cast<double*>(smem_raw);
+  int* const keys = reinterpret_cast<int*>(vals + static_cast<int64_t>(slots) * W);
+  const int l = plan.order[plan.first[kShared] + blockIdx.y];
+  const int rows = plan.rows[l];
+  double* const dst = acc + plan.offset[l] * W;
+
+  for (int i = threadIdx.x; i < slots; i += kThreads) keys[i] = -1;
+  for (int i = threadIdx.x; i < slots * W; i += kThreads) vals[i] = 0.0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * kChunk;
+  const int64_t end = begin + kChunk < n ? begin + kChunk : n;
+  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
+                         [&](const Tile<F, NT>& tile) {
+#pragma unroll
+    for (int v = 0; v < kVerts; ++v) {
+      float part[W];
+      const int key = tile_event<F, NT>(tile, v, rows, part);
+      if (!merge_runs<float, W>(key, part, lane) || key < 0 || !any_nonzero(part)) continue;
+      double val[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) val[k] = static_cast<double>(part[k]);
+      unsigned h = (static_cast<unsigned>(key) * 2654435761u) >> (32 - slots_log2);
+      bool placed = false;
+      for (int probe = 0; probe < kMaxProbes; ++probe) {
+        const int cur = atomicCAS(keys + h, -1, key);
+        if (cur == -1 || cur == key) {
+#pragma unroll
+          for (int k = 0; k < W; ++k)
+            if (val[k] != 0.0) atomicAdd(vals + static_cast<int64_t>(h) * W + k, val[k]);
+          placed = true;
+          break;
+        }
+        h = (h + 1) & (slots - 1);
+      }
+      if (!placed) {
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (val[k] != 0.0) atomicAdd(dst + static_cast<int64_t>(key) * W + k, val[k]);
+      }
+    }
+  });
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += kThreads) {
+    const int key = keys[i];
+    if (key < 0) continue;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const double x = vals[static_cast<int64_t>(i) * W + k];
+      if (x != 0.0) atomicAdd(dst + static_cast<int64_t>(key) * W + k, x);
     }
   }
 }
 
-// Round the float64 sums once to the float32 gradient (grid-stride).
+// ------------------------------------------------------------ kGlobal levels
+// grid = (ceil(N / kChunk), levels in kGlobal mode): each warp run's float32
+// sum goes straight to the float64 accumulator in device memory, NT*F
+// atomics per run (the kShared bound without the shared-memory table).
+template <int F, int NT>
 __global__ void __launch_bounds__(kThreads)
-    round_kernel(const double* __restrict__ src, float* __restrict__ dst, int64_t count) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < count;
-       i += static_cast<int64_t>(gridDim.x) * kThreads)
-    dst[i] = static_cast<float>(src[i]);
+    global_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
+                       const float* __restrict__ g_a, const float* __restrict__ g_b,
+                       double* __restrict__ acc, const LevelPlan plan, int64_t n) {
+  constexpr int W = NT * F;
+  const int l = plan.order[plan.first[kGlobal] + blockIdx.y];
+  const int rows = plan.rows[l];
+  double* const dst = acc + plan.offset[l] * W;
+  const int lane = threadIdx.x & 31;
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * kChunk;
+  const int64_t end = begin + kChunk < n ? begin + kChunk : n;
+  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
+                         [&](const Tile<F, NT>& tile) {
+#pragma unroll
+    for (int v = 0; v < kVerts; ++v) {
+      float part[W];
+      const int key = tile_event<F, NT>(tile, v, rows, part);
+      if (merge_runs<float, W>(key, part, lane) && key >= 0) {
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (part[k] != 0.0f)
+            atomicAdd(dst + static_cast<int64_t>(key) * W + k, static_cast<double>(part[k]));
+      }
+    }
+  });
 }
 
+// ------------------------------------------------------------- kFloat levels
+// Row layout of the float32 accumulator: NT*F sums, then the addend count in
+// the same vector when NT*F <= 2 ([s, k] or [s0, s1, k, 0]); else NT*F sums
+// and the count in a separate float array. Counts are exact to 2^24 and
+// never decrease past it, so the kMaxAddends test stays sound.
+template <int F, int NT>
+struct FloatRow {
+  static constexpr int kSums = NT * F;
+  static constexpr bool kInline = kSums <= 2;
+  static constexpr int kWidth = kInline ? 2 * kSums : kSums;
+
+  __device__ static float count(const float* acc, const float* counts, int64_t row) {
+    return kInline ? acc[row * kWidth + kSums] : counts[row];
+  }
+
+  // One vector atomic per 4 (or 2) floats; sm_90 adds float2 and float4.
+  __device__ static void add(float* acc, float* counts, int64_t row, const float (&v)[kSums + 1]) {
+    float* const a = acc + row * kWidth;
+    if constexpr (kSums == 1) {
+      atomicAdd(reinterpret_cast<float2*>(a), make_float2(v[0], v[1]));
+    } else if constexpr (kSums == 2) {
+      atomicAdd(reinterpret_cast<float4*>(a), make_float4(v[0], v[1], v[2], 0.0f));
+    } else {
+#pragma unroll
+      for (int c = 0; c < kSums; c += 4)
+        atomicAdd(reinterpret_cast<float4*>(a + c),
+                  make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]));
+      atomicAdd(counts + row, v[kSums]);
+    }
+  }
+};
+
+// grid = (ceil(N / kChunk), levels in kFloat mode).
+template <int F, int NT>
+__global__ void __launch_bounds__(kThreads)
+    float_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
+                      const float* __restrict__ g_a, const float* __restrict__ g_b,
+                      float* __restrict__ acc, float* __restrict__ counts, const LevelPlan plan,
+                      int64_t n) {
+  using Row = FloatRow<F, NT>;
+  constexpr int W = NT * F;
+  const int l = plan.order[plan.first[kFloat] + blockIdx.y];
+  const int rows = plan.rows[l];
+  const int64_t off = plan.offset[l];
+  const int lane = threadIdx.x & 31;
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * kChunk;
+  const int64_t end = begin + kChunk < n ? begin + kChunk : n;
+  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
+                         [&](const Tile<F, NT>& tile) {
+#pragma unroll
+    for (int v = 0; v < kVerts; ++v) {
+      float p[W];
+      const int key = tile_event<F, NT>(tile, v, rows, p);
+      float val[W + 1];
+#pragma unroll
+      for (int k = 0; k < W; ++k) val[k] = p[k];
+      val[W] = any_nonzero(p) ? 1.0f : 0.0f;  // addends that can round
+      if (merge_runs<float, W + 1>(key, val, lane) && key >= 0 && val[W] != 0.0f)
+        Row::add(acc, counts, off + key, val);
+    }
+  });
+}
+
+// ------------------------------------------------------------ finishing passes
+// grid = (blocks, L): every entry of the float32 gradients is written here.
+// kShared and kGlobal rows round their float64 sums; kFloat rows of at most
+// kMaxAddends addends copy their float32 sums; a kFloat row beyond that
+// zeroes its float64 redo row and flags its level for the redo pass.
+template <int F, int NT>
+__global__ void __launch_bounds__(kThreads)
+    finish_kernel(const double* __restrict__ acc64, const float* __restrict__ acc32,
+                  const float* __restrict__ counts, double* __restrict__ redo,
+                  int* __restrict__ flags, float* __restrict__ out_a, float* __restrict__ out_b,
+                  const LevelPlan plan, int64_t capacity) {
+  using Row = FloatRow<F, NT>;
+  constexpr int W = NT * F;
+  const int l = blockIdx.y;
+  const int mode = plan.mode[l];
+  const int rows = plan.rows[l];
+  const int64_t off = plan.offset[l];
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; r < capacity;
+       r += static_cast<int64_t>(gridDim.x) * kThreads) {
+    float o[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) o[k] = 0.0f;
+    if (r < rows) {
+      if (mode != kFloat) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) o[k] = static_cast<float>(acc64[(off + r) * W + k]);
+      } else if (Row::count(acc32, counts, off + r) <= kMaxAddends) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) o[k] = acc32[(off + r) * Row::kWidth + k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < W; ++k) redo[(off + r) * W + k] = 0.0;
+        flags[l] = 1;
+      }
+    }
+    float* const da = out_a + (l * capacity + r) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) da[f] = o[f];
+    if constexpr (NT == 2) {
+      float* const db = out_b + (l * capacity + r) * F;
+#pragma unroll
+      for (int f = 0; f < F; ++f) db[f] = o[F + f];
+    }
+  }
+}
+
+// grid = (blocks, levels in kFloat mode): the events of a flagged level's
+// overflowing rows again, summed in float64 into the zeroed redo rows.
+template <int F, int NT>
+__global__ void __launch_bounds__(kThreads)
+    redo_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
+                const float* __restrict__ g_a, const float* __restrict__ g_b,
+                const float* __restrict__ acc32, const float* __restrict__ counts,
+                double* __restrict__ redo, const int* __restrict__ flags, const LevelPlan plan,
+                int64_t n) {
+  using Row = FloatRow<F, NT>;
+  constexpr int W = NT * F;
+  const int l = plan.order[plan.first[kFloat] + blockIdx.y];
+  if (flags[l] == 0) return;
+  const int rows = plan.rows[l];
+  const int64_t off = plan.offset[l];
+  const int lane = threadIdx.x & 31;
+  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, static_cast<int64_t>(blockIdx.x) * kThreads,
+                         n, static_cast<int64_t>(gridDim.x) * kThreads,
+                         [&](const Tile<F, NT>& tile) {
+#pragma unroll
+    for (int v = 0; v < kVerts; ++v) {
+      float part[W];
+      int key = tile_event<F, NT>(tile, v, rows, part);
+      if (key >= 0 && Row::count(acc32, counts, off + key) <= kMaxAddends) key = -1;
+      if (merge_runs<float, W>(key, part, lane) && key >= 0) {
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (part[k] != 0.0f) atomicAdd(redo + (off + key) * W + k, static_cast<double>(part[k]));
+      }
+    }
+  });
+}
+
+// grid = (blocks, levels in kFloat mode): round the redone rows.
+template <int F, int NT>
+__global__ void __launch_bounds__(kThreads)
+    fix_kernel(const float* __restrict__ acc32, const float* __restrict__ counts,
+               const double* __restrict__ redo, const int* __restrict__ flags,
+               float* __restrict__ out_a, float* __restrict__ out_b, const LevelPlan plan,
+               int64_t capacity) {
+  using Row = FloatRow<F, NT>;
+  constexpr int W = NT * F;
+  const int l = plan.order[plan.first[kFloat] + blockIdx.y];
+  if (flags[l] == 0) return;
+  const int rows = plan.rows[l];
+  const int64_t off = plan.offset[l];
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; r < rows;
+       r += static_cast<int64_t>(gridDim.x) * kThreads) {
+    if (Row::count(acc32, counts, off + r) <= kMaxAddends) continue;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      out_a[(l * capacity + r) * F + f] = static_cast<float>(redo[(off + r) * W + f]);
+      if constexpr (NT == 2)
+        out_b[(l * capacity + r) * F + f] = static_cast<float>(redo[(off + r) * W + F + f]);
+    }
+  }
+}
+
+// -------------------------------------------------------------------- dbary
 // grid = (ceil(N / kThreads), L); one thread per (level, sample).
 template <int F>
 __global__ void __launch_bounds__(kThreads)
@@ -173,6 +517,121 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------ row scatter-add
+// out[row[m], :] += vals[m, :] over rows [0, num_rows), width 128. One warp
+// walks per_warp consecutive events, each lane holding 4 of the 128 columns
+// (one float4 load per event: the row's 512 bytes, coalesced), and keeps a
+// float64 running sum while the row repeats. On a change of row it adds the
+// sum into the block's float64 copy of that row in shared memory: the whole
+// output when it is small (kDirect, up to kRowsDirect rows), else a hash
+// table of kRowSlots rows (the table-gradient scatter's kShared design); a
+// row that finds no slot goes straight to the float64 accumulator in device
+// memory. Each block then adds its copy into that accumulator, one float64
+// atomic per touched entry, and a round pass writes the float32 output
+// once. Rows outside [0, num_rows) (the -1 padding) are dropped. Hot rows
+// (a coarse level's indices take ~1e5 events each) so cost one atomic per
+// block and entry instead of one per event and entry.
+constexpr int kRowWidth = 128;
+constexpr int kRowsDirect = 200;  // 200 rows x 1 KB of float64 per block
+constexpr int kRowSlots = 96;     // hashed rows per block (96 KB of float64)
+constexpr int kRowThreads = 1024;
+
+__device__ __forceinline__ void add_row_part(double* p, const double (&s)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (s[j] != 0.0) atomicAdd(p + j, s[j]);
+}
+
+// Shared-memory bytes of a block's copy.
+int64_t rows_copy_bytes(bool direct, int64_t num_rows) {
+  return direct ? num_rows * kRowWidth * 8 : kRowSlots * (kRowWidth * 8 + 4);
+}
+
+template <bool kDirect>
+__global__ void __launch_bounds__(kRowThreads)
+    scatter_rows_kernel(const int32_t* __restrict__ row, const float* __restrict__ vals,
+                        double* __restrict__ acc, int64_t m, int num_rows, int64_t per_warp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int copy_rows = kDirect ? num_rows : kRowSlots;
+  double* const copy = reinterpret_cast<double*>(smem_raw);
+  int* const keys = reinterpret_cast<int*>(copy + static_cast<int64_t>(copy_rows) * kRowWidth);
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < copy_rows * kRowWidth; i += blockDim.x) copy[i] = 0.0;
+  if constexpr (!kDirect)
+    for (int i = threadIdx.x; i < copy_rows; i += blockDim.x) keys[i] = -1;
+  __syncthreads();
+
+  // Warp-uniform: every lane of a warp holds the same row.
+  auto add_row = [&](int r, const double (&s)[4]) {
+    double* dst = copy + static_cast<int64_t>(r) * kRowWidth;
+    if constexpr (!kDirect) {
+      int slot = -1;
+      if (lane == 0) {
+        unsigned h = (static_cast<unsigned>(r) * 2654435761u) % kRowSlots;
+        for (int probe = 0; probe < kMaxProbes; ++probe) {
+          const int cur = atomicCAS(keys + h, -1, r);
+          if (cur == -1 || cur == r) {
+            slot = static_cast<int>(h);
+            break;
+          }
+          h = h + 1 == kRowSlots ? 0 : h + 1;
+        }
+      }
+      slot = __shfl_sync(kFull, slot, 0);
+      dst = slot >= 0 ? copy + static_cast<int64_t>(slot) * kRowWidth
+                      : acc + static_cast<int64_t>(r) * kRowWidth;
+    }
+    add_row_part(dst + lane * 4, s);
+  };
+
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int64_t begin = warp * per_warp;
+  const int64_t end = begin + per_warp < m ? begin + per_warp : m;
+  int cur = -1;
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int64_t e = begin; e < end; e += 4) {
+    int r[4];
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {  // loads of 4 events in flight at once
+      const bool ok = e + u < end;
+      r[u] = ok ? __ldg(row + e + u) : -1;
+      v[u] = ok ? __ldg(reinterpret_cast<const float4*>(vals + (e + u) * kRowWidth) + lane)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int key = (r[u] >= 0 && r[u] < num_rows) ? r[u] : -1;
+      if (key != cur) {
+        if (cur >= 0) add_row(cur, s);
+        cur = key;
+        s[0] = s[1] = s[2] = s[3] = 0.0;
+      }
+      s[0] += v[u].x;
+      s[1] += v[u].y;
+      s[2] += v[u].z;
+      s[3] += v[u].w;
+    }
+  }
+  if (cur >= 0) add_row(cur, s);
+  __syncthreads();
+  for (int i = threadIdx.x; i < copy_rows * kRowWidth; i += blockDim.x) {
+    const int r = kDirect ? i / kRowWidth : keys[i / kRowWidth];
+    const double x = copy[i];
+    if (r >= 0 && x != 0.0)
+      atomicAdd(acc + static_cast<int64_t>(r) * kRowWidth + i % kRowWidth, x);
+  }
+}
+
+// Round float64 sums once to float32 (grid-stride).
+__global__ void __launch_bounds__(kThreads)
+    round_kernel(const double* __restrict__ src, float* __restrict__ dst, int64_t count) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < count;
+       i += static_cast<int64_t>(gridDim.x) * kThreads)
+    dst[i] = static_cast<float>(src[i]);
+}
+
+// -------------------------------------------------------------------- host
 bool bad_shape(int64_t levels, int64_t capacity, int64_t n) {
   return levels <= 0 || levels > 65535 || capacity <= 0 || n <= 0 ||
          (n + kThreads - 1) / kThreads > 2147483647LL || capacity > 2147483647LL;
@@ -183,24 +642,131 @@ dim3 grid_of(int64_t levels, int64_t n) {
               static_cast<unsigned>(levels));
 }
 
-template <int F>
+int64_t align_up(int64_t bytes) { return (bytes + 255) / 256 * 256; }
+
+// Scratch carved from one buffer: [acc64 | acc32 | counts | flags] are
+// zero-filled, then [redo] is not (the finishing pass zeroes the rows the
+// redo pass uses).
+struct Scratch {
+  int64_t acc64, acc32, counts, flags, zeroed, redo, total;
+};
+
+Scratch scratch_layout(const LevelPlan& plan, int64_t levels, int64_t feat, int64_t num_tables) {
+  const int64_t w = feat * num_tables;
+  const bool inline_count = w <= 2;
+  const int64_t w32 = inline_count ? 2 * w : w;
+  int64_t rows64 = 0, rows32 = 0;
+  for (int64_t l = 0; l < levels; ++l)
+    (plan.mode[l] == kFloat ? rows32 : rows64) += plan.rows[l];
+  Scratch s;
+  s.acc64 = 0;
+  s.acc32 = s.acc64 + align_up(rows64 * w * 8);
+  s.counts = s.acc32 + align_up(rows32 * w32 * 4);
+  s.flags = s.counts + align_up(inline_count ? 0 : rows32 * 4);
+  s.zeroed = s.flags + align_up(levels * 4);
+  s.redo = s.zeroed;
+  s.total = s.redo + align_up(rows32 * w * 8);
+  return s;
+}
+
+// Fill a plan from the caller's per-level modes and live rows; false if one
+// is out of range.
+bool make_plan(const int32_t* modes, const int32_t* rows, int64_t levels, int64_t capacity,
+               LevelPlan* plan) {
+  if (levels > kMaxLevels) return false;
+  int64_t off64 = 0, off32 = 0;
+  for (int64_t l = 0; l < levels; ++l) {
+    if (modes[l] != kShared && modes[l] != kFloat && modes[l] != kGlobal) return false;
+    if (rows[l] <= 0 || rows[l] > capacity) return false;
+    plan->mode[l] = modes[l];
+    plan->rows[l] = rows[l];
+    plan->offset[l] = modes[l] == kFloat ? off32 : off64;
+    (modes[l] == kFloat ? off32 : off64) += rows[l];
+  }
+  int k = 0;
+  for (int mode : {kShared, kGlobal, kFloat}) {
+    plan->first[mode] = k;
+    for (int64_t l = 0; l < levels; ++l)
+      if (modes[l] == mode) plan->order[k++] = static_cast<int32_t>(l);
+    plan->count[mode] = k - plan->first[mode];
+  }
+  return true;
+}
+
+// Hash slots of a kShared block: the levels that take this mode have a few
+// thousand live rows, of which a chunk of 1024 samples touches a few dozen
+// (PERF.md); 512 slots leave room for denser scenes in at most 18 KB (half as
+// many for the widest rows).
+int slots_log2_for(int64_t w) { return w <= 4 ? 9 : 8; }
+
+template <int F, int NT>
 cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
-                        const float* gb, double* acc_a, double* acc_b, float* da, float* db,
-                        int64_t levels, int64_t capacity, int64_t n, int64_t num_tables,
+                        const float* gb, float* da, float* db, unsigned char* scratch,
+                        const LevelPlan& plan, int64_t levels, int64_t capacity, int64_t n,
                         cudaStream_t stream) {
-  if (num_tables == 2)
-    table_grad_kernel<F, 2><<<grid_of(levels, n), kThreads, 0, stream>>>(
-        idx, bary, ga, gb, acc_a, acc_b, capacity, n);
-  else
-    table_grad_kernel<F, 1><<<grid_of(levels, n), kThreads, 0, stream>>>(
-        idx, bary, ga, nullptr, acc_a, nullptr, capacity, n);
-  cudaError_t err = cudaGetLastError();
+  constexpr int W = NT * F;
+  const Scratch lay = scratch_layout(plan, levels, F, NT);
+  auto* acc64 = reinterpret_cast<double*>(scratch + lay.acc64);
+  auto* acc32 = reinterpret_cast<float*>(scratch + lay.acc32);
+  auto* counts = reinterpret_cast<float*>(scratch + lay.counts);
+  auto* flags = reinterpret_cast<int*>(scratch + lay.flags);
+  auto* redo = reinterpret_cast<double*>(scratch + lay.redo);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, lay.zeroed, stream);
   if (err != cudaSuccess) return err;
-  const int64_t count = levels * capacity * F;
-  const unsigned blocks = static_cast<unsigned>(std::min<int64_t>((count + kThreads - 1) / kThreads, 4096));
-  round_kernel<<<blocks, kThreads, 0, stream>>>(acc_a, da, count);
-  if (num_tables == 2) round_kernel<<<blocks, kThreads, 0, stream>>>(acc_b, db, count);
-  return cudaGetLastError();
+
+  const int num_shared = plan.count[kShared];
+  const int num_global = plan.count[kGlobal];
+  const int num_float = plan.count[kFloat];
+  const unsigned chunks = static_cast<unsigned>((n + kChunk - 1) / kChunk);
+  if (num_shared > 0) {
+    const int lg = slots_log2_for(W);
+    const size_t bytes = (size_t{1} << lg) * (W * 8 + 4);
+    err = cudaFuncSetAttribute(shared_grad_kernel<F, NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    shared_grad_kernel<F, NT><<<dim3(chunks, num_shared), kThreads, bytes, stream>>>(
+        idx, bary, ga, gb, acc64, plan, n, lg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (num_global > 0) {
+    global_grad_kernel<F, NT><<<dim3(chunks, num_global), kThreads, 0, stream>>>(
+        idx, bary, ga, gb, acc64, plan, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (num_float > 0) {
+    float_grad_kernel<F, NT><<<dim3(chunks, num_float), kThreads, 0, stream>>>(
+        idx, bary, ga, gb, acc32, counts, plan, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const unsigned row_blocks =
+      static_cast<unsigned>(std::min<int64_t>((capacity + kThreads - 1) / kThreads, 1024));
+  finish_kernel<F, NT><<<dim3(row_blocks, static_cast<unsigned>(levels)), kThreads, 0, stream>>>(
+      acc64, acc32, counts, redo, flags, da, db, plan, capacity);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (num_float > 0) {
+    const unsigned redo_blocks =
+        static_cast<unsigned>(std::min<int64_t>((n + kThreads - 1) / kThreads, 1024));
+    redo_kernel<F, NT><<<dim3(redo_blocks, num_float), kThreads, 0, stream>>>(
+        idx, bary, ga, gb, acc32, counts, redo, flags, plan, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    fix_kernel<F, NT><<<dim3(row_blocks, num_float), kThreads, 0, stream>>>(
+        acc32, counts, redo, flags, da, db, plan, capacity);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+template <int F>
+cudaError_t launch_grad_tables(const int32_t* idx, const float* bary, const float* ga,
+                               const float* gb, float* da, float* db, unsigned char* scratch,
+                               const LevelPlan& plan, int64_t levels, int64_t capacity,
+                               int64_t n, int64_t num_tables, cudaStream_t stream) {
+  if (num_tables == 2)
+    return launch_grad<F, 2>(idx, bary, ga, gb, da, db, scratch, plan, levels, capacity, n,
+                             stream);
+  return launch_grad<F, 1>(idx, bary, ga, nullptr, da, nullptr, scratch, plan, levels,
+                           capacity, n, stream);
 }
 
 template <int F>
@@ -210,40 +776,58 @@ cudaError_t launch_dbary(const float* table, const int32_t* idx, const float* g,
   return cudaGetLastError();
 }
 
+bool bad_grad_args(const int32_t* modes, const int32_t* rows, int64_t levels, int64_t capacity,
+                   int64_t n, int64_t feat, int64_t num_tables, LevelPlan* plan) {
+  return bad_shape(levels, capacity, n) || (num_tables != 1 && num_tables != 2) ||
+         (feat != 1 && feat != 2 && feat != 4) || !make_plan(modes, rows, levels, capacity, plan);
+}
+
 }  // namespace
 
+// Bytes of device scratch pagnerf_table_grad needs for these modes and live
+// rows (host arrays [levels]); -1 if an argument is out of range.
+extern "C" int64_t pagnerf_table_grad_scratch(const int32_t* modes, const int32_t* rows,
+                                              int64_t levels, int64_t capacity, int64_t n,
+                                              int64_t feat, int64_t num_tables) {
+  LevelPlan plan;
+  if (bad_grad_args(modes, rows, levels, capacity, n, feat, num_tables, &plan)) return -1;
+  return scratch_layout(plan, levels, feat, num_tables).total;
+}
+
 // Table gradients of one (num_tables = 1) or two tables from one event
-// stream; the _b pointers are unused for one. acc_a / acc_b are float64
-// scratch [L, C, F] that must be zero-filled; d_a / d_b receive the float32
-// gradients. Returns the launches' cudaError_t (0 on success); nothing is
-// launched for an argument the kernel does not take.
+// stream; the _b pointers are unused for one. modes[l] is 0 (kShared), 1
+// (kFloat) or 2 (kGlobal) and rows[l] the live rows of level l (host arrays
+// [levels]);
+// scratch is device memory of pagnerf_table_grad_scratch bytes, in any state.
+// d_a / d_b receive the float32 gradients [L, C, F], every entry written.
+// Returns the launches' cudaError_t (0 on success); nothing is launched for
+// an argument the kernels do not take.
 extern "C" int pagnerf_table_grad(const void* idx, const void* bary, const void* g_a,
-                                  const void* g_b, void* acc_a, void* acc_b, void* d_a,
-                                  void* d_b, int64_t levels, int64_t capacity, int64_t n,
-                                  int64_t feat, int64_t num_tables, void* stream) {
-  if (bad_shape(levels, capacity, n) || (num_tables != 1 && num_tables != 2))
+                                  const void* g_b, void* d_a, void* d_b, void* scratch,
+                                  const int32_t* modes, const int32_t* rows, int64_t levels,
+                                  int64_t capacity, int64_t n, int64_t feat, int64_t num_tables,
+                                  void* stream) {
+  LevelPlan plan;
+  if (bad_grad_args(modes, rows, levels, capacity, n, feat, num_tables, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* w = static_cast<const float*>(bary);
   const auto* ga = static_cast<const float*>(g_a);
   const auto* gb = static_cast<const float*>(g_b);
-  auto* aa = static_cast<double*>(acc_a);
-  auto* ab = static_cast<double*>(acc_b);
   auto* da = static_cast<float*>(d_a);
   auto* db = static_cast<float*>(d_b);
+  auto* sc = static_cast<unsigned char*>(scratch);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (feat) {
     case 1:
-      return static_cast<int>(launch_grad<1>(i, w, ga, gb, aa, ab, da, db, levels, capacity,
-                                             n, num_tables, s));
+      return static_cast<int>(
+          launch_grad_tables<1>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, num_tables, s));
     case 2:
-      return static_cast<int>(launch_grad<2>(i, w, ga, gb, aa, ab, da, db, levels, capacity,
-                                             n, num_tables, s));
-    case 4:
-      return static_cast<int>(launch_grad<4>(i, w, ga, gb, aa, ab, da, db, levels, capacity,
-                                             n, num_tables, s));
+      return static_cast<int>(
+          launch_grad_tables<2>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, num_tables, s));
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(
+          launch_grad_tables<4>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, num_tables, s));
   }
 }
 
@@ -268,4 +852,50 @@ extern "C" int pagnerf_gather_dbary(const void* table, const void* idx, const vo
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Row scatter-add: out [num_rows, 128] float32 = the sum of vals [m, 128]
+// float32 over row [m] int32, rows outside [0, num_rows) dropped. acc is
+// float64 scratch [num_rows, 128] in any state. Returns the launches'
+// cudaError_t (0 on success).
+extern "C" int pagnerf_scatter_rows(const void* row, const void* vals, void* out, void* acc,
+                                    int64_t m, int64_t num_rows, void* stream) {
+  if (m <= 0 || num_rows <= 0 || num_rows > 2147483647LL / kRowWidth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* r = static_cast<const int32_t*>(row);
+  const auto* v = static_cast<const float*>(vals);
+  auto* a = static_cast<double*>(acc);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t count = num_rows * kRowWidth;
+  cudaError_t err = cudaMemsetAsync(a, 0, count * sizeof(double), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a few blocks of 32 warps per SM, each with its own copy
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const bool direct = num_rows <= kRowsDirect;
+  const int64_t bytes = rows_copy_bytes(direct, num_rows);
+  const int64_t per_sm = std::max<int64_t>(1, 200 * 1024 / bytes);  // blocks an SM holds
+  const int64_t warps = static_cast<int64_t>(sms) * std::min<int64_t>(per_sm, 2) * (kRowThreads / 32);
+  const int64_t per_warp = std::max<int64_t>(4, (m + warps - 1) / warps);
+  const int64_t blocks = (m + per_warp * (kRowThreads / 32) - 1) / (per_warp * (kRowThreads / 32));
+  if (direct) {
+    err = cudaFuncSetAttribute(scatter_rows_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    scatter_rows_kernel<true><<<static_cast<unsigned>(blocks), kRowThreads, bytes, s>>>(
+        r, v, a, m, static_cast<int>(num_rows), per_warp);
+  } else {
+    err = cudaFuncSetAttribute(scatter_rows_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    scatter_rows_kernel<false><<<static_cast<unsigned>(blocks), kRowThreads, bytes, s>>>(
+        r, v, a, m, static_cast<int>(num_rows), per_warp);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const unsigned round_blocks =
+      static_cast<unsigned>(std::min<int64_t>((count + kThreads - 1) / kThreads, 4096));
+  round_kernel<<<round_blocks, kThreads, 0, s>>>(a, static_cast<float*>(out), count);
+  return static_cast<int>(cudaGetLastError());
 }

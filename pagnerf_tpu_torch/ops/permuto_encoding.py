@@ -98,6 +98,38 @@ def direct_level_specs(scales, capacity: int, feature_dim: int):
             np.asarray(mask), tuple(rows))
 
 
+def _lattice_points(scale: float) -> int:
+    """Lattice points of a level's key box over [-1, 1]^3 (``4 * Dm^3`` of
+    ``direct_level_specs``, whether or not the level fits the table)."""
+    k_bound = int(np.ceil(float(np.abs(_E).sum(axis=1).max()) / float(scale))) + 8
+    return _VERTS * (2 * (k_bound // 4 + 2) + 1) ** 3
+
+
+# A hashed level whose lattice has at most this many points per table row
+# still repeats rows along a ray (its cells span several ray steps), so its
+# table-gradient scatter merges warp runs and sums in float64 like a direct
+# level (``table_gather.GLOBAL``) instead of one float32 atomic per event.
+RUNS_POINTS_PER_ROW = 128
+
+
+def scatter_plan(scales, capacity: int, feature_dim: int):
+    """(rows_used, modes) of the table-gradient scatter per level: a direct
+    level's reachable rows (``4 * Dm^3``) or 0 for a hashed level
+    (``ops/table_gather.py::live_rows``), and the scatter kernel's
+    accumulation: ``table_gather.level_modes`` of those rows, except GLOBAL
+    for hashed levels of at most ``RUNS_POINTS_PER_ROW`` lattice points per
+    row."""
+    _, _, direct, _ = direct_level_specs(scales, capacity, feature_dim)
+    points = [_lattice_points(s) for s in np.asarray(scales)]
+    rows = tuple(p if dr else 0 for p, dr in zip(points, direct))
+    modes = table_gather.level_modes(table_gather.live_rows(rows, len(rows), capacity),
+                                     capacity)
+    modes = tuple(table_gather.GLOBAL if m == table_gather.FLOAT
+                  and p <= RUNS_POINTS_PER_ROW * capacity else m
+                  for m, p in zip(modes, points))
+    return rows, modes
+
+
 def _rank_and_el(scaledT: torch.Tensor):
     """One level's (el, gr, rank) from scale-divided coords [3, N]: elevation,
     nearest remainder-0 point (wrap-adjusted) and differential rank, ties
@@ -235,10 +267,11 @@ def permuto_encode_T(tables: torch.Tensor, coordsT: torch.Tensor, scales,
                      compute_dtype=torch.float32) -> torch.Tensor:
     """Encode coords [3, N] in [-1, 1]^3 against tables [L, C, F] with
     per-level scales [L]. Returns features [L*F, N] in ``compute_dtype``."""
-    num_levels, _, feat_dim = tables.shape
+    num_levels, capacity, feat_dim = tables.shape
     idx, bary = lattice(tables, coordsT, scales)
     out = table_gather.multilevel_table_gather(
-        tables.to(compute_dtype).contiguous(), idx, bary.to(compute_dtype))
+        tables.to(compute_dtype).contiguous(), idx, bary.to(compute_dtype),
+        *scatter_plan(scales, capacity, feat_dim))
     return out.reshape(num_levels * feat_dim, -1)
 
 
@@ -251,11 +284,12 @@ def permuto_encode_dual_T(tables_a: torch.Tensor, tables_b: torch.Tensor,
     if tables_a.shape != tables_b.shape:
         raise ValueError("dual encode needs same-spec tables, got "
                          f"{tuple(tables_a.shape)} and {tuple(tables_b.shape)}")
-    num_levels, _, feat_dim = tables_a.shape
+    num_levels, capacity, feat_dim = tables_a.shape
     idx, bary = lattice(tables_a, coordsT, scales)
     out_a, out_b = table_gather.dual_multilevel_table_gather(
         tables_a.to(compute_dtype).contiguous(),
-        tables_b.to(compute_dtype).contiguous(), idx, bary.to(compute_dtype))
+        tables_b.to(compute_dtype).contiguous(), idx, bary.to(compute_dtype),
+        *scatter_plan(scales, capacity, feat_dim))
     return (out_a.reshape(num_levels * feat_dim, -1),
             out_b.reshape(num_levels * feat_dim, -1))
 

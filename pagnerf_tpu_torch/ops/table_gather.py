@@ -26,9 +26,13 @@ PyTorch version beside it here. A wrapper launches the kernel for CUDA
 tensors (and counts the launch in its ``.launches``) and takes the plain
 version for CPU tensors; a CUDA tensor the kernel does not take raises.
 
-The scatter kernel sums in float64 and rounds once, so it stays within one
-float32 rounding of its plain version (which sums in float64 too) however
-many events share a table row.
+The scatter kernel holds each entry within 64 eps_f32 of its sum of
+|bary * g| to its plain version (a float64 sum rounded once), however many
+events share a table row: per level it sums in float64, or in float32 on rows
+of at most 120 addends and in float64 again beyond (``level_modes``,
+``csrc/permuto_scatter.cu`` "Accuracy"). ``rows_used`` bounds a level to its
+live rows (a direct-indexed level's index range); the encodes pass it with
+the modes from ``permuto_encoding.scatter_plan``.
 
 Contract of the gathers: tables ``[L, C, F]`` with F in (1, 2, 4), ``idx
 [L, 4, N]`` int32 with entries in ``[0, C)``, ``bary [L, 4, N]``; tables and
@@ -84,25 +88,47 @@ def dual_gather_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
             multilevel_gather_plain(tables_b, idx, bary))
 
 
+def live_rows(rows_used, levels: int, capacity: int) -> Tuple[int, ...]:
+    """Per-level live rows of the table gradient: ``rows_used[l]`` rows of
+    ``[C, F]`` (a direct-indexed level's index range), or all ``capacity``
+    rows where it is 0 or ``rows_used`` is None. Events at rows at or beyond
+    a level's live rows are dropped, as the JAX ``table_grad_matmul_T(...,
+    rows_used)`` drops them (its ``rows_used`` counts 128-lane rows, i.e.
+    ``128 / F`` of these)."""
+    if rows_used is None:
+        return (capacity,) * levels
+    rows = tuple(int(r) for r in rows_used)
+    if len(rows) != levels or any(r < 0 for r in rows):
+        raise ValueError(f"rows_used must hold {levels} counts >= 0, got {rows_used}")
+    return tuple(min(r, capacity) if r > 0 else capacity for r in rows)
+
+
 def table_grad_plain(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor,
-                     capacity: int) -> torch.Tensor:
+                     capacity: int, rows_used=None) -> torch.Tensor:
     """Plain table gradient: ``index_add_`` of the float32 products
     ``bary * g`` at level-offset flat rows, summed in float64 and rounded once
     to float32, as the kernel sums (in another order). idx/bary [L, V, N],
-    g [L, F, N] -> [L, C, F] float32."""
+    g [L, F, N] -> [L, C, F] float32. Events beyond a level's ``rows_used``
+    (see ``live_rows``) are dropped."""
     l, v, n = idx.shape
     f = g.shape[1]
     vals = bary.float()[..., None] * g.float().permute(0, 2, 1)[:, None]  # [L,V,N,F]
+    vals = vals.reshape(-1, f).double()
+    if rows_used is not None:
+        rows = torch.tensor(live_rows(rows_used, l, capacity), device=idx.device)
+        keep = (idx < rows[:, None, None]).reshape(-1, 1)
+        vals = torch.where(keep, vals, torch.zeros_like(vals))
     out = torch.zeros((l * capacity, f), dtype=torch.float64, device=idx.device)
-    out.index_add_(0, _flat_rows(idx, capacity), vals.reshape(-1, f).double())
+    out.index_add_(0, _flat_rows(idx, capacity), vals)
     return out.reshape(l, capacity, f).float()
 
 
 def dual_table_grad_plain(idx: torch.Tensor, bary: torch.Tensor,
-                          g_a: torch.Tensor, g_b: torch.Tensor, capacity: int):
+                          g_a: torch.Tensor, g_b: torch.Tensor, capacity: int,
+                          rows_used=None):
     """Plain dual table gradient: two single scatters of one event stream."""
-    return (table_grad_plain(idx, bary, g_a, capacity),
-            table_grad_plain(idx, bary, g_b, capacity))
+    return (table_grad_plain(idx, bary, g_a, capacity, rows_used),
+            table_grad_plain(idx, bary, g_b, capacity, rows_used))
 
 
 def gather_dbary_plain(tables: torch.Tensor, idx: torch.Tensor,
@@ -203,15 +229,24 @@ def _kernel():
 
 @functools.cache
 def _scatter_kernels():
+    """(table_grad, table_grad_scratch, dbary, scatter_rows) of
+    ``csrc/permuto_scatter.cu``."""
     from . import _build
     lib = _build.load("permuto_scatter")
+    i32p = ctypes.POINTER(ctypes.c_int32)
     grad = lib.pagnerf_table_grad
-    grad.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    grad.argtypes = [ctypes.c_void_p] * 7 + [i32p] * 2 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     grad.restype = ctypes.c_int
+    scratch = lib.pagnerf_table_grad_scratch
+    scratch.argtypes = [i32p] * 2 + [ctypes.c_int64] * 5
+    scratch.restype = ctypes.c_int64
     dbary = lib.pagnerf_gather_dbary
     dbary.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
     dbary.restype = ctypes.c_int
-    return grad, dbary
+    rows = lib.pagnerf_scatter_rows
+    rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+    rows.restype = ctypes.c_int
+    return grad, scratch, dbary, rows
 
 
 def _stream(dev: torch.device) -> int:
@@ -241,52 +276,91 @@ def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
     return outs
 
 
-def _launch_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int):
-    """The kernel sums into zero-filled float64 scratch and rounds once into
-    the float32 outputs (see ``csrc/permuto_scatter.cu``, "Accuracy")."""
+# Per-level accumulation of the scatter kernel (``csrc/permuto_scatter.cu``,
+# "Accuracy"): SHARED sums a block's events per row in shared memory, then
+# one float64 atomic per touched row; GLOBAL one float64 atomic per warp run
+# of equal rows; FLOAT one float32 vector atomic per event, with an addend
+# count that sends rows of more than 120 addends to an exact float64 redo.
+SHARED, FLOAT, GLOBAL = 0, 1, 2
+MODES = (SHARED, FLOAT, GLOBAL)
+SHARED_MAX_ROWS = 1 << 14     # live rows of the levels SHARED serves by default
+MAX_LEVELS = 64               # levels one scatter launch takes
+
+
+def level_modes(rows: Tuple[int, ...], capacity: int, modes=None) -> Tuple[int, ...]:
+    """The scatter kernel's accumulation per level: ``modes`` as given, or by
+    default SHARED for a direct-indexed level of at most ``SHARED_MAX_ROWS``
+    live rows (a few rows there take ~1e5 events each), GLOBAL for a larger
+    direct level, FLOAT for a hashed level (live rows = capacity). The choice
+    moves time, never the result's accuracy contract."""
+    if modes is None:
+        return tuple(FLOAT if r >= capacity else SHARED if r <= SHARED_MAX_ROWS
+                     else GLOBAL for r in rows)
+    modes = tuple(int(m) for m in modes)
+    if len(modes) != len(rows) or any(m not in MODES for m in modes):
+        raise ValueError(f"modes must hold {len(rows)} of SHARED={SHARED}, "
+                         f"FLOAT={FLOAT}, GLOBAL={GLOBAL}; got {modes}")
+    return modes
+
+
+def _launch_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int,
+                 rows_used=None, modes=None):
+    """One scatter over all levels into float32 outputs that the kernels
+    write whole; ``modes`` as in ``level_modes``."""
     l, _, n = idx.shape
     f = gs[0].shape[1]
+    if l > MAX_LEVELS:
+        raise ValueError(f"the scatter kernel takes at most {MAX_LEVELS} levels, got {l}")
+    rows = live_rows(rows_used, l, capacity)
+    modes = level_modes(rows, capacity, modes)
     if n == 0:
         return tuple(torch.zeros((l, capacity, f), dtype=torch.float32,
                                  device=idx.device) for _ in gs)
+    c_modes = (ctypes.c_int32 * l)(*modes)
+    c_rows = (ctypes.c_int32 * l)(*rows)
+    grad, scratch_bytes, _, _ = _scatter_kernels()
+    nbytes = scratch_bytes(c_modes, c_rows, l, capacity, n, f, len(gs))
+    if nbytes < 0:
+        raise ValueError(f"scatter kernel refuses modes {modes} / rows {rows}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=idx.device)
     outs = tuple(torch.empty((l, capacity, f), dtype=torch.float32,
                              device=idx.device) for _ in gs)
-    acc = tuple(torch.zeros((l, capacity, f), dtype=torch.float64,
-                            device=idx.device) for _ in gs)
-    grad, _ = _scatter_kernels()
     with torch.cuda.device(idx.device):
         err = grad(idx.data_ptr(), bary.data_ptr(), gs[0].data_ptr(),
-                   gs[-1].data_ptr(), acc[0].data_ptr(), acc[-1].data_ptr(),
-                   outs[0].data_ptr(), outs[-1].data_ptr(),
-                   l, capacity, n, f, len(gs), _stream(idx.device))
+                   gs[-1].data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
+                   scratch.data_ptr(), c_modes, c_rows, l, capacity, n, f, len(gs),
+                   _stream(idx.device))
     _raise_on(err, "permuto_scatter table_grad")
     return outs
 
 
 # ------------------------------------------------------------ kernel wrappers
 def multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor,
-                          capacity: int) -> torch.Tensor:
+                          capacity: int, rows_used=None, modes=None) -> torch.Tensor:
     """Table gradient [L, C, F] float32 from idx [L, 4, N] int32, bary [L, 4, N]
-    and g [L, F, N] (both float32). CUDA tensors launch the scatter kernel
+    and g [L, F, N] (both float32); ``rows_used`` as in ``live_rows``,
+    ``modes`` as in ``level_modes``. CUDA tensors launch the scatter kernel
     (counted in ``.launches``); CPU tensors take ``table_grad_plain``."""
     _check_grad(idx, bary, (g,), capacity)
     if idx.device.type == "cpu":
-        return table_grad_plain(idx, bary, g, capacity)
-    (out,) = _launch_grad(idx, bary, (g,), capacity)
+        level_modes(live_rows(rows_used, idx.shape[0], capacity), capacity, modes)
+        return table_grad_plain(idx, bary, g, capacity, rows_used)
+    (out,) = _launch_grad(idx, bary, (g,), capacity, rows_used, modes)
     multilevel_table_grad.launches += 1
     return out
 
 
 def dual_multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor,
                                g_a: torch.Tensor, g_b: torch.Tensor,
-                               capacity: int):
+                               capacity: int, rows_used=None, modes=None):
     """Both tables' gradients from one event stream -> (dT_a, dT_b), each
     [L, C, F] float32. One kernel launch (counted in ``.launches``) reads
     idx and bary once for both; CPU tensors take ``dual_table_grad_plain``."""
     _check_grad(idx, bary, (g_a, g_b), capacity)
     if idx.device.type == "cpu":
-        return dual_table_grad_plain(idx, bary, g_a, g_b, capacity)
-    out = _launch_grad(idx, bary, (g_a, g_b), capacity)
+        level_modes(live_rows(rows_used, idx.shape[0], capacity), capacity, modes)
+        return dual_table_grad_plain(idx, bary, g_a, g_b, capacity, rows_used)
+    out = _launch_grad(idx, bary, (g_a, g_b), capacity, rows_used, modes)
     dual_multilevel_table_grad.launches += 1
     return out
 
@@ -304,7 +378,7 @@ def multilevel_gather_dbary(tables: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((l, VERTS, n), dtype=torch.float32, device=idx.device)
     if n == 0:
         return out
-    _, dbary = _scatter_kernels()
+    _, _, dbary, _ = _scatter_kernels()
     with torch.cuda.device(idx.device):
         err = dbary(tables.data_ptr(), idx.data_ptr(), g.data_ptr(),
                     out.data_ptr(), l, c, n, f, _stream(idx.device))
@@ -318,8 +392,9 @@ class _Gather(torch.autograd.Function):
     """Single-table gather; backward = table scatter (+ dbary on request)."""
 
     @staticmethod
-    def forward(ctx, tables, idx, bary):
+    def forward(ctx, tables, idx, bary, rows_used, modes):
         ctx.save_for_backward(tables, idx, bary)
+        ctx.plan = (rows_used, modes)
         if tables.device.type == "cpu":
             return multilevel_gather_plain(tables, idx, bary)
         (out,) = _launch((tables,), idx, bary)
@@ -333,11 +408,11 @@ class _Gather(torch.autograd.Function):
         dtables = dbary = None
         if ctx.needs_input_grad[0]:
             dtables = multilevel_table_grad(idx, bary.float().contiguous(), g,
-                                            tables.shape[1]).to(tables.dtype)
+                                            tables.shape[1], *ctx.plan).to(tables.dtype)
         if ctx.needs_input_grad[2]:
             dbary = multilevel_gather_dbary(tables.float().contiguous(), idx,
                                             g).to(bary.dtype)
-        return dtables, None, dbary
+        return dtables, None, dbary, None, None
 
 
 class _DualGather(torch.autograd.Function):
@@ -345,8 +420,9 @@ class _DualGather(torch.autograd.Function):
     both tables, dbary from the A side only (B's weights are stop-gradient)."""
 
     @staticmethod
-    def forward(ctx, tables_a, tables_b, idx, bary):
+    def forward(ctx, tables_a, tables_b, idx, bary, rows_used, modes):
         ctx.save_for_backward(tables_a, idx, bary)
+        ctx.plan = (rows_used, modes)
         ctx.capacity = tables_b.shape[1]
         ctx.dtype_b = tables_b.dtype
         if tables_a.device.type == "cpu":
@@ -366,32 +442,38 @@ class _DualGather(torch.autograd.Function):
         dta = dtb = dbary = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             dta, dtb = dual_multilevel_table_grad(
-                idx, bary.float().contiguous(), g_a, g_b, ctx.capacity)
+                idx, bary.float().contiguous(), g_a, g_b, ctx.capacity, *ctx.plan)
             dta, dtb = dta.to(tables_a.dtype), dtb.to(ctx.dtype_b)
         if ctx.needs_input_grad[3]:
             dbary = multilevel_gather_dbary(tables_a.float().contiguous(), idx,
                                             g_a).to(bary.dtype)
-        return dta, dtb, None, dbary
+        return dta, dtb, None, dbary, None, None
 
 
 def multilevel_table_gather(tables: torch.Tensor, idx: torch.Tensor,
-                            bary: torch.Tensor) -> torch.Tensor:
+                            bary: torch.Tensor, rows_used=None,
+                            modes=None) -> torch.Tensor:
     """tables [L, C, F], idx [L, 4, N] int32, bary [L, 4, N] -> [L, F, N],
     differentiable in tables and bary. CUDA tensors launch the kernel
-    (counted in ``.launches``); CPU tensors take ``multilevel_gather_plain``."""
+    (counted in ``.launches``); CPU tensors take ``multilevel_gather_plain``.
+    ``rows_used`` (per level, see ``live_rows``; it must cover every index of
+    its level) and ``modes`` (``level_modes``) go to the backward's
+    table-gradient scatter."""
     _check((tables,), idx, bary)
-    return _Gather.apply(tables, idx, bary)
+    return _Gather.apply(tables, idx, bary, rows_used, modes)
 
 
 def dual_multilevel_table_gather(tables_a: torch.Tensor, tables_b: torch.Tensor,
-                                 idx: torch.Tensor, bary: torch.Tensor):
+                                 idx: torch.Tensor, bary: torch.Tensor,
+                                 rows_used=None, modes=None):
     """Two same-shape table stacks at shared idx/bary -> (out_a, out_b), each
     [L, F, N], bit-identical to two single gathers. One kernel launch reads
     both tables' entries of a vertex in one pass (counted in ``.launches``);
     CPU tensors take ``dual_gather_plain``. Differentiable in both tables and
-    in bary, whose gradient comes from the A side only."""
+    in bary, whose gradient comes from the A side only; ``rows_used`` and
+    ``modes`` as in ``multilevel_table_gather``."""
     _check((tables_a, tables_b), idx, bary)
-    return _DualGather.apply(tables_a, tables_b, idx, bary)
+    return _DualGather.apply(tables_a, tables_b, idx, bary, rows_used, modes)
 
 
 multilevel_table_gather.launches = 0

@@ -115,10 +115,11 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
         return feats.grad
     g = decoders().reshape(spec.num_levels, spec.feature_dim, r * s).contiguous()
     c = spec.capacity
+    plan = permuto_encoding.scatter_plan(spec.scales, c, spec.feature_dim)
     if dual:
-        scatter = lambda: table_gather.dual_multilevel_table_grad(idx, bary, g, g, c)
+        scatter = lambda: table_gather.dual_multilevel_table_grad(idx, bary, g, g, c, *plan)
     else:
-        scatter = lambda: table_gather.multilevel_table_grad(idx, bary, g, c)
+        scatter = lambda: table_gather.multilevel_table_grad(idx, bary, g, c, *plan)
     dbary_fn = lambda: table_gather.multilevel_gather_dbary(ta, idx, g)
     dbary = dbary_fn()
     inv_s = (1.0 / np.asarray(spec.scales)).astype(np.float32)

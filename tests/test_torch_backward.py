@@ -123,6 +123,59 @@ def test_table_grad_plain_matches_pallas_kernels(rows_used):
             assert np.all(np.abs(got - np.asarray(ref)) <= bound)
 
 
+@pytest.mark.parametrize("within", [True, False], ids=["indices_within", "indices_beyond"])
+def test_table_grad_rows_used_matches_full_plain_and_pallas(within):
+    """``rows_used`` bounds the scatter to a level's live rows: with every
+    index inside them the wrappers equal the full-capacity plain version
+    bit for bit; events beyond them are dropped, as the Pallas
+    ``table_grad_matmul_T(..., rows_used)`` drops them (its ``rows_used``
+    counts 128-lane rows: 8 of them are 8 * 128 / F = 512 rows of [C, F])."""
+    c, packed = 2048, 8
+    entries = packed * pallas_scatter.LANES // F
+    rng = np.random.default_rng(7)
+    n = 400
+    idx = rng.integers(0, entries if within else c, size=(L, V, n)).astype(np.int32)
+    bary = rng.uniform(0, 1, size=(L, V, n)).astype(np.float32)
+    g_a = rng.normal(size=(L, F, n)).astype(np.float32)
+    g_b = rng.normal(size=(L, F, n)).astype(np.float32)
+    rows_used = (entries,) * L
+    got = tg_t.multilevel_table_grad(*_t(idx, bary, g_a), c, rows_used=rows_used)
+    ga, gb = tg_t.dual_multilevel_table_grad(*_t(idx, bary, g_a, g_b), c,
+                                             rows_used=rows_used)
+    kept = np.where(idx < entries, bary, 0).astype(np.float32)
+    for out, g in ((got, g_a), (ga, g_a), (gb, g_b)):
+        assert out.shape == (L, c, F) and out.dtype == torch.float32
+        assert torch.equal(out, tg_t.table_grad_plain(*_t(idx, kept, g), c))
+        assert bool((out[:, entries:] == 0).all())
+    if within:
+        assert torch.equal(got, tg_t.table_grad_plain(*_t(idx, bary, g_a), c))
+    mag = tg_t.table_grad_plain(*_t(idx, np.abs(kept), np.abs(g_a)), c).numpy()
+    for lv in range(L):
+        ref = pallas_scatter.table_grad_matmul_T(
+            jnp.asarray(idx[lv]), jnp.asarray(bary[lv]), jnp.asarray(g_a[lv]), c, F,
+            rows_used=packed, interpret=True)
+        assert np.all(np.abs(got[lv].numpy() - np.asarray(ref))
+                      <= 2.0 ** -8 * mag[lv] + 1e-6)
+
+
+def test_scatter_plan_bounds_direct_levels_like_the_jax_package():
+    """The port's live rows of a direct level are its reachable rows
+    ``4 * Dm^3``, within the JAX package's 128-lane ``rows_used``; hashed
+    levels are unbounded (0). Direct levels never take the float32 mode."""
+    scales = np.geomspace(1.0, 1e-4, 24)
+    cap = 1 << 18
+    rows, modes = pe_t.scatter_plan(scales, cap, F)
+    _, dm, direct, rows_j = pe_j.direct_level_specs(scales, cap, F)
+    for r, d, dr, rj in zip(rows, dm, direct, rows_j):
+        assert r == (V * int(d) ** 3 if dr else 0)
+        assert r <= rj * pallas_scatter.LANES // F
+    assert modes[0] == tg_t.SHARED and modes[-1] == tg_t.FLOAT
+    assert all(m != tg_t.FLOAT for m, dr in zip(modes, direct) if dr)
+    assert tg_t.level_modes(tg_t.live_rows(rows, 24, cap), cap) == tuple(
+        tg_t.FLOAT if not dr else tg_t.SHARED if r <= tg_t.SHARED_MAX_ROWS
+        else tg_t.GLOBAL for r, dr in zip(rows, direct))
+
+
 def test_cpu_dispatch_takes_plain_and_counts_nothing():
     ta, tb, idx, bary, g_a, g_b = _t(*_rand(3))
     before = {k: fn.launches for k, fn in tg_t.KERNELS.items()}
@@ -134,7 +187,7 @@ def test_cpu_dispatch_takes_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("case", ["idx_dtype", "g_dtype", "g_shape", "bary_shape",
                                   "capacity", "contiguous", "dbary_table_dtype",
-                                  "dbary_g_shape"])
+                                  "dbary_g_shape", "rows_used", "modes"])
 def test_backward_wrappers_reject_what_the_kernels_do_not_take(case):
     ta, tb, idx, bary, g_a, g_b = _t(*_rand(4))
     fn, args = tg_t.multilevel_table_grad, [idx, bary, g_a, C]
@@ -154,6 +207,10 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(case):
         fn, args = tg_t.multilevel_gather_dbary, [ta.bfloat16(), idx, g_a]
     elif case == "dbary_g_shape":
         fn, args = tg_t.multilevel_gather_dbary, [ta, idx, g_a[:, :1]]
+    elif case == "rows_used":
+        args.append((C,) * (L - 1))
+    elif case == "modes":
+        args += [None, (tg_t.SHARED, tg_t.FLOAT, 7)]
     with pytest.raises((TypeError, ValueError)):
         fn(*args)
 

@@ -9,15 +9,20 @@ with ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
 Tolerance of the gathers: float32, 8 ulp of the largest table entry (fused vs
 separate multiply-adds over 4 vertices); bfloat16, that plus one bf16 ulp of
 the largest output (the float32 sums may round to neighbouring bf16 values).
-The table-gradient scatter sums float32 products with float64 atomics in an
-order that changes from run to run and rounds once; each entry is held within
-64 * eps_f32 of its sum of |bary * g| to the plain version's float64 sum. dbary: each entry within
-4 * eps_f32 of its sum over F of |g * T| (a fused multiply-add chain against
-separate products)."""
+The table-gradient scatter sums float32 products per level either in float64
+(shared-memory rows, then float64 atomics) or with float32 atomics on rows of
+at most 120 addends (rows beyond are summed again in float64), in an order
+that changes from run to run; each entry is held within 64 * eps_f32 of its
+sum of |bary * g| to the plain version's float64 sum, with random,
+same-signed and run-pattern cotangents, under every per-level mode. The row
+scatter-add sums in float64 and rounds once: each entry within 64 * eps_f32
+of its sum of |vals|. dbary: each entry within 4 * eps_f32 of its sum over F
+of |g * T| (a fused multiply-add chain against separate products)."""
 import numpy as np
 import pytest
 import torch
 
+from pagnerf_tpu_torch.ops import scatter_rows as sr
 from pagnerf_tpu_torch.ops import table_gather as tg
 
 pytestmark = pytest.mark.cuda
@@ -102,9 +107,9 @@ def _grad_inputs(dev, l, c, f, n, seed=1, runs=False):
     return idx, bary, g_a, g_b
 
 
-def _assert_scatter_close(got, idx, bary, g, c):
-    want = tg.table_grad_plain(idx, bary, g, c)
-    mag = tg.table_grad_plain(idx, bary.abs(), g.abs(), c)
+def _assert_scatter_close(got, idx, bary, g, c, rows_used=None):
+    want = tg.table_grad_plain(idx, bary, g, c, rows_used)
+    mag = tg.table_grad_plain(idx, bary.abs(), g.abs(), c, rows_used)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert bool(((got - want).abs() <= 64 * F32_EPS * mag).all())
 
@@ -125,6 +130,75 @@ def test_table_grad_kernels_match_plain(dev, f, n, runs):
     _assert_scatter_close(single, idx, bary, g_a, c)
     _assert_scatter_close(da, idx, bary, g_a, c)
     _assert_scatter_close(db, idx, bary, g_b, c)
+
+
+@pytest.mark.parametrize("modes", ["shared", "float", "global", "mixed"])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("pattern", ["random", "runs", "hot"])
+def test_table_grad_modes_match_plain_same_signed(dev, modes, f, pattern):
+    """Every per-level accumulation on same-signed cotangents: "hot" sends
+    ~1e5 events to a few rows (the FLOAT rows overflow 120 addends and are
+    redone in float64), "random" over 4096 rows overfills a block's hash
+    table (events go straight to the float64 accumulator), with and without
+    live-row bounds."""
+    l, c, n = 4, 1 << 12, 1 << 15
+    idx, bary, g_a, g_b = _grad_inputs(dev, l, c, f, n, seed=5, runs=pattern == "runs")
+    if pattern == "hot":
+        idx = (idx % 7).contiguous()
+    g_a, g_b = g_a.abs(), g_b.abs()
+    rows_used = (64, 0, 4096, 0)
+    if pattern != "hot":
+        idx[0] %= 64
+    mode = {"shared": (tg.SHARED,) * l, "float": (tg.FLOAT,) * l,
+            "global": (tg.GLOBAL,) * l,
+            "mixed": (tg.SHARED, tg.FLOAT, tg.GLOBAL, tg.SHARED)}[modes]
+    (single,) = tg._launch_grad(idx, bary, (g_a,), c, rows_used, mode)
+    da, db = tg._launch_grad(idx, bary, (g_a, g_b), c, rows_used, mode)
+    torch.cuda.synchronize()
+    _assert_scatter_close(single, idx, bary, g_a, c, rows_used)
+    _assert_scatter_close(da, idx, bary, g_a, c, rows_used)
+    _assert_scatter_close(db, idx, bary, g_b, c, rows_used)
+
+
+def test_table_grad_rows_used_drops_events_beyond(dev):
+    l, c, f, n = 2, 1 << 10, 2, 5000
+    idx, bary, g_a, g_b = _grad_inputs(dev, l, c, f, n, seed=6)
+    got = tg.multilevel_table_grad(idx, bary, g_a, c, rows_used=(100, 0))
+    torch.cuda.synchronize()
+    _assert_scatter_close(got, idx, bary, g_a, c, (100, 0))
+    assert bool((got[0, 100:] == 0).all())
+    with pytest.raises(ValueError):
+        tg.multilevel_table_grad(idx, bary, g_a, c, rows_used=(100,))
+
+
+@pytest.mark.parametrize("num_rows", [1, 64, 200, 201, 640, 4096])
+@pytest.mark.parametrize("order", ["random", "runs"])
+def test_scatter_rows_kernel_matches_plain(dev, num_rows, order):
+    gen = torch.Generator(device=dev).manual_seed(num_rows)
+    m = 20000
+    if order == "runs":
+        row = (torch.arange(m, device=dev) // 97 % (num_rows + 3) - 1).to(torch.int32)
+    else:
+        row = torch.randint(-1, num_rows + 2, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    vals = torch.randn((m, 128), generator=gen, device=dev).abs()
+    n0 = sr.scatter_rows.launches
+    got = sr.scatter_rows(row, vals, num_rows)
+    torch.cuda.synchronize()
+    assert sr.scatter_rows.launches == n0 + 1
+    want = sr.scatter_rows_plain(row, vals, num_rows)
+    mag = sr.scatter_rows_plain(row, vals.abs(), num_rows)
+    assert got.shape == (num_rows, 128) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 64 * F32_EPS * mag).all())
+
+
+def test_scatter_rows_kernel_zero_events_and_checks(dev):
+    out = sr.scatter_rows(torch.zeros((0,), dtype=torch.int32, device=dev),
+                          torch.zeros((0, 128), device=dev), 640)
+    assert out.shape == (640, 128) and bool((out == 0).all())
+    with pytest.raises(TypeError):
+        sr.scatter_rows(torch.zeros((4,), dtype=torch.int64, device=dev),
+                        torch.zeros((4, 128), device=dev), 8)
 
 
 @pytest.mark.parametrize("f", [1, 2, 4])
