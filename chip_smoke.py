@@ -6,11 +6,20 @@
 Phases, each printing one JSON line as it ends:
 
 1. device  -- refuse to run without CUDA; name the card and its power limit.
-2. build   -- compile ``ops/csrc/permuto_gather.cu`` and
-   ``ops/csrc/permuto_scatter.cu`` (backward kernels and the row
-   scatter-add) with nvcc (ctypes route), one nvcc each, both started
-   together.
-3. kernels -- the forward gathers at the flagship render's shapes (L=24
+2. build   -- compile ``ops/csrc/permuto_encode.cu`` (the fused encode),
+   ``ops/csrc/permuto_gather.cu`` and ``ops/csrc/permuto_scatter.cu``
+   (backward kernels and the row scatter-add) with nvcc (ctypes route), one
+   nvcc each, all started together.
+3. encode  -- the fused encode kernels (lattice, index, gather and weighted
+   sum in one launch; single and dual, the dual from packed rows and from
+   two tables) against their plain versions (the port's lattice on the card,
+   then the plain gathers) at the render's N = 1,572,864 without idx/bary
+   and at a training microbatch's N = 2,097,152 with idx/bary, float32 and
+   bfloat16, random tables: idx mismatches at most 1e-6 of the entries,
+   features within the per-level bound, single bit-equal to the dual's A
+   side, the idx mismatches and the share of bit-equal bary; times and
+   bounds (table bytes: the rows the lattice can index).
+   kernels -- the forward gathers at the flagship render's shapes (L=24
    levels, C=2^18 entries, F=2, V=4, N = 3072 rays (camera 0's 64x48 image)
    x 512 steps = 1,572,864 samples), idx/bary from the port's lattice at the
    render's sample coordinates: single and dual kernels against their plain
@@ -33,17 +42,18 @@ Phases, each printing one JSON line as it ends:
    render on the CPU (whose plain path the CPU tests hold against the JAX
    package), float32 decoders.
 6. render  -- main path 1: launch counts set to 0, the flagship render
-   ``entry()`` (rgb, depth, semantics, inst_embedding; dual kernel) and the
-   same render with rgb and depth only (single kernel), counts read. Outputs
-   must be finite, of the right shapes, and match the render routed through
-   the plain gathers on the card.
+   ``entry()`` (rgb, depth, semantics, inst_embedding; dual encode) and the
+   same render with rgb and depth only (single encode), counts read: one
+   launch of each encode kernel, none of the gathers. Outputs must be
+   finite, of the right shapes, and match the render routed through the
+   plain encodes on the card.
 7. train   -- main paths 2 and 3: launch counts set to 0, then
    ``train_flagship("rgb", steps=3)`` and ``train_flagship("panoptic",
    steps=3)`` at full width (6 images requested, 4 training views, 4096
-   rays each, one image per microbatch), counts read: the forward gather and
+   rays each, one image per microbatch), counts read: the fused encode and
    the table-gradient kernel once per microbatch (single in the RGB stage,
    dual in the panoptic stage), dbary once per microbatch whose camera is not
-   an anchor frame, the row scatter-add never. Losses must be finite. Then
+   an anchor frame, the gathers and the row scatter-add never. Losses must be finite. Then
    one microbatch's gradients through the kernels against the same
    microbatch through the plain backward versions on the card. Step times, rays/s and peak memory.
 
@@ -53,6 +63,7 @@ last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -103,35 +114,66 @@ def _bound(nbytes, flops):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def gather_bound(l, c, f, n, num_tables, itemsize):
+def table_bytes(rows_used, c, f, itemsize):
+    """Bytes of a [L, C, F] table that the lattice can index: a direct
+    level's ``4 * Dm^3`` reachable rows (``rows_used``, from
+    ``permuto_encoding.level_statics``), a hashed level's (0) all C."""
+    return sum(min(r or c, c) for r in rows_used) * f * itemsize
+
+
+def gather_bound(l, c, f, n, num_tables, itemsize, rows_used):
     """Least time for the gather at these shapes: bytes (idx read once, bary
-    and each table read once, each output written once) over the memory rate,
-    against flops (V products and sums per output) over the float32 rate."""
+    and each table's reachable rows read once, each output written once)
+    over the memory rate, against flops (V products and sums per output)
+    over the float32 rate."""
     v = 4
     nbytes = l * v * n * 4 + l * v * n * itemsize \
-        + num_tables * (l * c * f * itemsize + l * f * n * itemsize)
+        + num_tables * (table_bytes(rows_used, c, f, itemsize) + l * f * n * itemsize)
     return _bound(nbytes, num_tables * l * f * n * v * 2)
+
+
+# float32 operations of the fused encode's lattice per (level, sample):
+# scaling 3, elevation 16, rounding 12, differences and deltas 12, weights 7
+# (csrc/permuto_encode.cu ``simplex``; the index math is integer)
+LATTICE_FLOPS = 50
+
+
+def encode_bound(l, c, f, n, num_tables, itemsize, with_lattice, rows_used):
+    """Least time for the fused encode: bytes (x read once, each table's
+    reachable rows read once, each output written once, and idx/bary when
+    written) over the memory rate, against flops (the lattice, and V
+    products and sums per output) over the float32 rate."""
+    v = 4
+    nbytes = 3 * n * 4 + num_tables * (table_bytes(rows_used, c, f, itemsize)
+                                       + l * f * n * itemsize)
+    if with_lattice:
+        nbytes += 2 * l * v * n * 4
+    return _bound(nbytes, l * n * (LATTICE_FLOPS + num_tables * f * v * 2))
 
 
 def scatter_bound(l, c, f, n, num_tables):
     """Least time for the table-gradient scatter: idx and bary read once,
     each table's cotangent g [L, F, N] read once and gradient [L, C, F]
-    written once (float32); one product and one sum per event and feature."""
+    written once in full, unreachable rows being zeros of the output too
+    (float32); one product and one sum per event and feature."""
     v = 4
     nbytes = 2 * l * v * n * 4 + num_tables * (l * f * n * 4 + l * c * f * 4)
     return _bound(nbytes, num_tables * l * v * n * f * 2)
 
 
-def dbary_bound(l, c, f, n):
-    """Least time for dbary: idx, g and the table read once, dbary written
-    once (float32); F products and sums per output."""
+def dbary_bound(l, c, f, n, rows_used):
+    """Least time for dbary: idx, g and the table's reachable rows read
+    once, dbary written once (float32); F products and sums per output."""
     v = 4
-    nbytes = l * v * n * 4 + l * f * n * 4 + l * c * f * 4 + l * v * n * 4
+    nbytes = l * v * n * 4 + l * f * n * 4 + table_bytes(rows_used, c, f, 4) \
+        + l * v * n * 4
     return _bound(nbytes, l * v * n * f * 2)
 
 
 def _kernel_wrappers():
     """Every kernel wrapper of the port, by name, with its launch count."""
+    # importing permuto_encoding registers the fused encodes in KERNELS
+    from pagnerf_tpu_torch.ops import permuto_encoding  # noqa: F401
     from pagnerf_tpu_torch.ops import scatter_rows, table_gather
     return {**table_gather.KERNELS, "scatter_rows": scatter_rows.scatter_rows}
 
@@ -148,7 +190,7 @@ def _launches() -> dict:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from pagnerf_tpu_torch.ops import _build, table_gather
+    from pagnerf_tpu_torch.ops import _build, permuto_encoding, table_gather
 
     def timed(name):
         t = time.perf_counter()
@@ -156,9 +198,11 @@ def phase_build():
         return os.path.relpath(path, ROOT), time.perf_counter() - t
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        futures = {n: ex.submit(timed, n) for n in ("permuto_gather", "permuto_scatter")}
+    sources = ("permuto_encode", "permuto_gather", "permuto_scatter")
+    with ThreadPoolExecutor(len(sources)) as ex:
+        futures = {n: ex.submit(timed, n) for n in sources}
         built = {n: f.result() for n, f in futures.items()}
+    permuto_encoding._encode_kernel()
     table_gather._kernel()
     table_gather._scatter_kernels()
     emit("build", wall_seconds=time.perf_counter() - t,
@@ -167,26 +211,130 @@ def phase_build():
          flags=" ".join(_build.NVCC_FLAGS))
 
 
-def phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush):
+def render_coords(pipe, origins, dirs, cam_idx):
+    """Sample coordinates [3, N] of the flagship render (its march)."""
     import torch
-    import torch.nn.functional as F
 
     from pagnerf_tpu_torch.core.rays import Rays
-    from pagnerf_tpu_torch.ops import permuto_encoding, table_gather
     from pagnerf_tpu_torch.ops.occupancy import OccupancyGrid
     from pagnerf_tpu_torch.ops.raymarch import raymarch
 
-    spec = pipe.nef.grid.spec
-    occ = OccupancyGrid.create(level=7, device=dev)
-    with torch.inference_mode():
+    occ = OccupancyGrid.create(level=7, device=origins.device)
+    with torch.no_grad():
         rays = pipe.transform_rays(
             Rays(origins=origins, dirs=dirs, dist_min=0.0, dist_max=6.0), cam_idx)
         coordsT = raymarch(rays, occ, pipe.tracer_cfg.num_steps).positionsT
-        coordsT = coordsT.reshape(3, -1)
+    return coordsT.reshape(3, -1).contiguous()
+
+
+def phase_encode(dev, spec, coords, flush):
+    """The fused encode kernels against their plain versions, at the render's
+    and a training microbatch's coordinates (``coords``: name -> x [3, N])."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.profile_scatter import microbatch_lattice
+
+    l, c, f = spec.num_levels, spec.capacity, spec.feature_dim
+    st = pe.level_statics(spec.scales, c, f)
+    e = torch.as_tensor(pe._E, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    results = {}
+    for where, x in coords.items():
+        n = x.shape[1]
+        with_lattice = where == "train"      # training keeps idx/bary for the backward
+        idx_p, bary_p = microbatch_lattice(spec, x)
+        with torch.no_grad():
+            el_ulp = [2.0 ** (math.floor(math.log2(
+                (e @ (x * torch.tensor(inv_s, device=dev))).abs().max().item())) - 23)
+                for inv_s in st.inv_scales]
+        for dtype in (torch.float32, torch.bfloat16):
+            ta = torch.randn((l, c, f), generator=gen, device=dev).to(dtype)
+            tb = torch.randn((l, c, f), generator=gen, device=dev).to(dtype)
+            (single,), idx_k, bary_k = pe._launch_encode(x, (ta,), st, True, False)
+            (oa, ob), idx_d, bary_d = pe._launch_encode(x, (ta, tb), st, True, True)
+            (oa2, ob2), _, _ = pe._launch_encode(x, (ta, tb), st, False, False)
+            pa, pb = tg.dual_gather_plain(ta, tb, idx_p, bary_p.to(dtype))
+            torch.cuda.synchronize()
+            # per level: one ulp of el moves each of the 4 weights by at most
+            # ulp/4, and the products and sums round in float32; bfloat16
+            # outputs may then round one bf16 ulp apart
+            worst, err = 0.0, 0.0
+            for lv in range(l):
+                tmax = max(ta[lv].float().abs().max().item(), tb[lv].float().abs().max().item())
+                tol = (4 * el_ulp[lv] + 8 * F32_EPS) * tmax
+                if dtype == torch.bfloat16:
+                    tol += BF16_ULP * max(pa[lv].float().abs().max().item(),
+                                          pb[lv].float().abs().max().item())
+                e_lv = max((oa[lv].float() - pa[lv].float()).abs().max().item(),
+                           (ob[lv].float() - pb[lv].float()).abs().max().item())
+                err, worst = max(err, e_lv), max(worst, e_lv / tol)
+            mismatches = int((idx_k != idx_p).sum())
+            check = dict(
+                idx_mismatches=mismatches, idx_entries=idx_p.numel(),
+                idx_equal_share=1.0 - mismatches / idx_p.numel(),
+                bary_bit_equal_share=(bary_k.view(torch.int32) == bary_p.view(torch.int32))
+                .float().mean().item(),
+                max_abs_err=err, worst_err_over_tol=worst,
+                tol="(4 ulp_f32(max|el_l|) + 8 eps_f32) max|table_l| per level"
+                    + (" + 1 bf16 ulp of max|out_l|" if dtype == torch.bfloat16 else ""),
+                single_equals_dual_a=torch.equal(single, oa),
+                packed_equals_two_loads=torch.equal(oa, oa2) and torch.equal(ob, ob2),
+                dual_lattice_equals_single=torch.equal(idx_d, idx_k)
+                and torch.equal(bary_d, bary_k))
+            del single, idx_k, bary_k, oa, ob, idx_d, bary_d, oa2, ob2, pa, pb
+            ok = (mismatches <= 1e-6 * idx_p.numel() and worst <= 1.0
+                  and check["single_equals_dual_a"] and check["packed_equals_two_loads"]
+                  and check["dual_lattice_equals_single"])
+            if not ok:
+                emit("encode", ok=False, at=where, dtype=str(dtype).replace("torch.", ""),
+                     **check)
+                raise AssertionError(f"fused encode {where} {dtype} vs plain: {check}")
+
+            # times: the wrappers as the main path calls them (idx/bary kept
+            # when the tables need a gradient, as in training)
+            ta.requires_grad_(with_lattice)
+            tb.requires_grad_(with_lattice)
+            scales = spec.scales
+            itemsize = ta.element_size()
+            times = {}
+            for name, num_tables, kern, plain in (
+                    ("single", 1, lambda: pe.fused_encode(ta, x, scales),
+                     lambda: pe.encode_plain(ta.detach(), x, scales)),
+                    ("dual", 2, lambda: pe.fused_encode_dual(ta, tb, x, scales),
+                     lambda: pe.dual_encode_plain(ta.detach(), tb.detach(), x, scales)),
+                    ("dual_two_loads", 2,
+                     lambda: pe._launch_encode(x, (ta, tb), st, with_lattice, False), None)):
+                bound_ms, bound_by, nbytes, flops = encode_bound(
+                    l, c, f, n, num_tables, itemsize, with_lattice, st.rows_used)
+                times[name] = dict(ms=cuda_ms(kern, flush=flush),
+                                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                                   flops=flops)
+                if plain is not None:
+                    with torch.no_grad():
+                        times[name]["plain_ms"] = cuda_ms(plain, reps=5, flush=flush)
+            results[(where, dtype)] = dict(check, **times)
+            emit("encode", at=where, dtype=str(dtype).replace("torch.", ""), L=l, C=c,
+                 F=f, N=n, idx_bary_written=with_lattice, **results[(where, dtype)])
+            del ta, tb
+        del idx_p, bary_p
+    return results
+
+
+def phase_kernels_fwd(dev, pipe, coordsT, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from pagnerf_tpu_torch.ops import permuto_encoding, table_gather
+
+    spec = pipe.nef.grid.spec
+    with torch.no_grad():
         idx, bary32 = permuto_encoding.lattice(pipe.nef.grid.tables, coordsT,
                                                 spec.scales)
     l, _, n = idx.shape
     c, f = spec.capacity, spec.feature_dim
+    rows_used = permuto_encoding.level_statics(spec.scales, c, f).rows_used
     gen = torch.Generator(device=dev).manual_seed(0)
     offs = torch.arange(l, device=dev, dtype=torch.int64)[:, None, None] * c
     bag_idx = (idx.to(torch.int64) + offs).permute(0, 2, 1).reshape(l * n, 4)
@@ -238,7 +386,7 @@ def phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush):
                        - torch.stack([r.float() for r in ref])).abs().max().item()
             del got, ref, lib_out
             bound_ms, bound_by, nbytes, flops = gather_bound(
-                l, c, f, n, num_tables, ta.element_size())
+                l, c, f, n, num_tables, ta.element_size(), rows_used)
             results[(name, dtype)] = dict(
                 max_abs_err=err, tol=tol,
                 ms=cuda_ms(kern, flush=flush), plain_ms=cuda_ms(plain, flush=flush),
@@ -253,14 +401,14 @@ def phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush):
     return results
 
 
-def phase_kernels_bwd(dev, flush):
+def phase_kernels_bwd(dev, spec, x_train, flush):
     import torch
 
     from pagnerf_tpu_torch.ops import table_gather as tg
     from pagnerf_tpu_torch.ops.permuto_encoding import scatter_plan
-    from pagnerf_tpu_torch.profile_scatter import device_ms, level_stats, training_microbatch
+    from pagnerf_tpu_torch.profile_scatter import device_ms, level_stats, microbatch_lattice
 
-    spec, idx, bary = training_microbatch(dev)
+    idx, bary = microbatch_lattice(spec, x_train)
     l, _, n = idx.shape
     c, f = spec.capacity, spec.feature_dim
     # the main path's per-level live rows and accumulation modes
@@ -368,7 +516,7 @@ def phase_kernels_bwd(dev, flush):
     worst = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
     del got, want, mag, diff
     require(worst <= 1.0, "gather_dbary", dict(max_abs_err=err, worst_err_over_tol=worst))
-    bound_ms, bound_by, nbytes, flops = dbary_bound(l, c, f, n)
+    bound_ms, bound_by, nbytes, flops = dbary_bound(l, c, f, n, rows_used)
     results["gather_dbary"] = dict(
         max_abs_err=err, tol="4 eps_f32 * sum_f |g*T| per entry",
         worst_err_over_tol=worst,
@@ -452,7 +600,7 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
     import torch
     from unittest import mock
 
-    from pagnerf_tpu_torch.ops import table_gather
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
 
     rd = frozenset({"rgb", "depth"})
     torch.cuda.reset_peak_memory_stats()
@@ -462,10 +610,9 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
     torch.cuda.synchronize()
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name in ("gather", "dual_gather"):
-        if launches[name] < 1:
-            raise AssertionError(f"the render launched the {name} kernel "
-                                 f"{launches[name]} times")
+    expected = {"encode": 1, "dual_encode": 1, "gather": 0, "dual_gather": 0}
+    if {k: launches[k] for k in expected} != expected:
+        raise AssertionError(f"the renders launched {launches}, expected {expected}")
 
     n_rays = dirs.shape[1]
     nef = pipe.nef
@@ -481,12 +628,8 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
         raise AssertionError(f"rgb/depth render (single kernel) differs from the "
                              f"panoptic render (dual kernel) by {rd_err}")
 
-    with mock.patch.object(table_gather, "multilevel_table_gather",
-                           lambda t, i, b, rows_used=None, modes=None:
-                           table_gather.multilevel_gather_plain(t, i, b)), \
-         mock.patch.object(table_gather, "dual_multilevel_table_gather",
-                           lambda ta, tb, i, b, rows_used=None, modes=None:
-                           table_gather.dual_gather_plain(ta, tb, i, b)):
+    with mock.patch.object(pe, "fused_encode", pe.encode_plain), \
+         mock.patch.object(pe, "fused_encode_dual", pe.dual_encode_plain):
         plain_out = fn(pipe, origins, dirs, cam_idx)
         plain_ms = [0.0] * 3
         for i in range(3):
@@ -495,7 +638,7 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
             fn(pipe, origins, dirs, cam_idx)
             torch.cuda.synchronize()
             plain_ms[i] = (time.perf_counter() - t) * 1e3
-    # Kernel and plain gathers round differently only in the last float32
+    # Kernel and plain encodes round differently only in the last float32
     # bits; the bfloat16 decoders can turn that into one bf16 ulp of a hidden
     # unit, which integrates to well under 1e-2 in a probability or colour.
     errs, tols = {}, {}
@@ -503,7 +646,7 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
         errs[ch] = (a - b).abs().max().item()
         tols[ch] = 1e-2 * (b.abs().max().item() if ch == "depth" else 1.0)
         if not errs[ch] <= tols[ch]:
-            raise AssertionError(f"{ch}: kernel render vs plain-gather render "
+            raise AssertionError(f"{ch}: kernel render vs plain-encode render "
                                  f"max abs err {errs[ch]} > {tols[ch]}")
     render_ms = []
     for _ in range(5):
@@ -516,7 +659,7 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
          samples=n_rays * pipe.tracer_cfg.num_steps, launches=launches,
          rgb_depth_vs_panoptic_err=rd_err, vs_plain_max_abs_err=errs,
          vs_plain_tol=tols, render_ms_median=statistics.median(render_ms),
-         render_ms=render_ms, plain_gather_render_ms_median=statistics.median(plain_ms),
+         render_ms=render_ms, plain_encode_render_ms_median=statistics.median(plain_ms),
          peak_allocated_gib=peak_gb)
     return launches
 
@@ -571,12 +714,12 @@ def phase_train(dev, stage_name):
     anchor = trainer.pipeline.anchor_mask.cpu().numpy()
     micro = sum(len(s["cam_idx"]) for s in log)
     non_anchor = sum(int(not anchor[c]) for s in log for c in s["cam_idx"])
-    fwd, grad = (("gather", "table_grad") if stage_name == "rgb"
-                 else ("dual_gather", "dual_table_grad"))
-    other_fwd, other_grad = (("dual_gather", "dual_table_grad") if stage_name == "rgb"
-                             else ("gather", "table_grad"))
+    fwd, grad = (("encode", "table_grad") if stage_name == "rgb"
+                 else ("dual_encode", "dual_table_grad"))
+    other_fwd, other_grad = (("dual_encode", "dual_table_grad") if stage_name == "rgb"
+                             else ("encode", "table_grad"))
     expected = {fwd: micro, grad: micro, other_fwd: 0, other_grad: 0,
-                "dbary": non_anchor, "scatter_rows": 0}
+                "gather": 0, "dual_gather": 0, "dbary": non_anchor, "scatter_rows": 0}
     if launches != expected:
         raise AssertionError(f"{stage_name} training launched {launches}, "
                              f"expected {expected}")
@@ -642,7 +785,7 @@ def main() -> None:
     import torch
 
     from pagnerf_tpu_torch.entry import entry
-    from pagnerf_tpu_torch.ops import table_gather
+    from pagnerf_tpu_torch.profile_scatter import training_coords
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -663,9 +806,14 @@ def main() -> None:
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
     fn, (pipe, origins, dirs, cam_idx) = entry(device=dev)
-    fwd = phase_kernels_fwd(dev, pipe, origins, dirs, cam_idx, flush)
+    x_render = render_coords(pipe, origins, dirs, cam_idx)
+    spec, x_train = training_coords(dev)
+    enc = phase_encode(dev, spec, {"render": x_render, "train": x_train}, flush)
     torch.cuda.empty_cache()
-    bwd, level0_rows = phase_kernels_bwd(dev, flush)
+    fwd = phase_kernels_fwd(dev, pipe, x_render, flush)
+    torch.cuda.empty_cache()
+    bwd, level0_rows = phase_kernels_bwd(dev, spec, x_train, flush)
+    del x_render, x_train
     bwd["scatter_rows"] = phase_scatter_rows(dev, level0_rows, flush)
     del flush_buf, flush, level0_rows
     torch.cuda.empty_cache()
@@ -678,8 +826,32 @@ def main() -> None:
 
     # ---------------------------------------------------------------- report
     sources = {"fwd": "pagnerf_tpu_torch/ops/csrc/permuto_gather.cu",
-               "bwd": "pagnerf_tpu_torch/ops/csrc/permuto_scatter.cu"}
+               "bwd": "pagnerf_tpu_torch/ops/csrc/permuto_scatter.cu",
+               "encode": "pagnerf_tpu_torch/ops/csrc/permuto_encode.cu"}
     rows = []
+    for name, key, replaces in (("single", "encode", "pagnerf_tpu/ops/pallas_gather.py:101"),
+                                ("dual", "dual_encode", "pagnerf_tpu/ops/pallas_gather.py:119")):
+        pick = lambda r, keys: {k: r[k] for k in keys}
+        times = ("ms", "plain_ms", "bound_ms", "bound_by")
+        r32, t32 = enc[("render", torch.float32)], enc[("train", torch.float32)]
+        r16, t16 = enc[("render", torch.bfloat16)], enc[("train", torch.bfloat16)]
+        row = {
+            "name": f"permuto_encode_{name}", "route": "cuda", "source": sources["encode"],
+            "replaces": replaces,
+            "also_replaces": "pagnerf_tpu/ops/permuto_encoding.py:149 _lattice_levels",
+            "launches": sum(p[key] for p in paths.values()),
+            "launches_by_path": {p: c[key] for p, c in paths.items()},
+            "dtype": "float32", "shapes": "render N=1,572,864, no idx/bary",
+            "max_abs_err": max(r32["max_abs_err"], t32["max_abs_err"]), "tol": r32["tol"],
+            **pick(r32[name], times), "library_ms": None,
+            "train_with_idx_bary": pick(t32[name], times),
+            "bf16": {"render": pick(r16[name], times), "train": pick(t16[name], times),
+                     "max_abs_err": max(r16["max_abs_err"], t16["max_abs_err"])},
+        }
+        if name == "dual":
+            row["two_loads"] = {"render": pick(r32["dual_two_loads"], ("ms", "bound_ms")),
+                                "train": pick(t32["dual_two_loads"], ("ms", "bound_ms"))}
+        rows.append(row)
     for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
                                 ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):
         r32 = fwd[(name, torch.float32)]

@@ -21,8 +21,9 @@
 // the card's rate. Design against that bound: one thread per (level, sample)
 // so the idx/bary reads and the output writes are coalesced along N, and the
 // table reads are one vector load per vertex, which hits L2. Fusing the
-// lattice math in (so idx/bary never touch device memory) is what would move
-// the bound, and is later work.
+// lattice math in, so that idx/bary never touch device memory, moves the
+// bound: that is permuto_encode.cu, which the encodes run; this kernel serves
+// callers that bring their own indices and weights.
 //
 // Plain C interface for ctypes (no PyTorch headers): the caller passes raw
 // device pointers and the CUDA stream, and reads back a cudaError_t.

@@ -1,26 +1,36 @@
 """Multiresolution permutohedral-lattice encoding (counterpart of
 ``pagnerf_tpu/ops/permuto_encoding.py``).
 
-The lattice math (elevation, rounding, rank, barycentric weights, direct or
-hashed vertex indices) is plain PyTorch in float32, written to give the JAX
-package's indices exactly and its weights to float32 rounding. The table
-gather behind it, and its backward, are hand-written CUDA kernels
-(``ops/table_gather.py``).
+The encodes (``permuto_encode_T``, ``permuto_encode_dual_T``) run through
+``fused_encode`` / ``fused_encode_dual``: on the card one hand-written CUDA
+kernel (``csrc/permuto_encode.cu``) computes each level's lattice in
+registers -- elevation, rounding, rank, barycentric weights, direct or hashed
+vertex indices -- and gathers and sums the table rows in the same thread, so
+idx and bary reach device memory only when a backward needs them. Their
+plain versions are the lattice math below (plain PyTorch in float32, written
+to give the JAX package's indices exactly and its weights to float32
+rounding) followed by the plain gathers of ``ops/table_gather.py``.
 
-Gradients: the encodes are differentiable in the tables (through the
-gather's scatter backward) and in the coordinates. The coordinate gradient
-runs through ``_Lattice``, an autograd Function around all levels' lattice
-math that saves only the coordinates: its backward recomputes each level's
-rank from x and turns ``dbary`` into ``dx`` (the JAX package's
-``_lattice_levels_bwd``). Autograd through the rank masks would keep
-``[L, 5, V, N]``-sized multiply partners alive, gigabytes at a training
-microbatch's N.
+Gradients: the encodes are differentiable in the tables and in the
+coordinates (``_Encode``). The table gradient is the table-gradient scatter
+of ``ops/table_gather.py`` over the forward's idx and bary; the coordinate
+gradient is ``dbary`` (from the A side of a dual encode only: the delta grid
+reads stop-gradient weights) turned into ``dx`` by ``_lattice_levels_dx``,
+which recomputes each level's rank from x (the JAX package's
+``_lattice_levels_bwd``). The same recomputation serves ``_Lattice``, an
+autograd Function around all levels' plain lattice math that saves only the
+coordinates: autograd through the rank masks would keep ``[L, 5, V, N]``-sized
+multiply partners alive, gigabytes at a training microbatch's N.
 
 Layout: sample tensors are feature-major, coordinates ``[3, N]``, indices and
 weights ``[L, V=4, N]``, features ``[L*F, N]`` -- the JAX package's layout, so
 tests compare like with like.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -253,25 +263,228 @@ def lattice_all_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm,
 def lattice(tables: torch.Tensor, coordsT: torch.Tensor, scales):
     """idx [L, V, N] int32 and bary [L, V, N] float32 of coords [3, N] for a
     table stack [L, C, F] with per-level scales [L]."""
-    num_levels, capacity, feat_dim = tables.shape
+    _, capacity, feat_dim = tables.shape
+    st = level_statics(scales, capacity, feat_dim)
+    return lattice_all_levels(coordsT.float(), st.log2_c, st.inv_scales, st.mm,
+                              st.dm, st.direct)
+
+
+# ------------------------------------------------------------ fused encode
+_LAYOUT_SINGLE, _LAYOUT_DUAL, _LAYOUT_PACKED = 1, 2, 3
+
+
+class LevelStatics(NamedTuple):
+    """What one encode needs of its scale schedule: the lattice's per-level
+    statics (as ``_lattice_levels`` takes them) and the backward's
+    table-gradient scatter plan (``scatter_plan``)."""
+    log2_c: int
+    inv_scales: np.ndarray
+    mm: np.ndarray
+    dm: np.ndarray
+    direct: np.ndarray
+    rows_used: Tuple[int, ...]
+    modes: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=64)
+def _statics(scales: Tuple[float, ...], capacity: int, feat_dim: int) -> LevelStatics:
     log2_c = int(np.log2(capacity))
     if (1 << log2_c) != capacity:
         raise ValueError(f"table capacity {capacity} is not a power of two")
-    inv_scales = (1.0 / np.asarray(scales)).astype(np.float32)
     mm, dm, direct, _ = direct_level_specs(scales, capacity, feat_dim)
-    return lattice_all_levels(coordsT.float(), log2_c, inv_scales, mm, dm,
-                              direct)
+    inv_scales = (1.0 / np.asarray(scales)).astype(np.float32)
+    return LevelStatics(log2_c, inv_scales, mm, dm, direct,
+                        *scatter_plan(scales, capacity, feat_dim))
+
+
+def level_statics(scales, capacity: int, feat_dim: int) -> LevelStatics:
+    """``LevelStatics`` of a scale schedule [L] for tables [L, C, F]."""
+    return _statics(tuple(float(s) for s in np.asarray(scales)), capacity, feat_dim)
+
+
+def _check_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...], scales) -> LevelStatics:
+    """Contract of the fused encodes: coordinates [3, N] float32, tables
+    [L, C, F] float32 or bfloat16 (a dual encode's two of one shape and
+    dtype) with F in (1, 2, 4), C a power of two, one scale per level and at
+    most ``table_gather.MAX_LEVELS`` levels; all contiguous, on one device."""
+    t0 = tables[0]
+    if t0.dim() != 3:
+        raise ValueError(f"tables must be [L, C, F], got {tuple(t0.shape)}")
+    l, c, f = t0.shape
+    if f not in table_gather._FEATS:
+        raise ValueError(f"feature width {f} not supported; use one of {table_gather._FEATS}")
+    if t0.dtype not in table_gather._DTYPE_CODE:
+        raise TypeError(f"tables must be float32 or bfloat16, got {t0.dtype}")
+    for t in tables[1:]:
+        if t.shape != t0.shape or t.dtype != t0.dtype:
+            raise ValueError("dual tables must share shape and dtype, got "
+                             f"{tuple(t0.shape)} {t0.dtype} and {tuple(t.shape)} {t.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"coordinates must be float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] != _D:
+        raise ValueError(f"coordinates must be [{_D}, N], got {tuple(x.shape)}")
+    n_scales = len(np.asarray(scales))
+    if n_scales != l:
+        raise ValueError(f"{n_scales} scales for {l} table levels")
+    if l > table_gather.MAX_LEVELS:
+        raise ValueError(f"the encode kernel takes at most {table_gather.MAX_LEVELS} "
+                         f"levels, got {l}")
+    table_gather._check_device((x, *tables))
+    return level_statics(scales, c, f)
+
+
+@functools.cache
+def _encode_kernel():
+    from . import _build
+    fn = _build.load("permuto_encode").pagnerf_permuto_encode
+    f32p, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [f32p] * 2 + [i32p] * 3
+                   + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
+                   st: LevelStatics, with_lattice: bool, packed: bool, kernel=None):
+    """One launch of the encode kernel -> (outs, idx, bary); idx and bary
+    are written only ``with_lattice``, else None. ``kernel``: another build
+    of the C entry ``pagnerf_permuto_encode`` (``profile_encode --parent``)."""
+    l, c, f = tables[0].shape
+    n = x.shape[1]
+    dev = x.device
+    outs = tuple(torch.empty((l, f, n), dtype=tables[0].dtype, device=dev)
+                 for _ in tables)
+    idx = bary = None
+    if with_lattice:
+        idx = torch.empty((l, _VERTS, n), dtype=torch.int32, device=dev)
+        bary = torch.empty((l, _VERTS, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return outs, idx, bary
+    if len(tables) == 1:
+        layout, src = _LAYOUT_SINGLE, tables
+    elif packed:
+        layout, src = _LAYOUT_PACKED, (torch.cat(tables, dim=2),)
+    else:
+        layout, src = _LAYOUT_DUAL, tables
+    as_c = lambda a, t: (t * len(a))(*a)
+    elev = np.asarray(_E, dtype=np.float32).reshape(-1)
+    fn = kernel or _encode_kernel()
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), src[0].data_ptr(), src[-1].data_ptr(),
+                 outs[0].data_ptr(), outs[-1].data_ptr(),
+                 0 if idx is None else idx.data_ptr(),
+                 0 if bary is None else bary.data_ptr(),
+                 as_c(elev, ctypes.c_float), as_c(st.inv_scales, ctypes.c_float),
+                 as_c(st.mm, ctypes.c_int32), as_c(st.dm, ctypes.c_int32),
+                 as_c(st.direct.astype(np.int32), ctypes.c_int32),
+                 l, c, n, f, layout, table_gather._DTYPE_CODE[tables[0].dtype],
+                 table_gather._stream(dev))
+    table_gather._raise_on(err, "permuto_encode")
+    return outs, idx, bary
+
+
+class _Encode(torch.autograd.Function):
+    """Single or dual fused encode. Forward: the kernel on the card, the
+    plain lattice + gathers on the CPU; idx and bary are kept only when a
+    gradient will be asked for (``grad``: grad mode was on at the call).
+    Backward: the (dual) table-gradient scatter, then dbary from the A side
+    and ``_lattice_levels_dx`` for the coordinates."""
+
+    @staticmethod
+    def forward(ctx, x, st, grad, *tables):
+        keep = grad and any(ctx.needs_input_grad)
+        if x.device.type == "cpu":
+            idx, bary = _lattice_levels(x, st.log2_c, st.inv_scales, st.mm, st.dm,
+                                        st.direct)
+            w = bary.to(tables[0].dtype)
+            outs = tuple(table_gather.multilevel_gather_plain(t, idx, w) for t in tables)
+        else:
+            outs, idx, bary = _launch_encode(x, tables, st, keep, packed=True)
+            wrapper = fused_encode if len(tables) == 1 else fused_encode_dual
+            wrapper.launches += 1
+        if keep:
+            ctx.save_for_backward(x, idx, bary, tables[0])
+            ctx.st = st
+            ctx.dtypes = tuple(t.dtype for t in tables)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, idx, bary, table_a = ctx.saved_tensors
+        st = ctx.st
+        l, c, f = table_a.shape
+        gs = [torch.zeros((l, f, x.shape[1]), dtype=torch.float32, device=x.device)
+              if g is None else g.float().contiguous() for g in gs]
+        # the weights the forward multiplied by (rounded to the table dtype)
+        w = bary.to(table_a.dtype).float()
+        dtables = [None] * len(gs)
+        if any(ctx.needs_input_grad[3:]):
+            if len(gs) == 1:
+                dts = (table_gather.multilevel_table_grad(idx, w, gs[0], c, st.rows_used,
+                                                          st.modes),)
+            else:
+                dts = table_gather.dual_multilevel_table_grad(idx, w, gs[0], gs[1], c,
+                                                              st.rows_used, st.modes)
+            dtables = [d.to(dt) for d, dt in zip(dts, ctx.dtypes)]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dbary = table_gather.multilevel_gather_dbary(table_a.float().contiguous(),
+                                                         idx, gs[0])
+            dx = _lattice_levels_dx(x, st.inv_scales, dbary.to(table_a.dtype).float())
+        return (dx, None, None, *dtables)
+
+
+def fused_encode(tables: torch.Tensor, coordsT: torch.Tensor, scales) -> torch.Tensor:
+    """Encode coords [3, N] float32 against tables [L, C, F] (float32 or
+    bfloat16) with per-level scales [L] -> features [L, F, N] in the tables'
+    dtype; differentiable in tables and coords. CUDA tensors launch the
+    fused encode kernel (counted in ``.launches``); CPU tensors take
+    ``encode_plain``'s lattice and gather."""
+    st = _check_encode(coordsT, (tables,), scales)
+    (out,) = _Encode.apply(coordsT, st, torch.is_grad_enabled(), tables)
+    return out
+
+
+def fused_encode_dual(tables_a: torch.Tensor, tables_b: torch.Tensor,
+                      coordsT: torch.Tensor, scales):
+    """Two same-spec table stacks at one shared lattice -> (out_a, out_b),
+    each [L, F, N]; out_a is bit-equal to ``fused_encode(tables_a, ...)``.
+    One launch (counted in ``.launches``) reads both tables of a vertex with
+    one load from a packed [L, C, 2F] copy made per call (faster than one
+    load from each table at every shape measured). CPU tensors take
+    ``dual_encode_plain``'s path. Differentiable in both tables and in the
+    coordinates, whose gradient comes from the A side only."""
+    st = _check_encode(coordsT, (tables_a, tables_b), scales)
+    return _Encode.apply(coordsT, st, torch.is_grad_enabled(), tables_a, tables_b)
+
+
+def encode_plain(tables: torch.Tensor, coordsT: torch.Tensor, scales) -> torch.Tensor:
+    """Plain version of ``fused_encode``: ``lattice_all_levels``, the weights
+    rounded to the tables' dtype, then ``multilevel_gather_plain``."""
+    idx, bary = lattice(tables, coordsT, scales)
+    return table_gather.multilevel_gather_plain(tables, idx, bary.to(tables.dtype))
+
+
+def dual_encode_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
+                      coordsT: torch.Tensor, scales):
+    """Plain version of ``fused_encode_dual``: one lattice, two plain gathers."""
+    idx, bary = lattice(tables_a, coordsT, scales)
+    return table_gather.dual_gather_plain(tables_a, tables_b, idx,
+                                          bary.to(tables_a.dtype))
+
+
+fused_encode.launches = 0
+fused_encode_dual.launches = 0
+table_gather.KERNELS.update(encode=fused_encode, dual_encode=fused_encode_dual)
 
 
 def permuto_encode_T(tables: torch.Tensor, coordsT: torch.Tensor, scales,
                      compute_dtype=torch.float32) -> torch.Tensor:
     """Encode coords [3, N] in [-1, 1]^3 against tables [L, C, F] with
     per-level scales [L]. Returns features [L*F, N] in ``compute_dtype``."""
-    num_levels, capacity, feat_dim = tables.shape
-    idx, bary = lattice(tables, coordsT, scales)
-    out = table_gather.multilevel_table_gather(
-        tables.to(compute_dtype).contiguous(), idx, bary.to(compute_dtype),
-        *scatter_plan(scales, capacity, feat_dim))
+    num_levels, _, feat_dim = tables.shape
+    out = fused_encode(tables.to(compute_dtype).contiguous(),
+                       coordsT.float().contiguous(), scales)
     return out.reshape(num_levels * feat_dim, -1)
 
 
@@ -284,12 +497,10 @@ def permuto_encode_dual_T(tables_a: torch.Tensor, tables_b: torch.Tensor,
     if tables_a.shape != tables_b.shape:
         raise ValueError("dual encode needs same-spec tables, got "
                          f"{tuple(tables_a.shape)} and {tuple(tables_b.shape)}")
-    num_levels, capacity, feat_dim = tables_a.shape
-    idx, bary = lattice(tables_a, coordsT, scales)
-    out_a, out_b = table_gather.dual_multilevel_table_gather(
-        tables_a.to(compute_dtype).contiguous(),
-        tables_b.to(compute_dtype).contiguous(), idx, bary.to(compute_dtype),
-        *scatter_plan(scales, capacity, feat_dim))
+    num_levels, _, feat_dim = tables_a.shape
+    out_a, out_b = fused_encode_dual(tables_a.to(compute_dtype).contiguous(),
+                                     tables_b.to(compute_dtype).contiguous(),
+                                     coordsT.float().contiguous(), scales)
     return (out_a.reshape(num_levels * feat_dim, -1),
             out_b.reshape(num_levels * feat_dim, -1))
 

@@ -22,7 +22,11 @@ only when autograd asks for it, i.e. when the coordinates need a gradient.
 Each of the five functions -- gather, dual gather, table-gradient scatter,
 dual scatter, dbary -- has a hand-written CUDA kernel (``csrc/permuto_gather.cu``
 for the forward, ``csrc/permuto_scatter.cu`` for the backward) and a plain
-PyTorch version beside it here. A wrapper launches the kernel for CUDA
+PyTorch version beside it here. The encodes of ``ops/permuto_encoding.py`` no
+longer call the gathers: their fused kernel (``csrc/permuto_encode.cu``)
+computes the lattice and gathers in one launch, and its backward calls the
+scatters and dbary here. The gathers serve callers that bring their own
+indices and weights. A wrapper launches the kernel for CUDA
 tensors (and counts the launch in its ``.launches``) and takes the plain
 version for CPU tensors; a CUDA tensor the kernel does not take raises.
 
@@ -284,7 +288,7 @@ def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
 SHARED, FLOAT, GLOBAL = 0, 1, 2
 MODES = (SHARED, FLOAT, GLOBAL)
 SHARED_MAX_ROWS = 1 << 14     # live rows of the levels SHARED serves by default
-MAX_LEVELS = 64               # levels one scatter launch takes
+MAX_LEVELS = 64               # levels one scatter or encode launch takes
 
 
 def level_modes(rows: Tuple[int, ...], capacity: int, modes=None) -> Tuple[int, ...]:
@@ -482,6 +486,8 @@ multilevel_table_grad.launches = 0
 dual_multilevel_table_grad.launches = 0
 multilevel_gather_dbary.launches = 0
 
+# ops/permuto_encoding.py adds its fused encodes ("encode", "dual_encode")
+# when it is imported.
 KERNELS = {"gather": multilevel_table_gather,
            "dual_gather": dual_multilevel_table_gather,
            "table_grad": multilevel_table_grad,

@@ -5,7 +5,7 @@
 Prints one JSON object: the render's wall time (host clock around a
 synchronised render, median of 5), the device time of each stage of the
 render run on its own (CUDA events, median of 5: ray transform + march,
-lattice math, dual table gather, decoders, compositing), and the top device
+lattice + gather (the fused dual encode), decoders, compositing), and the top device
 kernels of one profiled render and their summed device time
 (``torch.profiler``; "not measured" if the profiler reports none).
 """
@@ -20,7 +20,7 @@ import torch
 
 from .core.rays import Rays
 from .entry import entry
-from .ops import permuto_encoding, table_gather
+from .ops import permuto_encoding
 from .ops.composite import composite_channel_T, exponential_integration_weights
 from .ops.occupancy import OccupancyGrid
 from .ops.raymarch import raymarch
@@ -65,15 +65,11 @@ def main() -> None:
         march = lambda: raymarch(pipe.transform_rays(base, cam_idx), occ, steps)
         rm = march()
         r, s = rm.depths.shape
-        coordsT = rm.positionsT.reshape(3, r * s)
+        coordsT = rm.positionsT.reshape(3, r * s).contiguous()
         ray_dT = dirs[0].T[:, :, None].expand(3, r, s).reshape(3, r * s)
-        spec = nef.grid.spec
-        lattice = lambda: permuto_encoding.lattice(nef.grid.tables, coordsT,
-                                                    spec.scales)
-        idx, bary = lattice()
-        gather = lambda: table_gather.dual_multilevel_table_gather(
-            nef.grid.tables, nef.delta_grid.tables, idx, bary)
-        fa, fb = gather()
+        encode = lambda: permuto_encoding.fused_encode_dual(
+            nef.grid.tables, nef.delta_grid.tables, coordsT, nef.grid.spec.scales)
+        fa, fb = encode()
         feats, panop = fa.reshape(-1, r * s), fa.reshape(-1, r * s) + fb.reshape(-1, r * s)
 
         def decoders():
@@ -87,8 +83,8 @@ def main() -> None:
             w, _ = exponential_integration_weights(tau, rm.mask)
             return [composite_channel_T(c.reshape(-1, r, s), w)
                     for c in (rgb, sem, inst)]
-        stages = {"march": _event_ms(march), "lattice": _event_ms(lattice),
-                  "dual_gather": _event_ms(gather), "decoders": _event_ms(decoders),
+        stages = {"march": _event_ms(march), "lattice_gather": _event_ms(encode),
+                  "decoders": _event_ms(decoders),
                   "composite": _event_ms(composite)}
 
     from torch.autograd import DeviceType

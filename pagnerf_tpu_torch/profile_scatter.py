@@ -47,13 +47,12 @@ from .ops import table_gather as tg
 F32_EPS = 2.0 ** -23
 
 
-def training_microbatch(dev, seed: int = 0, tiny: bool = False):
-    """(spec, idx, bary) of one flagship training microbatch: a non-anchor
-    camera, its rays x 512 jittered steps, through the port's own march and
-    lattice."""
+def training_coords(dev, seed: int = 0, tiny: bool = False):
+    """(spec, x [3, N]) of one flagship training microbatch: the sample
+    coordinates of a non-anchor camera's rays x 512 jittered steps, through
+    the port's own march."""
     from .core.rays import Rays
     from .entry import flagship, train_config
-    from .ops import permuto_encoding
     from .ops.occupancy import OccupancyGrid
     from .ops.raymarch import raymarch
 
@@ -72,10 +71,25 @@ def training_microbatch(dev, seed: int = 0, tiny: bool = False):
                                                       device=dev))
         rm = raymarch(rays, OccupancyGrid.create(level=7, device=dev), steps,
                       jitter=gen)
-        idx, bary = permuto_encoding.lattice(
-            pipe.nef.grid.tables, rm.positionsT.reshape(3, -1),
-            pipe.nef.grid.spec.scales)
-    return pipe.nef.grid.spec, idx, bary
+    return pipe.nef.grid.spec, rm.positionsT.reshape(3, -1).contiguous()
+
+
+def microbatch_lattice(spec, x):
+    """idx, bary [L, 4, N] of coordinates x [3, N] through the port's plain
+    lattice."""
+    from .ops import permuto_encoding
+
+    # lattice() reads only the tables' shape
+    tables = torch.empty((spec.num_levels, spec.capacity, spec.feature_dim), device="meta")
+    with torch.no_grad():
+        return permuto_encoding.lattice(tables, x, spec.scales)
+
+
+def training_microbatch(dev, seed: int = 0, tiny: bool = False):
+    """(spec, idx, bary) of one flagship training microbatch
+    (``training_coords`` through ``microbatch_lattice``)."""
+    spec, x = training_coords(dev, seed, tiny)
+    return (spec, *microbatch_lattice(spec, x))
 
 
 def level_stats(idx: torch.Tensor, capacity: int, over: int = 120) -> list:

@@ -6,9 +6,10 @@ Prints one JSON object for one stage (default: both, one object each): the
 wall time of a whole step and of one microbatch's forward + backward (host
 clock around synchronised calls, median of 3 after a warm-up), the device
 time of each part of a microbatch run on its own at the flagship training
-shapes (CUDA events, median of 5: ray transform + march, lattice forward,
-table gather, decoders forward + backward, table-gradient scatter, dbary,
-lattice backward, optimizer update), the host time of the assignment solve,
+shapes (CUDA events, median of 5: ray transform + march, lattice + gather
+(the fused encode, writing idx/bary for the backward), decoders forward +
+backward, table-gradient scatter, dbary, lattice backward, optimizer
+update), the host time of the assignment solve,
 and the top device kernels of one profiled microbatch with their summed
 device time (``torch.profiler``; "not measured" if it reports none).
 The microbatch is one non-anchor camera: 4096 rays x 512 steps.
@@ -92,15 +93,12 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
         x = rm.positionsT.reshape(3, r * s).contiguous()
         ray_dT = pipe.transform_rays(base, cam).dirs.T[:, :, None] \
             .expand(3, r, s).reshape(3, r * s)
-        lattice = lambda: permuto_encoding.lattice(nef.grid.tables, x, spec.scales)
-        idx, bary = lattice()
         ta, tb = nef.grid.tables.detach(), nef.delta_grid.tables.detach()
-        if dual:
-            gather = lambda: table_gather.dual_multilevel_table_gather(ta, tb, idx, bary)
-        else:
-            gather = lambda: table_gather.multilevel_table_gather(ta, idx, bary)
-        out = gather()
-        fa = (out[0] if dual else out).reshape(-1, r * s)
+        st = permuto_encoding.level_statics(spec.scales, spec.capacity, spec.feature_dim)
+        tables = (ta, tb) if dual else (ta,)
+        encode = lambda: permuto_encoding._launch_encode(x, tables, st, True, True)
+        outs, idx, bary = encode()
+        fa = outs[0].reshape(-1, r * s)
 
     feats = fa.clone().requires_grad_()
 
@@ -115,17 +113,16 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
         return feats.grad
     g = decoders().reshape(spec.num_levels, spec.feature_dim, r * s).contiguous()
     c = spec.capacity
-    plan = permuto_encoding.scatter_plan(spec.scales, c, spec.feature_dim)
+    plan = (st.rows_used, st.modes)
     if dual:
         scatter = lambda: table_gather.dual_multilevel_table_grad(idx, bary, g, g, c, *plan)
     else:
         scatter = lambda: table_gather.multilevel_table_grad(idx, bary, g, c, *plan)
     dbary_fn = lambda: table_gather.multilevel_gather_dbary(ta, idx, g)
     dbary = dbary_fn()
-    inv_s = (1.0 / np.asarray(spec.scales)).astype(np.float32)
-    lattice_bwd = lambda: permuto_encoding._lattice_levels_dx(x, inv_s, dbary)
-    stages = {"march": _event_ms(march), "lattice_fwd": _event_ms(lattice),
-              "gather": _event_ms(gather), "decoders_fwd_bwd": _event_ms(decoders),
+    lattice_bwd = lambda: permuto_encoding._lattice_levels_dx(x, st.inv_scales, dbary)
+    stages = {"march": _event_ms(march), "lattice_gather": _event_ms(encode),
+              "decoders_fwd_bwd": _event_ms(decoders),
               "scatter": _event_ms(scatter), "dbary": _event_ms(dbary_fn),
               "lattice_bwd": _event_ms(lattice_bwd), "optimizer_wall": opt_ms,
               "assignment_host": assign_ms}

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card.
 
-Marked ``cuda``: these tests build ``ops/csrc/permuto_gather.cu`` and
-``ops/csrc/permuto_scatter.cu`` with nvcc and launch them, so on a host
-without a card they skip. Run them on the card
+Marked ``cuda``: these tests build ``ops/csrc/permuto_encode.cu``,
+``ops/csrc/permuto_gather.cu`` and ``ops/csrc/permuto_scatter.cu`` with nvcc
+and launch them, so on a host without a card they skip. Run them on the card
 with ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
 (``tests/conftest.py`` imports JAX, which the card's machine need not have).
 
@@ -17,11 +17,17 @@ sum of |bary * g| to the plain version's float64 sum, with random,
 same-signed and run-pattern cotangents, under every per-level mode. The row
 scatter-add sums in float64 and rounds once: each entry within 64 * eps_f32
 of its sum of |vals|. dbary: each entry within 4 * eps_f32 of its sum over F
-of |g * T| (a fused multiply-add chain against separate products)."""
+of |g * T| (a fused multiply-add chain against separate products). The
+fused encode against the plain lattice and gathers: idx equal on all but
+1e-6 of the entries (at least one allowed), features per level within
+(4 ulp_f32(max|el|) + 8 eps_f32) max|table| (one ulp of el moves each weight
+by at most ulp/4), plus one bf16 ulp of the largest output in bfloat16; the
+single encode bit-equal to the dual's A side."""
 import numpy as np
 import pytest
 import torch
 
+from pagnerf_tpu_torch.ops import permuto_encoding as pe
 from pagnerf_tpu_torch.ops import scatter_rows as sr
 from pagnerf_tpu_torch.ops import table_gather as tg
 
@@ -225,7 +231,7 @@ def test_autograd_on_card_launches_backward_kernels(dev):
     torch.cuda.synchronize()
     assert {k: f.launches for k, f in tg.KERNELS.items()} == {
         "gather": 0, "dual_gather": 1, "table_grad": 0, "dual_table_grad": 1,
-        "dbary": 0}
+        "dbary": 0, "encode": 0, "dual_encode": 0}
     bary.requires_grad_()
     out = tg.multilevel_table_gather(ta, idx, bary)
     out.sum().backward()
@@ -257,3 +263,134 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
         atol = 1e-5 * max(1.0, float(want.abs().max()))
         np.testing.assert_allclose(grads[0][name].numpy(), want.numpy(), rtol=1e-4,
                                    atol=atol, err_msg=name)
+
+
+# ------------------------------------------------------------ fused encode
+def _encode_case(dev, f, n, dtype, levels=8, log2_c=12, finest=1e-4, seed=7):
+    """Coordinates in [-1, 1]^3 with points on rounding and simplex-tie
+    boundaries (grid-aligned coordinates, the origin) and random tables of
+    a spec with direct and hashed levels."""
+    spec = pe.PermutoEncodingSpec(levels, f, log2_c, 1.0, finest)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((3, n), generator=g, device=dev) * 2 - 1
+    k = min(n, 64)
+    x[:, :k] = torch.round(x[:, :k] * 8) / 8
+    if n > k:
+        x[:, k] = 0.0
+    ta = torch.randn((levels, spec.capacity, f), generator=g, device=dev).to(dtype)
+    tb = torch.randn((levels, spec.capacity, f), generator=g, device=dev).to(dtype)
+    return spec, x.contiguous(), ta, tb
+
+
+def _el_ulps(spec, x):
+    """Per level, one float32 ulp of the largest |el| = |E @ (x / s_l)|."""
+    e = torch.as_tensor(pe._E, dtype=torch.float32, device=x.device)
+    inv = (1.0 / np.asarray(spec.scales)).astype(np.float32)
+    out = []
+    for lv in range(spec.num_levels):
+        el_max = float((e @ (x * torch.tensor(inv[lv], device=x.device))).abs().max())
+        out.append(2.0 ** (np.floor(np.log2(max(el_max, 2.0 ** -126))) - 23))
+    return out
+
+
+def _encode_tol(ulps, tables, ref, dtype):
+    """Per level (chip_smoke.py's encode bound): one ulp of el moves each of
+    the 4 weights by at most ulp/4, and the products and sums round in
+    float32; bfloat16 outputs may then round one bf16 ulp apart."""
+    tols = []
+    for lv, ulp in enumerate(ulps):
+        tmax = max(float(t[lv].float().abs().max()) for t in tables)
+        tol = (4 * ulp + 8 * F32_EPS) * tmax
+        if dtype == torch.bfloat16:
+            tol += 2.0 ** -7 * float(ref[lv].float().abs().max())
+        tols.append(tol)
+    return tols
+
+
+def _assert_encode_matches_plain(spec, x, ta, tb, dtype, same_el_order):
+    """cuBLAS picks its kernel for the plain lattice's E @ s by N, and at
+    some N (4096 to 65536 among those probed) rounds el in another order
+    than the kernel, whose order is cuBLAS's at the main path's N. Where el
+    rounds apart, a point on a rounding or simplex-tie boundary may take
+    another vertex: a vertex may differ only where its weight is within one
+    ulp of el of 0. Where the orders agree (``same_el_order``), idx is
+    equal on all but 1e-6 of the entries."""
+    st = pe.level_statics(spec.scales, spec.capacity, spec.feature_dim)
+    (single,), idx, bary = pe._launch_encode(x, (ta,), st, True, False)
+    (oa, ob), idx_d, bary_d = pe._launch_encode(x, (ta, tb), st, True, True)
+    (oa2, ob2), none_i, none_b = pe._launch_encode(x, (ta, tb), st, False, False)
+    torch.cuda.synchronize()
+    assert none_i is None and none_b is None
+    idx_p, bary_p = pe.lattice(ta, x, spec.scales)
+    ulps = _el_ulps(spec, x)
+    bad = idx != idx_p
+    if same_el_order:
+        assert int(bad.sum()) <= 1e-6 * idx.numel()
+    for lv, ulp in enumerate(ulps):
+        assert bool((bary_p[lv][bad[lv]].abs() <= ulp).all()), lv
+    pa, pb = tg.dual_gather_plain(ta, tb, idx_p, bary_p.to(dtype))
+    for got, want in ((oa, pa), (ob, pb)):
+        assert got.dtype == dtype and got.shape == want.shape
+        for lv, tol in enumerate(_encode_tol(ulps, (ta, tb), want, dtype)):
+            assert float((got[lv].float() - want[lv].float()).abs().max()) <= tol, lv
+    assert torch.equal(single, oa)
+    assert torch.equal(oa, oa2) and torch.equal(ob, ob2)
+    assert torch.equal(idx_d, idx) and torch.equal(bary_d, bary)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 255, 4097])
+def test_encode_kernel_matches_plain(dev, dtype, f, n):
+    _assert_encode_matches_plain(*_encode_case(dev, f, n, dtype), dtype, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_kernel_matches_plain_flagship_2_21(dev, dtype):
+    spec, x, ta, tb = _encode_case(dev, 2, 1 << 21, dtype, levels=24, log2_c=18)
+    _assert_encode_matches_plain(spec, x, ta, tb, dtype, True)
+
+
+def test_encode_gradients_match_plain_path(dev):
+    """Through the Function, against the plain backward over the lattice
+    the forward kept: table gradients within 64 eps_f32 of each entry's sum
+    of |bary * g| of the plain float64 scatter; the coordinate gradient
+    within 1e-5 of its largest entry of the plain dbary -> dx."""
+    spec, x, ta, tb = _encode_case(dev, 2, 20000, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(3)
+    g_a = torch.randn((spec.num_levels, 2, x.shape[1]), generator=g, device=dev)
+    g_b = torch.randn((spec.num_levels, 2, x.shape[1]), generator=g, device=dev)
+    a, b, xx = (t.clone().requires_grad_() for t in (ta, tb, x))
+    tg.reset_launches()
+    oa, ob = pe.fused_encode_dual(a, b, xx, spec.scales)
+    _, idx, bary, _ = oa.grad_fn.saved_tensors       # the forward's lattice
+    ((oa * g_a).sum() + (ob * g_b).sum()).backward()
+    torch.cuda.synchronize()
+    assert {k: tg.KERNELS[k].launches for k in ("dual_encode", "dual_table_grad", "dbary",
+                                                  "dual_gather")} == {
+        "dual_encode": 1, "dual_table_grad": 1, "dbary": 1, "dual_gather": 0}
+    st = pe.level_statics(spec.scales, spec.capacity, 2)
+    for got, gg in ((a.grad, g_a), (b.grad, g_b)):
+        _assert_scatter_close(got, idx, bary, gg, spec.capacity, st.rows_used)
+    dx = pe._lattice_levels_dx(x, st.inv_scales, tg.gather_dbary_plain(ta, idx, g_a))
+    assert float((xx.grad - dx).abs().max()) <= 1e-5 * float(dx.abs().max())
+
+
+def test_encode_launches_and_lattice_outputs(dev):
+    """Under no_grad the encode writes no idx/bary; with tables that need a
+    gradient it keeps them; fixed coordinates (an anchor microbatch) skip
+    dbary and the lattice backward."""
+    spec, x, ta, _ = _encode_case(dev, 2, 999, torch.float32)
+    t = ta.clone().requires_grad_()
+    tg.reset_launches()
+    with torch.no_grad():
+        out = pe.fused_encode(t, x, spec.scales)
+    assert out.grad_fn is None and pe.fused_encode.launches == 1
+    out = pe.fused_encode(t, x, spec.scales)
+    saved = out.grad_fn.saved_tensors
+    assert saved[1].dtype == torch.int32 and saved[1].shape == (spec.num_levels, 4, 999)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in tg.KERNELS.items()} == {
+        "gather": 0, "dual_gather": 0, "table_grad": 1, "dual_table_grad": 0,
+        "dbary": 0, "encode": 2, "dual_encode": 0}
