@@ -57,11 +57,41 @@ Phases, each printing one JSON line as it ends:
    one microbatch's gradients through the kernels against the same
    microbatch through the plain backward versions on the card. Step times, rays/s and peak memory.
 
+8. train_post_prune -- main path 4: launch counts set to 0, then
+   ``train_flagship_schedule(steps=3)``: the default schedule's real prune
+   of the full-width flagship (density of 4 jittered points per cell of the
+   128^3 grid in chunks of 65,536, the single encode without idx/bary; counts
+   read after it and set to 0 again), the entry's scene fixture (the
+   occupancy of the synthetic scene's spheres and wall, dilated by one
+   cell), 3 steps of the first panoptic epochs past the prune and 1 of the
+   next val-pose epoch on the voxel march (256 steps) and the packed layout
+   (counts read): the launches those steps imply; the steps must render
+   the panoptic channels and the last train the val poses. Checks: one
+   chunk of the prune's density through the kernel vs the plain encode
+   (1e-2); the packed trace vs the dense voxel trace under the same jitter
+   on every ray water-filling kept whole (rgb, semantics, inst_embedding
+   within 1e-4, depth within 1e-4 of its largest value; float32 decoders,
+   the bfloat16 difference reported); the packed layout's backward
+   bit-equal over two runs; one microbatch's gradients through the kernels
+   vs the plain backward (default algorithms; a second run's spread
+   reported); the encode's coordinate gradient on the forward's rank at
+   N = B (``profile_encode.backward_rank_check``); ``reset_moments``
+   keeping the counts. Then, on random tables through the wrappers, the
+   single encode at the prune's N = 65,536 and at N = B, the dual encode at
+   N = B (outputs within the encode phase's per-level bound, the kept
+   idx/bary against the plain lattice: a vertex may differ only where the
+   plain weight is within an ulp of el of 0), the dual scatter (64 eps) and
+   dbary (4 eps) at B against their plain versions, and their times. Prune
+   ms, kept share, occupied share, pack_steps, B, step ms, rays/s, peak
+   memory, truncated share.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -238,23 +268,19 @@ def phase_encode(dev, spec, coords, flush):
 
     l, c, f = spec.num_levels, spec.capacity, spec.feature_dim
     st = pe.level_statics(spec.scales, c, f)
-    e = torch.as_tensor(pe._E, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
     results = {}
     for where, x in coords.items():
         n = x.shape[1]
         with_lattice = where == "train"      # training keeps idx/bary for the backward
         idx_p, bary_p = microbatch_lattice(spec, x)
-        with torch.no_grad():
-            el_ulp = [2.0 ** (math.floor(math.log2(
-                (e @ (x * torch.tensor(inv_s, device=dev))).abs().max().item())) - 23)
-                for inv_s in st.inv_scales]
+        el_ulp = el_ulps(x, st)
         for dtype in (torch.float32, torch.bfloat16):
             ta = torch.randn((l, c, f), generator=gen, device=dev).to(dtype)
             tb = torch.randn((l, c, f), generator=gen, device=dev).to(dtype)
-            (single,), idx_k, bary_k = pe._launch_encode(x, (ta,), st, True, False)
-            (oa, ob), idx_d, bary_d = pe._launch_encode(x, (ta, tb), st, True, True)
-            (oa2, ob2), _, _ = pe._launch_encode(x, (ta, tb), st, False, False)
+            (single,), idx_k, bary_k, _ = pe._launch_encode(x, (ta,), st, True, False)
+            (oa, ob), idx_d, bary_d, _ = pe._launch_encode(x, (ta, tb), st, True, True)
+            (oa2, ob2), _, _, _ = pe._launch_encode(x, (ta, tb), st, False, False)
             pa, pb = tg.dual_gather_plain(ta, tb, idx_p, bary_p.to(dtype))
             torch.cuda.synchronize()
             # per level: one ulp of el moves each of the 4 weights by at most
@@ -780,6 +806,386 @@ def phase_train(dev, stage_name):
     return launches
 
 
+class _Float32Decoders:
+    """Run a pipeline's bfloat16 decoders in float32 inside the block."""
+
+    def __init__(self, pipe):
+        import torch
+        self.saved = [(m, a) for m in pipe.modules() for a in ("compute_dtype", "dtype")
+                      if getattr(m, a, None) is torch.bfloat16]
+
+    def __enter__(self):
+        import torch
+        for m, a in self.saved:
+            setattr(m, a, torch.float32)
+
+    def __exit__(self, *exc):
+        import torch
+        for m, a in self.saved:
+            setattr(m, a, torch.bfloat16)
+
+
+def el_ulps(x, st):
+    """Per level, one float32 ulp of the largest |el| = |E @ (x / s_l)|."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+
+    e = torch.as_tensor(pe._E, dtype=torch.float32, device=x.device)
+    with torch.no_grad():
+        return [2.0 ** (math.floor(math.log2(
+            (e @ (x * torch.tensor(inv_s, device=x.device))).abs().max().item())) - 23)
+            for inv_s in st.inv_scales]
+
+
+def encode_vs_plain(spec, x, tables, outs, idx_k=None, bary_k=None):
+    """A float32 fused encode's outputs, and the lattice it kept, against the
+    plain encode on the same tables at one of the main path's N. Outputs per
+    level within (4 ulp_f32(max|el_l|) + 8 eps_f32) max|table_l| (the encode
+    phase's bound). cuBLAS picks the plain lattice's rounding order of E @ s
+    by N, and at some N rounds el apart from the kernel: a vertex may differ
+    from the plain lattice's only where the plain weight is within one ulp
+    of el of 0, and where they agree each weight is within that ulp.
+    Returns the check's fields, with ``ok``."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+
+    st = pe.level_statics(spec.scales, spec.capacity, spec.feature_dim)
+    ulps = el_ulps(x, st)
+    with torch.no_grad():
+        want = ((pe.encode_plain(tables[0], x, spec.scales),) if len(tables) == 1
+                else pe.dual_encode_plain(*tables, x, spec.scales))
+    worst, err = 0.0, 0.0
+    for lv, ulp in enumerate(ulps):
+        tol = (4 * ulp + 8 * F32_EPS) * max(t[lv].abs().max().item() for t in tables)
+        e_lv = max((o[lv] - w[lv]).abs().max().item() for o, w in zip(outs, want))
+        err, worst = max(err, e_lv), max(worst, e_lv / tol)
+    fields = dict(N=x.shape[1], tables=len(tables), max_abs_err=err,
+                  worst_err_over_tol=worst,
+                  tol="(4 ulp_f32(max|el_l|) + 8 eps_f32) max|table_l| per level")
+    ok = worst <= 1.0
+    if idx_k is not None:
+        idx_p, bary_p = pe.lattice(tables[0], x, spec.scales)
+        bad = idx_k != idx_p
+        off_boundary = sum(int((bary_p[lv][bad[lv]].abs() > ulp).sum())
+                           for lv, ulp in enumerate(ulps))
+        # where the vertices agree, each weight within one ulp of el
+        bary_err = [(bary_k[lv] - bary_p[lv])[~bad[lv]].abs().max().item() / ulp
+                    for lv, ulp in enumerate(ulps)]
+        fields.update(idx_mismatches=int(bad.sum()), idx_entries=bad.numel(),
+                      idx_mismatches_off_boundary=off_boundary,
+                      bary_worst_err_over_el_ulp=max(bary_err))
+        ok = ok and off_boundary == 0 and max(bary_err) <= 1.0
+        del idx_p, bary_p, bad
+    fields["ok"] = ok
+    return fields
+
+
+def packed_layout_grads(rays, occ, stage, jitter, ray_max_travel, budget, seed):
+    """Gradients of random per-ray targets of the packed layout (the voxel
+    march, ``pack_samples``, ``packed_integration_weights`` and
+    ``packed_composite``, with random per-sample densities and features) to
+    the rays' origins and directions: the layout's backward alone."""
+    import torch
+
+    from pagnerf_tpu_torch.core.rays import Rays
+    from pagnerf_tpu_torch.ops.packed import (pack_samples, packed_composite,
+                                              packed_integration_weights)
+    from pagnerf_tpu_torch.ops.raymarch import raymarch
+
+    dev = jitter.device
+    o = rays.origins.detach().clone().requires_grad_()
+    d = rays.dirs.detach().clone().requires_grad_()
+    rm = raymarch(Rays(origins=o, dirs=d, dist_min=rays.dist_min, dist_max=rays.dist_max),
+                  occ, stage.num_steps, "voxel", jitter, ray_max_travel)
+    ps = pack_samples(rm, o.T, d.T, budget)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w_tau = torch.rand((budget,), generator=gen, device=dev) * 8
+    w_f = torch.rand((5, budget), generator=gen, device=dev)
+    tau = w_tau * (ps.positionsT.sum(0) * ps.depths).abs()
+    weights, alpha = packed_integration_weights(tau, ps)
+    comp = packed_composite(w_f * ps.depths[None], weights, ps)
+    g_c = torch.randn(comp.shape, generator=gen, device=dev)
+    g_a = torch.randn(alpha.shape, generator=gen, device=dev)
+    return torch.autograd.grad((comp * g_c).sum() + (alpha * g_a).sum(), (o, d))
+
+
+def phase_train_post_prune(dev, flush):
+    """Main path 4: the default schedule past its prune at full width
+    (``train_flagship_schedule``): the prune, the scene fixture's occupancy,
+    3 panoptic steps and 1 val-pose step on the voxel march and the packed
+    layout. Then the checks, and the kernels against their plain versions
+    and timed at this path's N."""
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from pagnerf_tpu_torch.core.rays import Rays
+    from pagnerf_tpu_torch.entry import train_flagship_schedule
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.ops.packed import pack_samples
+    from pagnerf_tpu_torch.ops.raymarch import raymarch
+    from pagnerf_tpu_torch.profile_encode import backward_rank_check
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    info = {}
+
+    def after_prune(trainer):
+        torch.cuda.synchronize()
+        info["prune_launches"] = _launches()
+        _reset_launches()
+
+    _reset_launches()
+    trainer, log = train_flagship_schedule(steps=3, device=dev, after_prune=after_prune)
+    torch.cuda.synchronize()
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    prune, steps = log[0], log[1:]
+    pipe, cfg = trainer.pipeline, trainer.cfg
+    anchor = pipe.anchor_mask.cpu().numpy()
+
+    expected = {k: 0 for k in launches}
+    for s_ in steps:
+        dual = "semantics" in s_["stage"].channels
+        expected["dual_encode" if dual else "encode"] += len(s_["cam_idx"])
+        expected["dual_table_grad" if dual else "table_grad"] += len(s_["cam_idx"])
+        expected["dbary"] += sum(int(not anchor[c]) for c in s_["cam_idx"])
+    chunks = max(1, cfg.prune_samples_per_cell) * math.ceil(trainer.occ.res ** 3 / 65536)
+    expected_prune = {k: (chunks if k == "encode" else 0) for k in launches}
+    stage = steps[0]["stage"]
+    fields = dict(
+        prune_ms=prune["seconds"] * 1e3, prune_kept_share=prune["occupied_share"],
+        prune_launches=info["prune_launches"], expected_prune_launches=expected_prune,
+        fixture="scene spheres and wall, dilated by one cell (smoke fixture)",
+        occupied_share=trainer._occ_frac, num_steps=stage.num_steps,
+        pack_steps=stage.pack_steps, B=stage.pack_steps * cfg.num_rays_sampled_per_img,
+        launches=launches, expected_launches=expected,
+        losses=[s_["losses"] for s_ in steps], cam_idx=[s_["cam_idx"] for s_ in steps],
+        step_epochs=[s_["epoch"] for s_ in steps],
+        step_channels=[sorted(s_["stage"].channels) for s_ in steps])
+
+    def fail(msg):
+        emit("train_post_prune", ok=False, **fields)
+        raise AssertionError(msg)
+
+    if info["prune_launches"] != expected_prune:
+        fail(f"the prune launched {info['prune_launches']}, expected {expected_prune}")
+    if launches != expected:
+        fail(f"post-prune steps launched {launches}, expected {expected}")
+    if not all(np.isfinite(v) for s_ in steps for v in s_["losses"].values()):
+        fail("post-prune losses not finite")
+    if not (len(steps) == 4 and all(
+            {"semantics", "inst_embedding"} <= s_["stage"].channels
+            and not s_["stage"].training_val_poses for s_ in steps[:3])
+            and steps[3]["stage"].training_val_poses):
+        fail("post-prune steps are not 3 panoptic steps and 1 val-pose step")
+    if not (0.01 <= trainer._occ_frac <= 0.40 and all(
+            s_["stage"].raymarch_type == "voxel" and s_["stage"].pack_steps > 0
+            for s_ in steps)):
+        fail(f"post-prune stages not the voxel march with packing: {stage}")
+
+    # one 65,536-point chunk of the prune's density, kernel vs plain encode
+    centers = trainer.occ.cell_centers_jittered_T(
+        torch.Generator(device=dev).manual_seed(7))[:, :65536].contiguous()
+    with torch.no_grad():
+        d_k = pipe.query_density(centers, trainer.lod_w)
+        with mock.patch.object(pe, "fused_encode", pe.encode_plain):
+            d_p = pipe.query_density(centers, trainer.lod_w)
+    fields.update(prune_density_max_abs_err=(d_k.float() - d_p.float()).abs().max().item(),
+                  prune_density_tol=1e-2 * max(1.0, d_p.float().abs().max().item()))
+    if not fields["prune_density_max_abs_err"] <= fields["prune_density_tol"]:
+        fail("prune density through the kernel vs the plain encode outside 1e-2")
+
+    # one non-anchor microbatch of the panoptic stage
+    batch = trainer.dataset.sample_batch(np.random.default_rng(1), cfg.batch_size,
+                                         cfg.num_rays_sampled_per_img)
+    m = int(np.nonzero(~anchor[batch["cam_idx"]])[0][0])
+    sub = {k: v[m:m + 1] if getattr(v, "ndim", 0) >= 1
+           and v.shape[0] == batch["imgs"].shape[0] else v for k, v in batch.items()}
+    r = cfg.num_rays_sampled_per_img
+    budget = stage.pack_steps * r
+    jitter = torch.rand((r, stage.num_steps), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    base = Rays(origins=torch.from_numpy(sub["base_rays_origins"]).to(dev),
+                dirs=torch.from_numpy(sub["base_rays_dirs"]).to(dev),
+                dist_min=0.0, dist_max=6.0)
+    cam = torch.from_numpy(sub["cam_idx"]).long().to(dev)
+    packed_cfg = dataclasses.replace(pipe.tracer_cfg, raymarch_type="voxel",
+                                     num_steps=stage.num_steps, pack_steps=stage.pack_steps)
+    dense_cfg = dataclasses.replace(packed_cfg, pack_steps=0)
+    with torch.no_grad():
+        rays = pipe.transform_rays(base, cam)
+        rm = raymarch(rays, trainer.occ, stage.num_steps, "voxel", jitter,
+                      packed_cfg.ray_max_travel)
+        ps = pack_samples(rm, rays.origins.T, rays.dirs.T, budget)
+        counts = rm.mask.sum(-1)
+        keep = ps.offsets[1:] - ps.offsets[:-1]
+        untruncated = keep == counts
+        fields.update(truncated_ray_share=1.0 - untruncated.float().mean().item(),
+                      packed_used=int(ps.offsets[-1]), valid_samples=int(counts.sum()),
+                      mean_valid_per_ray=counts.float().mean().item())
+        chans = ("rgb", "depth", "semantics", "inst_embedding")
+        outs = {}
+        for name, dec32 in (("float32", True), ("bfloat16", False)):
+            with _Float32Decoders(pipe) if dec32 else contextlib.nullcontext():
+                rb_p = pipe(base, stage.channels, trainer.occ, trainer.lod_w, stage="train",
+                            cam_idx=cam, jitter=jitter, tracer_cfg=packed_cfg)
+                rb_d = pipe(base, stage.channels, trainer.occ, trainer.lod_w, stage="train",
+                            cam_idx=cam, jitter=jitter, tracer_cfg=dense_cfg)
+            outs[name] = {ch: (getattr(rb_p, ch)[untruncated].float()
+                               - getattr(rb_d, ch)[untruncated].float()).abs().max().item()
+                          for ch in chans}
+            if name == "float32":
+                depth_max = getattr(rb_d, "depth").abs().max().item()
+    tol = {ch: 1e-4 * (max(1.0, depth_max) if ch == "depth" else 1.0) for ch in chans}
+    fields.update(packed_vs_dense_err_float32_decoders=outs["float32"],
+                  packed_vs_dense_tol=tol, packed_vs_dense_err_bf16_decoders=outs["bfloat16"])
+    if not all(outs["float32"][ch] <= tol[ch] for ch in chans):
+        fail("packed trace vs dense voxel trace outside 1e-4 on untruncated rays")
+
+    # the packed layout's backward is the same on every run
+    g1 = packed_layout_grads(rays, trainer.occ, stage, jitter, packed_cfg.ray_max_travel,
+                             budget, 4)
+    g2 = packed_layout_grads(rays, trainer.occ, stage, jitter, packed_cfg.ray_max_travel,
+                             budget, 4)
+    fields["packed_backward_bit_equal_on_rerun"] = all(
+        torch.equal(a, b) for a, b in zip(g1, g2))
+    del g1, g2
+    if not fields["packed_backward_bit_equal_on_rerun"]:
+        fail("the packed layout's backward differs between two runs")
+
+    # gradients through the kernels at B against the plain backward, with
+    # the algorithms the training path uses; a second run through the
+    # kernels reports their spread (the table scatter adds with atomics)
+    g_k, l_k = trainer.grad_step(stage, sub, jitter)
+    g_p, _, mags = _plain_backward_grads(trainer, stage, sub, jitter)
+    g_n, _ = trainer.grad_step(stage, sub, jitter)
+    worst, rerun = {}, {}
+    for name, mag in mags.items():
+        tol_ = (64 * F32_EPS * mag).clamp(min=1e-30)
+        worst[name] = ((g_k[name] - g_p[name]).abs() / tol_).max().item()
+        rerun[name] = ((g_n[name] - g_k[name]).abs() / tol_).max().item()
+    ext_ref = g_p["extrinsics"].abs().max().item()
+    ext_err = (g_k["extrinsics"] - g_p["extrinsics"]).abs().max().item()
+    fields.update(plain_check_table_worst_err_over_tol=worst,
+                  plain_check_extrinsics_err=ext_err, plain_check_extrinsics_max=ext_ref,
+                  plain_check_losses_finite=all(np.isfinite(float(v)) for v in l_k.values()),
+                  rerun_table_worst_err_over_tol=rerun,
+                  rerun_extrinsics_err=(g_n["extrinsics"] - g_k["extrinsics"]).abs().max().item())
+    del g_n, g_p, mags
+    if not (all(w <= 1.0 for w in worst.values()) and ext_ref > 0
+            and ext_err <= 1e-3 * ext_ref and fields["plain_check_losses_finite"]):
+        fail("post-prune gradients through the kernels vs the plain backward")
+
+    # the encode's backward on the forward's rank at this B
+    x_b = ps.positionsT.contiguous()
+    spec = pipe.nef.grid.spec
+    l, c, f = spec.num_levels, spec.capacity, spec.feature_dim
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_b = torch.randn((l, f, x_b.shape[1]), generator=gen, device=dev)
+    rank_check = backward_rank_check(pipe.nef.grid.tables.detach(), x_b, spec.scales, g_b)
+    fields["rank_check"] = rank_check
+    if not (rank_check["dx_bit_equal"] or rank_check["dx_err_over_max"] <= 1e-6):
+        fail(f"encode backward not on the forward's simplex at B: {rank_check}")
+
+    # Adam's reset after a prune keeps the counts
+    counts_before = dict(trainer.opt.count)
+    trainer.opt.reset_moments()
+    if trainer.opt.count != counts_before or any(v.any() for v in trainer.opt.mu.values()):
+        fail("reset_moments changed the counts or kept a moment")
+    fields["reset_moments_counts"] = counts_before
+
+    step_ms = [s_["seconds"] * 1e3 for s_ in steps]
+    steady = statistics.median(step_ms[1:3])
+    fields.update(step_ms=step_ms, step_ms_steady_median=steady,
+                  rays_per_s=len(steps[2]["cam_idx"]) * r / (steady / 1e3),
+                  val_pose_step_ms=step_ms[3], peak_allocated_gib=peak_gb)
+
+    # the kernels at this path's N, on random tables (the trainer's are
+    # ~1e-4, under the decoders' biases), through the wrappers as the path
+    # calls them: the single encode at the prune's N = 65,536 (no idx/bary)
+    # and at N = B (the val-pose step, idx/bary kept), the dual encode at
+    # N = B with idx/bary, and on its lattice the dual scatter and dbary
+    ta = torch.randn((l, c, f), generator=gen, device=dev)
+    tb = torch.randn((l, c, f), generator=gen, device=dev)
+    a, b = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    st = pe.level_statics(spec.scales, c, f)
+    nb = x_b.shape[1]
+    checks = {}
+    with torch.no_grad():
+        out = pe.fused_encode(ta, centers, spec.scales)
+    checks["encode_prune"] = encode_vs_plain(spec, centers, (ta,), (out,))
+    out = pe.fused_encode(a, x_b, spec.scales)
+    _, idx, bary, _ = out.grad_fn.saved_tensors
+    checks["encode_B"] = encode_vs_plain(spec, x_b, (ta,), (out.detach(),), idx, bary)
+    oa, ob = pe.fused_encode_dual(a, b, x_b, spec.scales)
+    _, idx, bary, _ = oa.grad_fn.saved_tensors
+    checks["dual_encode_B"] = encode_vs_plain(spec, x_b, (ta, tb),
+                                              (oa.detach(), ob.detach()), idx, bary)
+    del out, oa, ob
+    g_a = torch.randn((l, f, nb), generator=gen, device=dev)
+    plan = dict(rows_used=st.rows_used, modes=st.modes)
+    got = tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c, **plan)
+    worst = 0.0
+    for d_, g_ in zip(got, (g_a, g_b)):
+        diff = (d_ - tg.table_grad_plain(idx, bary, g_, c, st.rows_used)).abs()
+        tol_ = 64 * F32_EPS * tg.table_grad_plain(idx, bary.abs(), g_.abs(), c, st.rows_used)
+        worst = max(worst, (diff / tol_.clamp(min=1e-30)).max().item())
+    del got, diff, tol_
+    checks["dual_table_grad_B"] = dict(N=nb, worst_err_over_tol=worst,
+                                       tol="64 eps_f32 * sum|bary*g| per entry",
+                                       ok=worst <= 1.0)
+    got = tg.multilevel_gather_dbary(ta, idx, g_a)
+    diff = (got - tg.gather_dbary_plain(ta, idx, g_a)).abs()
+    mag = tg.gather_dbary_plain(ta.abs(), idx, g_a.abs())
+    worst = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+    checks["dbary_B"] = dict(N=nb, max_abs_err=diff.max().item(), worst_err_over_tol=worst,
+                             tol="4 eps_f32 * sum_f |g*T| per entry", ok=worst <= 1.0)
+    del got, diff, mag
+    fields["kernel_checks"] = checks
+    if not all(ch["ok"] for ch in checks.values()):
+        fail(f"a kernel at this path's N outside its tolerance: {checks}")
+
+    times = {}
+    bound_ms, bound_by, _, _ = encode_bound(l, c, f, centers.shape[1], 1, 4, False,
+                                            st.rows_used)
+    with torch.no_grad():
+        times["encode_prune"] = dict(
+            N=centers.shape[1], max_abs_err=checks["encode_prune"]["max_abs_err"],
+            ms=cuda_ms(lambda: pe.fused_encode(ta, centers, spec.scales), flush=flush),
+            plain_ms=cuda_ms(lambda: pe.encode_plain(ta, centers, spec.scales), flush=flush),
+            bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by, _, _ = encode_bound(l, c, f, nb, 2, 4, True, st.rows_used)
+    times["dual_encode_B"] = dict(
+        N=nb, max_abs_err=checks["dual_encode_B"]["max_abs_err"],
+        ms=cuda_ms(lambda: pe.fused_encode_dual(a, b, x_b, spec.scales), flush=flush),
+        plain_ms=cuda_ms(lambda: pe.dual_encode_plain(ta, tb, x_b, spec.scales), flush=flush),
+        bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by, _, _ = scatter_bound(l, c, f, nb, 2)
+    times["dual_table_grad_B"] = dict(
+        N=nb, worst_err_over_tol=checks["dual_table_grad_B"]["worst_err_over_tol"],
+        ms=cuda_ms(lambda: tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c, **plan),
+                   flush=flush),
+        plain_ms=cuda_ms(lambda: tg.dual_table_grad_plain(idx, bary, g_a, g_b, c),
+                         flush=flush),
+        bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by, _, _ = dbary_bound(l, c, f, nb, st.rows_used)
+    times["dbary_B"] = dict(
+        N=nb, max_abs_err=checks["dbary_B"]["max_abs_err"],
+        ms=cuda_ms(lambda: tg.multilevel_gather_dbary(ta, idx, g_a), flush=flush),
+        plain_ms=cuda_ms(lambda: tg.gather_dbary_plain(ta, idx, g_a), flush=flush),
+        bound_ms=bound_ms, bound_by=bound_by)
+    fields["kernel_times"] = times
+    emit("train_post_prune", **fields)
+    all_launches = {k: launches[k] + info["prune_launches"][k] for k in launches}
+    del trainer, idx, bary, g_a, g_b, x_b, ps, rm, a, b, ta, tb
+    torch.cuda.empty_cache()
+    return all_launches, times
+
+
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
     import torch
@@ -823,6 +1229,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     for stage_name in ("rgb", "panoptic"):
         paths[f"train_{stage_name}"] = phase_train(dev, stage_name)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
+    del flush_buf
 
     # ---------------------------------------------------------------- report
     sources = {"fwd": "pagnerf_tpu_torch/ops/csrc/permuto_gather.cu",
@@ -851,6 +1260,7 @@ def main() -> None:
         if name == "dual":
             row["two_loads"] = {"render": pick(r32["dual_two_loads"], ("ms", "bound_ms")),
                                 "train": pick(t32["dual_two_loads"], ("ms", "bound_ms"))}
+        row["post_prune"] = post["encode_prune" if name == "single" else "dual_encode_B"]
         rows.append(row)
     for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
                                 ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):
@@ -876,14 +1286,18 @@ def main() -> None:
             ("scatter_rows", "scatter_rows", "pagnerf_tpu/ops/pallas_scatter.py:84",
              "M=2,097,152 events into 4096 rows x 128 (off the main path)")):
         r = bwd[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": sources["bwd"],
             "replaces": replaces, "launches": sum(p[key] for p in paths.values()),
             "launches_by_path": {p: c[key] for p, c in paths.items()},
             "dtype": "float32", "shapes": shapes,
             **{k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
-        })
+        }
+        if name in ("table_grad_dual", "gather_dbary"):
+            row["post_prune"] = post["dual_table_grad_B" if name == "table_grad_dual"
+                                     else "dbary_B"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,12 @@ the flagship render -- min(4096, H x W) rays of camera 0, i.e. all 3072
 pixels of the 64x48 scene, channels rgb, depth, semantics and
 inst_embedding -- and its example inputs.
 
-Both run on the CUDA card unless the caller passes ``device="cpu"``, and
+``train_flagship`` trains the pre-prune stages for a few steps;
+``train_flagship_schedule`` runs the default schedule past its prune: the
+prune, then steps of the panoptic stage (voxel march, packed layout) and of
+a val-pose epoch.
+
+All run on the CUDA card unless the caller passes ``device="cpu"``, and
 raise on a host without one. Weights come from a seeded init
 (``torch.Generator``); load converted JAX weights with
 ``pipe.load_state_dict(convert.params_from_flax(tree))``.
@@ -17,8 +22,9 @@ raise on a host without one. Weights come from a seeded init
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import FrozenSet
+from typing import Callable, FrozenSet, Optional
 
 import torch
 
@@ -139,5 +145,102 @@ def train_flagship(stage: str = "rgb", steps: int = 3, device="cuda",
         losses = {name: float(v) for name, v in losses.items()}
         log.append({"epoch": epoch, "cam_idx": batch["cam_idx"].tolist(),
                     "seconds": time.perf_counter() - t0, "losses": losses})
+        trainer.epoch = epoch
+    return trainer, log
+
+
+def scene_density(scene, res: int, dev) -> torch.Tensor:
+    """A fixture, not a field's density: 1e3 in the cells whose box meets
+    one of the synthetic scene's spheres or its wall (the inside of the
+    [-0.9, 0.9]^3 box the cameras look into), 0 elsewhere; [res^3] in
+    ``cell_centers_jittered_T`` order."""
+    c = (torch.arange(res, device=dev, dtype=torch.float64) + 0.5) / res * 2 - 1
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    h = 1.0 / res                                   # half a cell
+    cover = torch.zeros_like(x, dtype=torch.bool)
+    for cen, r in zip(scene.centers, scene.radii):
+        d = torch.sqrt((x - cen[0]) ** 2 + (y - cen[1]) ** 2 + (z - cen[2]) ** 2)
+        cover |= d <= r + math.sqrt(3.0) * h
+    near = torch.stack([(a.abs() - h).clamp(min=0) for a in (x, y, z)]).amax(0)
+    far = torch.stack([a.abs() + h for a in (x, y, z)]).amax(0)
+    cover |= (near <= 0.9) & (far >= 0.9)
+    return cover.reshape(-1).float() * 1e3
+
+
+def apply_scene_fixture(trainer: PanopticTrainer) -> None:
+    """The occupancy a trained field of the synthetic scene would leave: the
+    cells of its spheres and wall dilated by one cell, set through
+    ``update_from_density`` as the prune sets it, and the occupied share
+    that the stages size their packed budget from."""
+    density = scene_density(trainer.dataset.data["scene"], trainer.occ.res,
+                            trainer.occ.mask.device)
+    trainer.occ = trainer.occ.update_from_density(density, decay=0.0, dilate=1)
+    trainer._occ_frac = float(trainer.occ.mask.float().mean())
+
+
+def post_prune_epochs(trainer: PanopticTrainer, steps: int, val_pose_steps: int):
+    """Epochs of the trainer's schedule past its first real prune: the first
+    ``steps`` whose stage trains the panoptic heads on the voxel march, then
+    ``val_pose_steps`` times the first val-pose epoch after them. Read from
+    ``should_prune`` and ``stage_for_epoch`` (601..603 and 610 under the
+    default ``TrainerConfig``); call it after the prune, whose occupied
+    share sizes the stages."""
+    cfg = trainer.cfg
+    prune = next(e for e in range(1, cfg.epochs) if trainer.should_prune(e))
+    stages = {e: trainer.stage_for_epoch(e) for e in range(prune + 1, cfg.epochs)}
+    panoptic = [e for e, st in stages.items()
+                if st.use_sem and st.raymarch_type == "voxel"][:steps]
+    after = panoptic[-1] if panoptic else prune
+    val = [next(e for e, st in stages.items() if e > after and st.training_val_poses)]
+    return panoptic + val * val_pose_steps
+
+
+def train_flagship_schedule(steps: int = 3, device="cuda", tiny: bool = False,
+                            after_prune: Optional[Callable[[PanopticTrainer], None]] = None,
+                            val_pose_steps: int = 1):
+    """The flagship under the default ``TrainerConfig`` schedule past its
+    prune, in three steps:
+
+    1. ``trainer.prune()``, the real prune the schedule runs after epoch
+       201, on the untrained field;
+    2. ``apply_scene_fixture``: an untrained field's prune says nothing of
+       the scene, so the occupancy is set to what a trained field would
+       leave;
+    3. ``steps`` steps of the first panoptic epochs past the prune and
+       ``val_pose_steps`` steps of the next val-pose epoch
+       (``post_prune_epochs``; its 'val' cameras, only the extrinsics
+       free), each on the voxel march and the packed layout sized from the
+       occupied share.
+
+    Batches of 6 images x 4096 rays, one image per microbatch, on the 128^3
+    occupancy grid; ``tiny`` is the JAX package's test size with 32 rays
+    per image and a 64^3 grid. ``after_prune(trainer)``, if given, runs
+    right after the prune (to read its kernel launches). Returns (trainer,
+    log): first ``{"prune": True, "seconds", "occupied_share"}`` of the
+    prune, then one dict per step as ``train_flagship`` logs it, with the
+    step's ``stage``."""
+    dev = resolve_device(device)
+    pipe, ds = flagship(tiny=tiny, device=dev)
+    pipe.requires_grad_(True)
+    cfg = TrainerConfig(batch_size=6, num_rays_sampled_per_img=32 if tiny else 4096,
+                        micro_batch_imgs=1)
+    trainer = PanopticTrainer(pipe, ds, cfg, OptimizerConfig(), occ_level=6 if tiny else 7)
+    t0 = time.perf_counter()
+    trainer.prune()
+    share = trainer._occ_frac        # a host read: the prune has finished
+    log = [{"prune": True, "seconds": time.perf_counter() - t0, "occupied_share": share}]
+    if after_prune is not None:
+        after_prune(trainer)
+    apply_scene_fixture(trainer)
+    for epoch in post_prune_epochs(trainer, steps, val_pose_steps):
+        stage = trainer.stage_for_epoch(epoch)
+        split = "val" if stage.training_val_poses else "train"
+        batch = ds.sample_batch(trainer.rng, cfg.batch_size, cfg.num_rays_sampled_per_img,
+                                split)
+        t0 = time.perf_counter()
+        losses = {name: float(v) for name, v in trainer.train_step(stage, batch).items()}
+        log.append({"epoch": epoch, "cam_idx": batch["cam_idx"].tolist(),
+                    "seconds": time.perf_counter() - t0, "losses": losses,
+                    "stage": stage})
         trainer.epoch = epoch
     return trainer, log

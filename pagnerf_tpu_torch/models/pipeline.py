@@ -39,6 +39,19 @@ class Pipeline(nn.Module):
             return self.nef(coordsT, ray_dT, frozenset(channels), lod_weights)
         return fn
 
+    def query_density(self, coordsT: torch.Tensor,
+                      lod_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Density [N] at coords [3, N] (the prune's query): the max of
+        ``density`` and ``panoptic_density`` where the NeF has both."""
+        channels = frozenset({"density"}) | (
+            frozenset({"panoptic_density"}) & self.nef.supported_channels())
+        dirsT = torch.full_like(coordsT, 1.0 / 3.0 ** 0.5)
+        out = self.nef(coordsT, dirsT, channels, lod_weights)
+        d = out["density"][0]
+        if "panoptic_density" in out:
+            d = torch.maximum(d, out["panoptic_density"][0])
+        return d
+
     def forward(self, rays: Rays, channels: FrozenSet[str], occ: OccupancyGrid,
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
                 jitter: Jitter = None,

@@ -13,8 +13,10 @@
 // or bfloat16 (the weights are then rounded to bfloat16 before the products,
 // as the plain encode's ``bary.to(compute_dtype)`` does). Products and sums
 // run in float32 registers and round once at the store. When the caller
-// passes their pointers, the kernel also writes the lattice, idx [L, 4, N]
-// int32 and bary [L, 4, N] float32, for the backward.
+// passes their pointers, the kernel also writes the lattice for the
+// backward: idx [L, 4, N] int32, bary [L, 4, N] float32 and the rank [L, N],
+// one byte per (level, sample) with coordinate i's rank (0..3) at bits 2i, so
+// that the backward forms dx on the simplex gathered here.
 //
 // Replaces the TPU kernels pagnerf_tpu/ops/pallas_gather.py
 // multilevel_gather_fwd (:101) and multilevel_gather_dual_fwd (:119) together
@@ -164,7 +166,8 @@ __device__ __forceinline__ float elevate(const float (&e)[kDim], const float (&s
 // ops/permuto_encoding.py's simplex_vertices_and_weights_T and _index_keys_T
 // compute them.
 __device__ __forceinline__ void simplex(const Levels& p, int l, const float (&x)[kDim],
-                                        int32_t (&idx)[kVerts], float (&bary)[kVerts]) {
+                                        int32_t (&idx)[kVerts], float (&bary)[kVerts],
+                                        uint8_t& rank_bits) {
   const float inv_s = p.inv_scale[l];
   float s[kDim];
 #pragma unroll
@@ -208,6 +211,8 @@ __device__ __forceinline__ void simplex(const Levels& p, int l, const float (&x)
       gr[i] = __fsub_rn(gr[i], 4.0f);
     }
   }
+
+  rank_bits = static_cast<uint8_t>(rank[0] | (rank[1] << 2) | (rank[2] << 4) | (rank[3] << 6));
 
   // barycentric weights: bary5[b] = sum_v ([d - rank_v == b] - [d + 1 - rank_v
   // == b]) * delta_v. The ranks are a permutation of 0..d (|sum_val| <= 2, as
@@ -262,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
                           const T* __restrict__ table_a, const T* __restrict__ table_b,
                           T* __restrict__ out_a, T* __restrict__ out_b,
                           int32_t* __restrict__ idx_out, float* __restrict__ bary_out,
-                          int64_t capacity, int64_t n) {
+                          uint8_t* __restrict__ rank_out, int64_t capacity, int64_t n) {
   static_assert(!PACKED || NT == 2, "only the dual kernel reads packed rows");
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (s >= n) return;
@@ -271,7 +276,8 @@ __global__ void __launch_bounds__(kThreads)
   const float xs[kDim] = {__ldg(x + s), __ldg(x + n + s), __ldg(x + 2 * n + s)};
   int32_t idx[kVerts];
   float bary[kVerts];
-  simplex(p, l, xs, idx, bary);
+  uint8_t rank_bits;
+  simplex(p, l, xs, idx, bary, rank_bits);
 
   const int64_t level_off = static_cast<int64_t>(l) * capacity;
   float acc[NT][F];
@@ -320,6 +326,7 @@ __global__ void __launch_bounds__(kThreads)
       idx_out[off + v * n] = idx[v];
       bary_out[off + v * n] = bary[v];
     }
+    rank_out[static_cast<int64_t>(l) * n + s] = rank_bits;
   }
 }
 
@@ -327,8 +334,8 @@ __global__ void __launch_bounds__(kThreads)
 // from packed rows.
 template <typename T, int F>
 cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* tb, void* oa,
-                   void* ob, int32_t* idx, float* bary, int64_t levels, int64_t capacity,
-                   int64_t n, int64_t layout, cudaStream_t stream) {
+                   void* ob, int32_t* idx, float* bary, uint8_t* rank, int64_t levels,
+                   int64_t capacity, int64_t n, int64_t layout, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
                   static_cast<unsigned>(levels));
   const auto* a = static_cast<const T*>(ta);
@@ -338,15 +345,15 @@ cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* 
   switch (layout) {
     case 1:
       permuto_encode_kernel<T, F, 1, false><<<grid, kThreads, 0, stream>>>(
-          p, x, a, nullptr, out_a, nullptr, idx, bary, capacity, n);
+          p, x, a, nullptr, out_a, nullptr, idx, bary, rank, capacity, n);
       break;
     case 2:
       permuto_encode_kernel<T, F, 2, false><<<grid, kThreads, 0, stream>>>(
-          p, x, a, b, out_a, out_b, idx, bary, capacity, n);
+          p, x, a, b, out_a, out_b, idx, bary, rank, capacity, n);
       break;
     case 3:
       permuto_encode_kernel<T, F, 2, true><<<grid, kThreads, 0, stream>>>(
-          p, x, a, nullptr, out_a, out_b, idx, bary, capacity, n);
+          p, x, a, nullptr, out_a, out_b, idx, bary, rank, capacity, n);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -356,16 +363,19 @@ cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* 
 
 template <typename T>
 cudaError_t dispatch_feat(const Levels& p, const float* x, const void* ta, const void* tb,
-                          void* oa, void* ob, int32_t* idx, float* bary, int64_t levels,
-                          int64_t capacity, int64_t n, int64_t feat, int64_t layout,
-                          cudaStream_t stream) {
+                          void* oa, void* ob, int32_t* idx, float* bary, uint8_t* rank,
+                          int64_t levels, int64_t capacity, int64_t n, int64_t feat,
+                          int64_t layout, cudaStream_t stream) {
   switch (feat) {
     case 1:
-      return launch<T, 1>(p, x, ta, tb, oa, ob, idx, bary, levels, capacity, n, layout, stream);
+      return launch<T, 1>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n, layout,
+                          stream);
     case 2:
-      return launch<T, 2>(p, x, ta, tb, oa, ob, idx, bary, levels, capacity, n, layout, stream);
+      return launch<T, 2>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n, layout,
+                          stream);
     case 4:
-      return launch<T, 4>(p, x, ta, tb, oa, ob, idx, bary, levels, capacity, n, layout, stream);
+      return launch<T, 4>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n, layout,
+                          stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -378,14 +388,15 @@ bool aligned(const void* ptr, int64_t bytes) {
 }  // namespace
 
 // x [3, N] float32; tables [L, C, F] (packed: one [L, C, 2F] stack at
-// table_a); outputs [L, F, N]; dtype 0 = float32, 1 = bfloat16. idx and bary
-// are both null or both [L, 4, N] (int32, float32). elev is E [4, 3] in
+// table_a); outputs [L, F, N]; dtype 0 = float32, 1 = bfloat16. idx, bary and
+// rank are all null or idx and bary [L, 4, N] (int32, float32) and rank
+// [L, N] (uint8). elev is E [4, 3] in
 // float32, row-major; inv_scale, mm, dm and direct hold one entry per level.
 // Returns the launch's cudaError_t (0 on success); nothing is launched for an
 // argument the kernel does not take.
 extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const void* table_b,
                                       void* out_a, void* out_b, void* idx, void* bary,
-                                      const float* elev, const float* inv_scale,
+                                      void* rank, const float* elev, const float* inv_scale,
                                       const int32_t* mm, const int32_t* dm,
                                       const int32_t* direct, int64_t levels, int64_t capacity,
                                       int64_t n, int64_t feat, int64_t layout, int64_t dtype,
@@ -393,6 +404,7 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
   if (levels <= 0 || levels > kMaxLevels || capacity <= 0 || capacity > (1LL << 31) ||
       (capacity & (capacity - 1)) != 0 || n <= 0 ||
       (n + kThreads - 1) / kThreads > 2147483647LL || (idx == nullptr) != (bary == nullptr) ||
+      (idx == nullptr) != (rank == nullptr) ||
       (dtype != 0 && dtype != 1) || layout < 1 || layout > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t elem = dtype == 0 ? 4 : 2;
@@ -417,12 +429,13 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
   const auto* xf = static_cast<const float*>(x);
   auto* i32 = static_cast<int32_t*>(idx);
   auto* bf = static_cast<float*>(bary);
+  auto* rk = static_cast<uint8_t*>(rank);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_feat<float>(p, xf, table_a, table_b, out_a, out_b, i32, bf, levels, capacity,
-                               n, feat, layout, s);
+    err = dispatch_feat<float>(p, xf, table_a, table_b, out_a, out_b, i32, bf, rk, levels,
+                               capacity, n, feat, layout, s);
   else
-    err = dispatch_feat<__nv_bfloat16>(p, xf, table_a, table_b, out_a, out_b, i32, bf, levels,
-                                       capacity, n, feat, layout, s);
+    err = dispatch_feat<__nv_bfloat16>(p, xf, table_a, table_b, out_a, out_b, i32, bf, rk,
+                                       levels, capacity, n, feat, layout, s);
   return static_cast<int>(err);
 }

@@ -15,12 +15,16 @@ Gradients: the encodes are differentiable in the tables and in the
 coordinates (``_Encode``). The table gradient is the table-gradient scatter
 of ``ops/table_gather.py`` over the forward's idx and bary; the coordinate
 gradient is ``dbary`` (from the A side of a dual encode only: the delta grid
-reads stop-gradient weights) turned into ``dx`` by ``_lattice_levels_dx``,
-which recomputes each level's rank from x (the JAX package's
-``_lattice_levels_bwd``). The same recomputation serves ``_Lattice``, an
-autograd Function around all levels' plain lattice math that saves only the
-coordinates: autograd through the rank masks would keep ``[L, 5, V, N]``-sized
-multiply partners alive, gigabytes at a training microbatch's N.
+reads stop-gradient weights) turned into ``dx`` by ``_lattice_levels_dx``
+(the JAX package's ``_lattice_levels_bwd``). It forms dx on the rank the
+forward computed, kept in one byte per level and sample (``pack_rank``; the
+kernel writes it beside idx and bary), not on a recomputed one: the card's
+``E @ s`` rounds el in an order that cuBLAS picks by N, so a recomputed rank
+may pick another simplex for a point on a boundary. ``_Lattice``, an autograd
+Function around all levels' plain lattice math, saves the coordinates and
+the rank alike: autograd through the rank masks would keep
+``[L, 5, V, N]``-sized multiply partners alive, gigabytes at a training
+microbatch's N.
 
 Layout: sample tensors are feature-major, coordinates ``[3, N]``, indices and
 weights ``[L, V=4, N]``, features ``[L*F, N]`` -- the JAX package's layout, so
@@ -140,19 +144,17 @@ def scatter_plan(scales, capacity: int, feature_dim: int):
     return rows, modes
 
 
-def _rank_and_el(scaledT: torch.Tensor):
-    """One level's (el, gr, rank) from scale-divided coords [3, N]: elevation,
-    nearest remainder-0 point (wrap-adjusted) and differential rank, ties
-    broken by coordinate index."""
-    e = torch.as_tensor(_E, dtype=scaledT.dtype, device=scaledT.device)
-    el = e @ scaledT                                              # [4, N]
+def _rank_from_el(el: torch.Tensor):
+    """One level's (gr, rank) from its elevated coords el [4, N]: nearest
+    remainder-0 point (wrap-adjusted) and differential rank, ties broken by
+    coordinate index."""
     gr = torch.round(el / _VERTS) * _VERTS                        # half to even
     sum_val = torch.sum(gr, dim=0) / _VERTS                       # integer-valued
 
     diff = el - gr
     di = diff[:, None, :]                                         # coordinate i
     dj = diff[None, :, :]                                         # coordinate j
-    idx4 = torch.arange(_VERTS, device=scaledT.device)
+    idx4 = torch.arange(_VERTS, device=el.device)
     tie = (dj == di) & (idx4[None, :, None] < idx4[:, None, None])
     rank = torch.sum((dj > di) | tie, dim=1).to(torch.int32)      # [4, N]
     rank = rank + sum_val.to(torch.int32)[None, :]
@@ -161,7 +163,34 @@ def _rank_and_el(scaledT: torch.Tensor):
     over = (rank > _D).to(torch.int32)
     rank = rank + _VERTS * under - _VERTS * over
     gr = gr + _VERTS * under.to(gr.dtype) - _VERTS * over.to(gr.dtype)
+    return gr, rank
+
+
+def _rank_and_el(scaledT: torch.Tensor):
+    """One level's (el, gr, rank) from scale-divided coords [3, N]: elevation
+    ``el = E @ s``, then ``_rank_from_el``."""
+    e = torch.as_tensor(_E, dtype=scaledT.dtype, device=scaledT.device)
+    el = e @ scaledT                                              # [4, N]
+    gr, rank = _rank_from_el(el)
     return el, gr, rank
+
+
+_RANK_SHIFTS = (0, 2, 4, 6)
+
+
+def pack_rank(rank: torch.Tensor) -> torch.Tensor:
+    """Ranks [..., 4, N] with entries in 0..3 -> one byte per sample [..., N]
+    (uint8, 2 bits per coordinate, coordinate i at bits 2i), the layout the
+    encode kernel writes."""
+    shifts = torch.tensor(_RANK_SHIFTS, dtype=torch.int32, device=rank.device)
+    return torch.sum(rank.to(torch.int32) << shifts[:, None],
+                     dim=-2).to(torch.uint8)
+
+
+def unpack_rank(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_rank``: uint8 [..., N] -> int32 ranks [..., 4, N]."""
+    shifts = torch.tensor(_RANK_SHIFTS, dtype=torch.int32, device=packed.device)
+    return (packed.to(torch.int32).unsqueeze(-2) >> shifts[:, None]) & 3
 
 
 def simplex_vertices_and_weights_T(scaledT: torch.Tensor):
@@ -169,10 +198,14 @@ def simplex_vertices_and_weights_T(scaledT: torch.Tensor):
 
     Returns keys [4, 3, N] int32 (first 3 lattice coordinates of each vertex)
     and barycentric weights bary [4, N]."""
-    el, gr, rank = _rank_and_el(scaledT)
+    return _simplex_from_rank(*_rank_and_el(scaledT))
+
+
+def _simplex_from_rank(el: torch.Tensor, gr: torch.Tensor, rank: torch.Tensor):
+    """Keys [4, 3, N] and bary [4, N] of the simplex given by el, gr, rank."""
     delta = (el - gr) / _VERTS                                    # [4, N]
     b = torch.arange(_VERTS + 1, dtype=torch.int32,
-                     device=scaledT.device)[:, None, None]        # [5, 1, 1]
+                     device=el.device)[:, None, None]             # [5, 1, 1]
     plus = ((_D - rank)[None] == b).to(delta.dtype)               # [5, 4, N]
     minus = ((_D + 1 - rank)[None] == b).to(delta.dtype)
     bary = torch.sum((plus - minus) * delta[None], dim=1)         # [5, N]
@@ -180,7 +213,7 @@ def simplex_vertices_and_weights_T(scaledT: torch.Tensor):
     bary = torch.cat([bary0[None], bary[1:_VERTS]])               # [4, N]
 
     r = torch.arange(_VERTS, dtype=torch.int32,
-                     device=scaledT.device)[:, None, None]        # [4, 1, 1]
+                     device=el.device)[:, None, None]             # [4, 1, 1]
     gri = gr.to(torch.int32)[None, :_D, :]                        # [1, 3, N]
     ranki = rank[None, :_D, :]
     sub = (ranki > (_D - r)).to(torch.int32) * _VERTS
@@ -203,27 +236,34 @@ def _index_keys_T(keys: torch.Tensor, log2_capacity: int, mm: int, dm: int,
 
 
 def _lattice_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm, direct):
-    idx, bary = [], []
+    """idx [L, V, N] int32, bary [L, V, N] float32 and the packed rank [L, N]
+    uint8 (``pack_rank``) of coords x [3, N], one level at a time."""
+    idx, bary, ranks = [], [], []
     for inv_s, mm_l, dm_l, dir_l in zip(inv_scales, mm, dm, direct):
-        keys, b = simplex_vertices_and_weights_T(
-            x * torch.tensor(inv_s, dtype=torch.float32, device=x.device))
+        scaled = x * torch.tensor(inv_s, dtype=torch.float32, device=x.device)
+        el, gr, rank = _rank_and_el(scaled)
+        keys, b = _simplex_from_rank(el, gr, rank)
         idx.append(_index_keys_T(keys, log2_c, int(mm_l), int(dm_l), bool(dir_l)))
         bary.append(b)
-    return torch.stack(idx), torch.stack(bary)
+        ranks.append(pack_rank(rank))
+    return torch.stack(idx), torch.stack(bary), torch.stack(ranks)
 
 
-def _lattice_levels_dx(x: torch.Tensor, inv_scales, dbary: torch.Tensor):
+def _lattice_levels_dx(x: torch.Tensor, inv_scales, dbary: torch.Tensor,
+                       rank: torch.Tensor):
     """dx [3, N] of x [3, N] from dbary [L, V, N], one level at a time: with
     bary5[b] = sum_v (plus - minus)[b, v] * delta[v], delta = (el - gr) / 4 and
-    el = E @ (x * inv_s), dx += inv_s * E^T @ ddelta / 4 (rank recomputed)."""
+    el = E @ (x * inv_s), dx += inv_s * E^T @ ddelta / 4. ``rank`` [L, N]
+    (``pack_rank``) is the rank of the simplex the forward gathered, so dx is
+    formed on that simplex whatever order another product would round el in."""
     e_t = torch.as_tensor(_E, dtype=x.dtype, device=x.device).T   # [3, 4]
     b5 = torch.arange(_VERTS + 1, dtype=torch.int32, device=x.device)[:, None, None]
     dx = torch.zeros_like(x)
-    for inv_s, dbary_l in zip(inv_scales, dbary):
+    for inv_s, dbary_l, rank_l in zip(inv_scales, dbary, rank):
         s = torch.tensor(inv_s, dtype=torch.float32, device=x.device)
-        _, _, rank = _rank_and_el(x * s)
-        pm = (((_D - rank)[None] == b5).to(dbary_l.dtype)
-              - ((_D + 1 - rank)[None] == b5).to(dbary_l.dtype))   # [5, 4, N]
+        rank_l = unpack_rank(rank_l)
+        pm = (((_D - rank_l)[None] == b5).to(dbary_l.dtype)
+              - ((_D + 1 - rank_l)[None] == b5).to(dbary_l.dtype))   # [5, 4, N]
         # bary = bary5[:V] with bary5[0] folded += bary5[V]: transpose the fold
         db5 = torch.cat([dbary_l, dbary_l[:1]], dim=0)             # [5, N]
         ddelta = torch.einsum("bvn,bn->vn", pm, db5) / _VERTS      # [4, N]
@@ -233,13 +273,15 @@ def _lattice_levels_dx(x: torch.Tensor, inv_scales, dbary: torch.Tensor):
 
 class _Lattice(torch.autograd.Function):
     """idx and bary of all levels; the coordinate gradient flows through bary
-    only (idx is integer and piecewise constant). Saves x alone."""
+    only (idx is integer and piecewise constant). Saves x and the packed rank
+    (one byte per level and sample)."""
 
     @staticmethod
     def forward(ctx, x, log2_c, inv_scales, mm, dm, direct):
-        ctx.save_for_backward(x)
         ctx.inv_scales = inv_scales
-        idx, bary = _lattice_levels(x, log2_c, inv_scales, mm, dm, direct)
+        idx, bary, rank = _lattice_levels(x, log2_c, inv_scales, mm, dm, direct)
+        ctx.save_for_backward(x)
+        ctx.rank = rank
         ctx.mark_non_differentiable(idx)
         return idx, bary
 
@@ -248,7 +290,7 @@ class _Lattice(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         dx = None
         if dbary is not None and ctx.needs_input_grad[0]:
-            dx = _lattice_levels_dx(x, ctx.inv_scales, dbary.to(x.dtype))
+            dx = _lattice_levels_dx(x, ctx.inv_scales, dbary.to(x.dtype), ctx.rank)
         return dx, None, None, None, None, None
 
 
@@ -338,7 +380,7 @@ def _encode_kernel():
     from . import _build
     fn = _build.load("permuto_encode").pagnerf_permuto_encode
     f32p, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [f32p] * 2 + [i32p] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [f32p] * 2 + [i32p] * 3
                    + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -346,20 +388,23 @@ def _encode_kernel():
 
 def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
                    st: LevelStatics, with_lattice: bool, packed: bool, kernel=None):
-    """One launch of the encode kernel -> (outs, idx, bary); idx and bary
-    are written only ``with_lattice``, else None. ``kernel``: another build
-    of the C entry ``pagnerf_permuto_encode`` (``profile_encode --parent``)."""
+    """One launch of the encode kernel -> (outs, idx, bary, rank); idx, bary
+    and the packed rank [L, N] uint8 (``pack_rank``) are written only
+    ``with_lattice``, else None. ``kernel``: another build of the C entry
+    ``pagnerf_permuto_encode`` with the same interface (``profile_encode
+    --parent``)."""
     l, c, f = tables[0].shape
     n = x.shape[1]
     dev = x.device
     outs = tuple(torch.empty((l, f, n), dtype=tables[0].dtype, device=dev)
                  for _ in tables)
-    idx = bary = None
+    idx = bary = rank = None
     if with_lattice:
         idx = torch.empty((l, _VERTS, n), dtype=torch.int32, device=dev)
         bary = torch.empty((l, _VERTS, n), dtype=torch.float32, device=dev)
+        rank = torch.empty((l, n), dtype=torch.uint8, device=dev)
     if n == 0:
-        return outs, idx, bary
+        return outs, idx, bary, rank
     if len(tables) == 1:
         layout, src = _LAYOUT_SINGLE, tables
     elif packed:
@@ -369,41 +414,42 @@ def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
     as_c = lambda a, t: (t * len(a))(*a)
     elev = np.asarray(_E, dtype=np.float32).reshape(-1)
     fn = kernel or _encode_kernel()
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), src[0].data_ptr(), src[-1].data_ptr(),
-                 outs[0].data_ptr(), outs[-1].data_ptr(),
-                 0 if idx is None else idx.data_ptr(),
-                 0 if bary is None else bary.data_ptr(),
+                 outs[0].data_ptr(), outs[-1].data_ptr(), ptr(idx), ptr(bary), ptr(rank),
                  as_c(elev, ctypes.c_float), as_c(st.inv_scales, ctypes.c_float),
                  as_c(st.mm, ctypes.c_int32), as_c(st.dm, ctypes.c_int32),
                  as_c(st.direct.astype(np.int32), ctypes.c_int32),
                  l, c, n, f, layout, table_gather._DTYPE_CODE[tables[0].dtype],
                  table_gather._stream(dev))
     table_gather._raise_on(err, "permuto_encode")
-    return outs, idx, bary
+    return outs, idx, bary, rank
 
 
 class _Encode(torch.autograd.Function):
     """Single or dual fused encode. Forward: the kernel on the card, the
-    plain lattice + gathers on the CPU; idx and bary are kept only when a
-    gradient will be asked for (``grad``: grad mode was on at the call).
-    Backward: the (dual) table-gradient scatter, then dbary from the A side
-    and ``_lattice_levels_dx`` for the coordinates."""
+    plain lattice + gathers on the CPU; idx, bary and the packed rank are
+    kept only when a gradient will be asked for (``grad``: grad mode was on
+    at the call). Backward: the (dual) table-gradient scatter, then dbary
+    from the A side and ``_lattice_levels_dx`` on the forward's rank for the
+    coordinates."""
 
     @staticmethod
     def forward(ctx, x, st, grad, *tables):
         keep = grad and any(ctx.needs_input_grad)
         if x.device.type == "cpu":
-            idx, bary = _lattice_levels(x, st.log2_c, st.inv_scales, st.mm, st.dm,
-                                        st.direct)
+            idx, bary, rank = _lattice_levels(x, st.log2_c, st.inv_scales, st.mm,
+                                              st.dm, st.direct)
             w = bary.to(tables[0].dtype)
             outs = tuple(table_gather.multilevel_gather_plain(t, idx, w) for t in tables)
         else:
-            outs, idx, bary = _launch_encode(x, tables, st, keep, packed=True)
+            outs, idx, bary, rank = _launch_encode(x, tables, st, keep, packed=True)
             wrapper = fused_encode if len(tables) == 1 else fused_encode_dual
             wrapper.launches += 1
         if keep:
             ctx.save_for_backward(x, idx, bary, tables[0])
+            ctx.rank = rank
             ctx.st = st
             ctx.dtypes = tuple(t.dtype for t in tables)
         return outs
@@ -430,7 +476,8 @@ class _Encode(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dbary = table_gather.multilevel_gather_dbary(table_a.float().contiguous(),
                                                          idx, gs[0])
-            dx = _lattice_levels_dx(x, st.inv_scales, dbary.to(table_a.dtype).float())
+            dx = _lattice_levels_dx(x, st.inv_scales, dbary.to(table_a.dtype).float(),
+                                    ctx.rank)
         return (dx, None, None, *dtables)
 
 

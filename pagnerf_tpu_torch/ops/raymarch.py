@@ -1,14 +1,20 @@
 """Ray marching against the occupancy grid, dense ``[rays, steps]`` layout
 (counterpart of ``pagnerf_tpu/ops/raymarch.py``).
 
-Ported: the 'ray' mode, with midpoint samples (a render) or stratified
-jitter (training: the JAX package's ``key``, here an explicit ``jitter``
-tensor ``[R, S]`` of uniforms in [0, 1) or a ``torch.Generator`` to draw one
-from). The 'voxel' mode and sample compaction are not ported yet.
+Both march modes, with midpoint samples (a render) or stratified jitter
+(training: the JAX package's ``key``, here an explicit ``jitter`` tensor
+``[R, S]`` of uniforms in [0, 1) or a ``torch.Generator`` to draw one from):
+'ray' spreads the samples over each ray's AABB interval; 'voxel' (after the
+prune) probes for the first occupied cell and refits the samples to the
+``ray_max_travel`` span behind it. ``compact_samples`` is the per-ray
+compacted layout. The JAX package's two-stage windowed probe
+(``PAGNERF_WINDOWED_PROBE``, off by default there) is not ported: the voxel
+mode here is its default single-stage probe.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
@@ -66,22 +72,65 @@ def _uniform_samples(t0: torch.Tensor, t1: torch.Tensor, num_steps: int,
     return depths, step.expand_as(depths)
 
 
+_BIG = 1e10
+
+
 def raymarch(rays: Rays, occ: OccupancyGrid, num_steps: int,
-             raymarch_type: str = "ray", jitter: Jitter = None) -> RaymarchResult:
-    """'ray' mode: ``num_steps`` samples in each ray's AABB interval (midpoints,
-    or stratified by ``jitter``), masked by occupancy and by the AABB hit."""
-    if raymarch_type != "ray":
-        raise NotImplementedError(
-            f"raymarch_type={raymarch_type!r} is not ported yet (only 'ray')")
+             raymarch_type: str = "ray", jitter: Jitter = None,
+             ray_max_travel: float = float("inf")) -> RaymarchResult:
+    """'ray' mode: ``num_steps`` samples in each ray's AABB interval
+    (midpoints, or stratified by ``jitter``), masked by occupancy and by the
+    AABB hit. 'voxel' mode: ``ceil(sqrt(3) res)`` midpoint probes of the
+    interval find each ray's first occupied cell; the interval then starts
+    one probe step before it and ends ``ray_max_travel`` later (or at the
+    AABB exit), and the samples are spread over that; a ray whose probes
+    hit nothing keeps its interval."""
+    if raymarch_type not in ("ray", "voxel"):
+        raise ValueError(f"raymarch_type must be 'ray' or 'voxel', got {raymarch_type!r}")
     t_near, t_far, hit_aabb = aabb_intersect(rays)
     dist_min = torch.as_tensor(rays.dist_min, dtype=torch.float32, device=t_near.device)
     dist_max = torch.as_tensor(rays.dist_max, dtype=torch.float32, device=t_near.device)
     t0 = torch.maximum(t_near, dist_min)
     t1 = torch.maximum(torch.minimum(t_far, dist_max), t0)
+    oT, dT = rays.origins.T, rays.dirs.T
+
+    def positions_at(depths):
+        return oT[:, :, None] + dT[:, :, None] * depths[None, :, :]   # [3, R, S]
+
+    if raymarch_type == "voxel":
+        # probes one cell apart on the longest diagonal, so a one-cell wall
+        # cannot fall between two of them
+        probe_n = int(math.ceil(math.sqrt(3.0) * occ.res))
+        probe_depths, _ = _uniform_samples(t0, t1, probe_n)
+        probe_occ = occ.occupied_at_T(positions_at(probe_depths))
+        first = torch.amin(torch.where(probe_occ, probe_depths, _BIG), dim=-1)
+        has_hit = first < _BIG
+        # back off one probe step: the occupied cell's front face lies up to
+        # a step before its probe
+        first = torch.maximum(first - (t1 - t0) / probe_n, t0)
+        t0 = torch.where(has_hit, first, t0)
+        if ray_max_travel != float("inf"):
+            t1 = torch.where(has_hit, torch.minimum(t0 + ray_max_travel, t1), t1)
 
     depths, deltas = _uniform_samples(t0, t1, num_steps, jitter)
-    oT, dT = rays.origins.T, rays.dirs.T
-    positionsT = oT[:, :, None] + dT[:, :, None] * depths[None, :, :]   # [3, R, S]
+    positionsT = positions_at(depths)
     mask = occ.occupied_at_T(positionsT) & hit_aabb[:, None]
     return RaymarchResult(positionsT=positionsT, depths=depths, deltas=deltas,
                           mask=mask, t0=t0, span=t1 - t0)
+
+
+def compact_samples(rm: RaymarchResult, keep_steps: int) -> RaymarchResult:
+    """Per-ray compaction: each ray's samples stably sorted valid first
+    (depth order kept among the valid) and cut to ``keep_steps``; a ray with
+    more valid samples loses its deepest ones. A no-op for ``keep_steps``
+    <= 0 or >= S."""
+    if keep_steps <= 0 or keep_steps >= rm.depths.shape[-1]:
+        return rm
+    key = (~rm.mask).to(torch.int32)
+    _, order = torch.sort(key, dim=-1, stable=True)
+    order = order[:, :keep_steps]
+    take = lambda a: torch.gather(a, -1, order)
+    return RaymarchResult(
+        positionsT=torch.stack([take(p) for p in rm.positionsT]),
+        depths=take(rm.depths), deltas=take(rm.deltas), mask=take(rm.mask),
+        t0=rm.t0, span=rm.span)

@@ -53,6 +53,49 @@ def elevate_fma_chain(e: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return (e[:, 2:3].double() * s[2:3].double() + acc.double()).float()
 
 
+def kernel_order_rank(x: torch.Tensor, inv_scales) -> torch.Tensor:
+    """The packed rank [L, N] (``permuto_encoding.pack_rank``) of coords x
+    [3, N] with el rounded in the fused encode's order
+    (``elevate_as_kernel``)."""
+    e = torch.as_tensor(pe._E, dtype=torch.float32, device=x.device)
+    return torch.stack([pe.pack_rank(pe._rank_from_el(elevate_as_kernel(
+        e, x * torch.tensor(inv_s, device=x.device)))[1]) for inv_s in inv_scales])
+
+
+def backward_rank_check(table: torch.Tensor, x: torch.Tensor, scales,
+                        g: torch.Tensor) -> dict:
+    """The fused encode's coordinate gradient (tables [L, C, F], x [3, N],
+    cotangent g [L, F, N]) against ``_lattice_levels_dx`` of the same dbary
+    on the rank of ``kernel_order_rank``, and how the rank and dx of a
+    recomputation through the card's ``E @ s`` (cuBLAS, which picks its
+    rounding order by N) would differ: dx max error over the largest |dx|,
+    and rank entries that differ. Launches the encode, dbary and scatter
+    kernels once each."""
+    from .ops import table_gather as tg
+    st = pe.level_statics(scales, table.shape[1], table.shape[2])
+    xx = x.detach().clone().requires_grad_()
+    out = pe.fused_encode(table.detach(), xx, scales)
+    _, idx, _, _ = out.grad_fn.saved_tensors
+    kept = out.grad_fn.rank
+    out.backward(g)
+    dbary = tg.multilevel_gather_dbary(table.detach().float().contiguous(), idx, g)
+    dbary = dbary.to(table.dtype).float()
+    ordered = kernel_order_rank(x, st.inv_scales)
+    cublas = torch.stack([pe.pack_rank(pe._rank_and_el(x * torch.tensor(s, device=x.device))[2])
+                          for s in st.inv_scales])
+    dx_max = float(xx.grad.abs().max())
+    with torch.no_grad():
+        ref = pe._lattice_levels_dx(x, st.inv_scales, dbary, ordered)
+        recomputed = pe._lattice_levels_dx(x, st.inv_scales, dbary, cublas)
+    return {"N": x.shape[1], "dx_max": dx_max,
+            "dx_err_over_max": float((xx.grad - ref).abs().max()) / dx_max,
+            "dx_bit_equal": torch.equal(xx.grad, ref),
+            "rank_kept_vs_kernel_order_mismatches": int((kept != ordered).sum()),
+            "rank_cublas_mismatches": int((cublas != ordered).sum()),
+            "dx_cublas_rank_err_over_max": float((recomputed - ref).abs().max()) / dx_max,
+            "rank_entries": ordered.numel()}
+
+
 def bit_equal_share(a: torch.Tensor, b: torch.Tensor) -> float:
     """Share of entries of two float32 tensors that are equal bit for bit."""
     return (a.view(torch.int32) == b.view(torch.int32)).float().mean().item()
@@ -131,8 +174,8 @@ def compare_parent(spec, x, flush, parent) -> dict:
                                                   parent if k == "parent" else None))
                 for k in ("parent", "this")}
         got = {k: fn() for k, fn in runs.items()}
-        outs_p, idx_p, bary_p = got["parent"]
-        outs_t, idx_t, bary_t = got["this"]
+        outs_p, idx_p, bary_p = got["parent"][:3]
+        outs_t, idx_t, bary_t = got["this"][:3]
         equal = all(torch.equal(a, b) for a, b in zip(outs_p, outs_t))
         if lattice:
             equal = equal and torch.equal(idx_p, idx_t) and bit_equal_share(bary_p, bary_t) == 1.0
@@ -169,7 +212,7 @@ def main() -> None:
             el = e @ s
             kernel_order.append(bit_equal_share(elevate_as_kernel(e, s), el))
             fma_chain.append(bit_equal_share(elevate_fma_chain(e, s), el))
-        _, idx, bary = pe._launch_encode(x, (table,), st, True, False)
+        _, idx, bary, _ = pe._launch_encode(x, (table,), st, True, False)
         idx_p, bary_p = pe.lattice(table, x, spec.scales)
         print(json.dumps({
             "card": card, "N": n, "el_share_kernel_order": kernel_order,

@@ -1,18 +1,21 @@
 """Where the flagship training step's time goes, on the CUDA card.
 
-    python -m pagnerf_tpu_torch.profile_train [rgb|panoptic]
+    python -m pagnerf_tpu_torch.profile_train [rgb|panoptic|post_prune]
 
-Prints one JSON object for one stage (default: both, one object each): the
-wall time of a whole step and of one microbatch's forward + backward (host
-clock around synchronised calls, median of 3 after a warm-up), the device
-time of each part of a microbatch run on its own at the flagship training
-shapes (CUDA events, median of 5: ray transform + march, lattice + gather
-(the fused encode, writing idx/bary for the backward), decoders forward +
-backward, table-gradient scatter, dbary, lattice backward, optimizer
-update), the host time of the assignment solve,
-and the top device kernels of one profiled microbatch with their summed
-device time (``torch.profiler``; "not measured" if it reports none).
-The microbatch is one non-anchor camera: 4096 rays x 512 steps.
+Prints one JSON object for one stage (default: all three, one object each):
+the wall time of a whole step and of one microbatch's forward + backward
+(host clock around synchronised calls, median of 3 after a warm-up), the
+device time of each part of a microbatch run on its own at the stage's
+shapes (CUDA events, median of 5: ray transform + march (+ packing), lattice
++ gather (the fused encode, writing idx/bary for the backward), decoders
+forward + backward, table-gradient scatter, dbary, lattice backward,
+optimizer update), the host time of the assignment solve, and the top
+device kernels of one profiled microbatch with their summed device time
+(``torch.profiler``; "not measured" if it reports none). The microbatch is
+one non-anchor camera's 4096 rays: 512 dense steps in the pre-prune stages
+('rgb', 'panoptic' at epoch 2); for 'post_prune', the first panoptic stage
+past ``train_flagship_schedule``'s prune and scene fixture (epoch 601): the
+voxel march's 256 steps packed into pack_steps x 4096 samples.
 """
 from __future__ import annotations
 
@@ -26,10 +29,13 @@ import numpy as np
 import torch
 
 from .core.rays import Rays
-from .entry import train_flagship
+from .entry import post_prune_epochs, train_flagship, train_flagship_schedule
 from .ops import permuto_encoding, table_gather
 from .ops.assignment import lap_assign
+from .ops.packed import pack_samples, segment_broadcast
 from .ops.raymarch import raymarch
+
+STAGES = ("rgb", "panoptic", "post_prune")
 
 
 def _event_ms(fn, reps: int = 5) -> float:
@@ -59,9 +65,13 @@ def _wall_ms(fn, reps: int = 3) -> float:
 
 
 def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
-    trainer, _ = train_flagship(stage_name, steps=0, device=device)
+    if stage_name == "post_prune":
+        trainer, _ = train_flagship_schedule(steps=0, val_pose_steps=0, device=device)
+        stage = trainer.stage_for_epoch(post_prune_epochs(trainer, 1, 0)[0])
+    else:
+        trainer, _ = train_flagship(stage_name, steps=0, device=device)
+        stage = trainer.stage_for_epoch(2 if stage_name == "panoptic" else 0)
     pipe, nef, cfg = trainer.pipeline, trainer.pipeline.nef, trainer.cfg
-    stage = trainer.stage_for_epoch(2 if stage_name == "panoptic" else 0)
     batch = trainer.dataset.sample_batch(np.random.default_rng(0), cfg.batch_size,
                                          cfg.num_rays_sampled_per_img)
     anchor = pipe.anchor_mask.cpu().numpy()
@@ -86,19 +96,31 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
     base = Rays(origins=torch.as_tensor(sub["base_rays_origins"], device=device),
                 dirs=torch.as_tensor(sub["base_rays_dirs"], device=device),
                 dist_min=0.0, dist_max=6.0)
+    travel = pipe.tracer_cfg.ray_max_travel
     with torch.no_grad():
-        march = lambda: raymarch(pipe.transform_rays(base, cam), trainer.occ, s,
-                                 jitter=jitter)
-        rm = march()
-        x = rm.positionsT.reshape(3, r * s).contiguous()
-        ray_dT = pipe.transform_rays(base, cam).dirs.T[:, :, None] \
-            .expand(3, r, s).reshape(3, r * s)
+        rays = pipe.transform_rays(base, cam)
+        if stage.pack_steps:
+            def march():
+                rays = pipe.transform_rays(base, cam)
+                rm = raymarch(rays, trainer.occ, s, stage.raymarch_type, jitter, travel)
+                return pack_samples(rm, rays.origins.T, rays.dirs.T, stage.pack_steps * r)
+            ps = march()
+            x = ps.positionsT.contiguous()
+            ray_dT = segment_broadcast(rays.dirs.T, ps.ray_id, ps.offsets)
+            packed_used = int(ps.offsets[-1])
+        else:
+            march = lambda: raymarch(pipe.transform_rays(base, cam), trainer.occ, s,
+                                     stage.raymarch_type, jitter, travel)
+            x = march().positionsT.reshape(3, r * s).contiguous()
+            ray_dT = rays.dirs.T[:, :, None].expand(3, r, s).reshape(3, r * s)
+            packed_used = None
+        n = x.shape[1]
         ta, tb = nef.grid.tables.detach(), nef.delta_grid.tables.detach()
         st = permuto_encoding.level_statics(spec.scales, spec.capacity, spec.feature_dim)
         tables = (ta, tb) if dual else (ta,)
         encode = lambda: permuto_encoding._launch_encode(x, tables, st, True, True)
-        outs, idx, bary = encode()
-        fa = outs[0].reshape(-1, r * s)
+        outs, idx, bary, rank = encode()
+        fa = outs[0].reshape(-1, n)
 
     feats = fa.clone().requires_grad_()
 
@@ -111,7 +133,7 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
             outs += [nef._semantics(panop), nef._inst(panop)]
         sum(o.float().sum() for o in outs).backward()
         return feats.grad
-    g = decoders().reshape(spec.num_levels, spec.feature_dim, r * s).contiguous()
+    g = decoders().reshape(spec.num_levels, spec.feature_dim, n).contiguous()
     c = spec.capacity
     plan = (st.rows_used, st.modes)
     if dual:
@@ -120,7 +142,8 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
         scatter = lambda: table_gather.multilevel_table_grad(idx, bary, g, c, *plan)
     dbary_fn = lambda: table_gather.multilevel_gather_dbary(ta, idx, g)
     dbary = dbary_fn()
-    lattice_bwd = lambda: permuto_encoding._lattice_levels_dx(x, st.inv_scales, dbary)
+    lattice_bwd = lambda: permuto_encoding._lattice_levels_dx(x, st.inv_scales, dbary,
+                                                                   rank)
     stages = {"march": _event_ms(march), "lattice_gather": _event_ms(encode),
               "decoders_fwd_bwd": _event_ms(decoders),
               "scatter": _event_ms(scatter), "dbary": _event_ms(dbary_fn),
@@ -148,7 +171,10 @@ def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
     device_ms = sum(row[0] for row in rows)
     result = {
         "card": card, "stage": stage_name, "channels": sorted(stage.channels),
-        "rays_per_microbatch": r, "steps": s, "samples": r * s,
+        "rays_per_microbatch": r, "steps": s, "samples": n,
+        "raymarch_type": stage.raymarch_type, "pack_steps": stage.pack_steps,
+        "occupied_share": trainer._occ_frac if trainer._pruned else None,
+        "packed_used": packed_used,
         "microbatches_per_step": b, "step_wall_ms": step_ms,
         "rays_per_s": b * r / (step_ms / 1e3),
         "microbatch_wall_ms": micro_ms, "part_ms": stages,
@@ -170,7 +196,9 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=20, check=True).stdout.strip()
-    for stage_name in (sys.argv[1:] or ["rgb", "panoptic"]):
+    for stage_name in (sys.argv[1:] or STAGES):
+        if stage_name not in STAGES:
+            raise SystemExit(f"profile_train: stage must be one of {STAGES}")
         torch.cuda.reset_peak_memory_stats()
         print(json.dumps(profile_stage(stage_name, card)), flush=True)
 

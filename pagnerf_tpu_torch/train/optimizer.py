@@ -138,6 +138,14 @@ class MaskedAdam:
             self.mu[n], self.nu[n] = mu, nu
         return True
 
+    def reset_moments(self) -> None:
+        """Zero every Adam moment and keep each group's count, as the JAX
+        trainer's ``_reinit_opt_state`` does after a prune: a fresh optimizer
+        would restart the counts, and with them any schedule read from them."""
+        for n in self.params:
+            self.mu[n] = torch.zeros_like(self.mu[n])
+            self.nu[n] = torch.zeros_like(self.nu[n])
+
     def state(self) -> Dict:
         """Counts and moments (for tests and checkpoints)."""
         return {"count": dict(self.count), "mu": self.mu, "nu": self.nu}

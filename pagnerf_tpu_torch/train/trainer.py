@@ -4,29 +4,34 @@ The step is the JAX package's host-loop microbatch accumulation: the batch is
 cut into image microbatches; for each, the losses go through one forward and
 one backward (gradients add into ``.grad`` in microbatch order), then the
 summed gradients are scaled by ``1 / num_micro`` and the masked Adam update
-runs once. Per-microbatch stratified jitter is drawn from the trainer's
-``torch.Generator``, or handed in (``jitters``) so a test can give the port
-the very numbers the JAX step drew from its key.
+runs once. Random draws -- each microbatch's stratified jitter, each prune
+sample's cell jitter -- come from ``draw(shape)``: by default uniforms from
+the trainer's ``torch.Generator``; a test hands in a ``draw`` that repeats
+the JAX trainer's key stream, or gives ``train_step`` its ``jitters``.
 
-On the card each microbatch runs the table gather forward kernel (single in
-an RGB stage, dual once the panoptic heads render), its table-gradient
-scatter kernel, and -- for a camera that is not an anchor frame -- the
-``dbary`` kernel that carries the pose gradient (``ops/table_gather.py``).
+On the card each microbatch runs the fused encode kernel (single in an RGB
+stage, dual once the panoptic heads render), its table-gradient scatter
+kernel, and -- for a camera that is not an anchor frame -- the ``dbary``
+kernel that carries the pose gradient (``ops/table_gather.py``); the prune's
+density pass runs the single encode without a gradient.
 
 Ported: ``TrainerConfig``, ``StageConfig`` and ``snap_microbatch`` with the
-JAX package's names and defaults; ``stage_for_epoch``; the losses of the
-RGB, semantic and ``linear_assignment_things`` heads (with the repeated-ID
-rejection and the segment-consistency regulariser); ``train_step``. Not
-ported yet, and refused by ``stage_for_epoch``: the voxel march, the packed
-and compacted sample layouts, prune and seed prune, val-pose epochs, the TV
-regularisers, ``sup_contrastive`` and the plain linear-assignment loss, LoD
-annealing and random LoD, the fused micro-step. Checkpoints and validation
-are not ported either.
+JAX package's names and defaults; ``stage_for_epoch`` with the voxel march,
+the packed and compacted layouts after a prune and the val-pose epochs; the
+losses of the RGB, semantic and ``linear_assignment_things`` heads (with the
+repeated-ID rejection and the segment-consistency regulariser);
+``train_step``; ``prune`` (real and seed), ``should_prune``,
+``maybe_seed_prune``, ``run_epoch`` and ``train``. ``run_epoch`` reads each
+step's losses back before the next step (the JAX package's
+``dispatch_ahead`` is not ported). Not ported yet, and refused by
+``stage_for_epoch``: the TV regularisers, ``sup_contrastive`` and the plain
+linear-assignment loss, LoD annealing and random LoD, the fused micro-step;
+TensoRF upsampling, checkpoints and validation are not ported either.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -150,14 +155,20 @@ class StageConfig:
     extrinsics_on: bool
 
 
+Draw = Callable[[Sequence[int]], torch.Tensor]
+
+
 class PanopticTrainer:
     """Trainer over a (BA)Pipeline and a MultiviewDataset; the pipeline's
-    parameters must require grad and live on the trainer's device."""
+    parameters must require grad and live on the trainer's device.
+    ``draw(shape)`` returns float32 uniforms in [0, 1) on that device for
+    every random draw of training and pruning (default: the trainer's
+    generator)."""
 
     def __init__(self, pipeline: Pipeline, dataset: MultiviewDataset,
                  cfg: TrainerConfig = TrainerConfig(),
                  opt_cfg: OptimizerConfig = OptimizerConfig(),
-                 occ_level: int = 7):
+                 occ_level: int = 7, draw: Optional[Draw] = None):
         self.pipeline = pipeline
         self.dataset = dataset
         self.cfg = cfg
@@ -169,6 +180,8 @@ class PanopticTrainer:
             pipeline, BAPipeline) else next(pipeline.parameters()).device
         self.rng = np.random.default_rng(cfg.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.draw = draw or (lambda shape: torch.rand(
+            tuple(shape), generator=self.generator, device=self.device))
         self.params = dict(pipeline.named_parameters())
         self.opt = MaskedAdam(self.opt_cfg, self.params)
         self.occ = OccupancyGrid.create(level=occ_level, device=self.device)
@@ -177,6 +190,13 @@ class PanopticTrainer:
             nef.grid_cfg.num_lods, nef.grid_cfg.feature_dim)).to(self.device)
         self.epoch = 0
         self.global_step = 0
+        self.log_dict: Dict[str, float] = {}
+        # set by ``prune``: a prune has run (the packed or compacted layout
+        # may follow), a real one has (seed refreshes stop), and the share of
+        # occupied cells it left (the JAX package reads 0.25 before any)
+        self._pruned = False
+        self._real_pruned = False
+        self._occ_frac = 0.25
 
         si = dataset.semantic_info
         self.num_classes = si["num_classes"]
@@ -208,14 +228,7 @@ class PanopticTrainer:
             channels.add("inst_embedding")
         if cfg.inst_outlier_rejection and use_inst:
             channels.add("depth")
-        voxel = epoch > cfg.voxel_raymarch_epoch_start
-        pruned = ((cfg.prune_every > 0 and epoch >= cfg.prune_every)
-                  or 0 <= cfg.prune_at_epoch <= epoch or cfg.prune_at_start
-                  or 0 <= cfg.seed_prune_epoch <= epoch)
         unported = {
-            "voxel raymarch": voxel,
-            "prune / packed or compacted layout": pruned,
-            "val-pose epochs": training_val_poses,
             "grid TV regularisers": (cfg.grid_tvl1_reg > 0 or cfg.grid_tvl2_reg > 0
                                      or cfg.delta_grid_tvl1_reg > 0
                                      or cfg.delta_grid_tvl2_reg > 0),
@@ -230,13 +243,37 @@ class PanopticTrainer:
             raise NotImplementedError(
                 f"the training stage at epoch {epoch} needs parts not ported yet: "
                 f"{asked}")
+        voxel = epoch > cfg.voxel_raymarch_epoch_start
         base = self.pipeline.tracer_cfg
+        if voxel:
+            # samples_per_voxel per cell over the ray_max_travel span the
+            # voxel march refits into (cells 2 / res wide): 256 at the defaults
+            travel = min(base.ray_max_travel, 2.0)
+            num_steps = max(1, int(round(cfg.samples_per_voxel * travel * self.occ.res / 2.0)))
+        else:
+            num_steps = base.num_steps
+        compact = pack = 0
+        if self._pruned and cfg.packed_compaction:
+            # budget per ray: the batch's mean valid count (the occupied
+            # share) with a 15% margin, a multiple of 8
+            pack = max(8, int(np.ceil(1.15 * self._occ_frac * num_steps / 8.0)) * 8)
+            if pack >= num_steps:
+                pack = 0             # a dense field: packing would not help
+        if pack == 0 and self._pruned and cfg.compact_steps_after_prune != 0:
+            if cfg.compact_steps_after_prune > 0:
+                compact = cfg.compact_steps_after_prune
+            else:
+                # twice the occupied share, at least S / 4, a multiple of 16
+                want = int(np.ceil(2.0 * self._occ_frac * num_steps / 16.0)) * 16
+                compact = min(num_steps, max(num_steps // 4, want))
+                if compact >= num_steps:
+                    compact = 0
         return StageConfig(
             channels=frozenset(channels),
-            raymarch_type=base.raymarch_type,
-            num_steps=base.num_steps,
-            compact_steps=0,
-            pack_steps=0,
+            raymarch_type="voxel" if voxel else base.raymarch_type,
+            num_steps=num_steps,
+            compact_steps=compact,
+            pack_steps=pack,
             use_sem=use_sem,
             use_inst=use_inst,
             # the JAX package reproduces a reference quirk: the threshold is
@@ -342,10 +379,12 @@ class PanopticTrainer:
         return subs
 
     def _backward(self, sub: Dict[str, np.ndarray], stage: StageConfig, jitter):
-        """Forward + backward of one microbatch; gradients add into .grad."""
-        total, losses = self.compute_losses(self._to_device(sub), stage,
-                                            self.generator if jitter is None
-                                            else jitter)
+        """Forward + backward of one microbatch; gradients add into .grad.
+        Without ``jitter`` the microbatch's [rays, steps] uniforms are drawn."""
+        if jitter is None:
+            rays = sub["imgs"].shape[0] * sub["imgs"].shape[1]
+            jitter = self.draw((rays, stage.num_steps))
+        total, losses = self.compute_losses(self._to_device(sub), stage, jitter)
         total.backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -384,3 +423,96 @@ class PanopticTrainer:
         self.opt.update(grads, self.frozen_fn(stage), self.opt_cfg.clip_grad_norm)
         self.global_step += 1
         return {k: v / num_micro for k, v in acc_l.items()}
+
+    # -------------------------------------------------------------- prune
+    @torch.no_grad()
+    def prune(self, chunk: int = 65536, seed: bool = False,
+              keep_frac: Optional[float] = None, refresh: bool = False) -> None:
+        """Occupancy maintenance (the JAX package's ``prune``): each cell's
+        density is the max over ``prune_samples_per_cell`` jittered points
+        (one ``draw`` of [3, res^3] each), queried in chunks of ``chunk``
+        points; the occupancy is updated from it (decay, threshold, AND with
+        the current mask when ``prune_monotone``, ``prune_dilate`` dilations).
+
+        ``seed=True`` is the conservative early variant: one more dilation,
+        a keep floor of the ``keep_frac`` (default ``seed_keep_frac``)
+        densest cells when fewer are occupied, and no optimizer reset. The
+        floor repeats the JAX package's dtypes: a float64 numpy quantile of
+        the occupancy, one float64 step down, then the float32 comparison.
+        ``refresh=True`` (a seed refresh) does not dilate. A real prune
+        resets the Adam moments and keeps the counts."""
+        cfg = self.cfg
+        res3 = self.occ.res ** 3
+        density = None
+        for _ in range(max(1, cfg.prune_samples_per_cell)):
+            centersT = self.occ.cell_centers_jittered_T(self.draw((3, res3)))
+            d = torch.cat([self.pipeline.query_density(centersT[:, i:i + chunk], self.lod_w)
+                           for i in range(0, res3, chunk)])
+            density = d if density is None else torch.maximum(density, d)
+        dilate = 0 if refresh else cfg.prune_dilate + (1 if seed else 0)
+        new_occ = self.occ.update_from_density(density, dilate=dilate,
+                                               monotone=cfg.prune_monotone)
+        if seed:
+            frac = float(new_occ.mask.float().mean())
+            keep = float(keep_frac if keep_frac is not None else cfg.seed_keep_frac)
+            if frac < keep:
+                thr = float(np.quantile(new_occ.occupancy.cpu().numpy(), 1.0 - keep))
+                thr = float(np.nextafter(thr, -np.inf))
+                new_occ = new_occ.update_from_density(new_occ.occupancy, decay=1.0,
+                                                      min_density=thr, dilate=dilate)
+        self.occ = new_occ
+        self._pruned = True
+        self._occ_frac = float(self.occ.mask.float().mean())
+        if not seed:
+            self.opt.reset_moments()
+            self._real_pruned = True
+
+    # -------------------------------------------------------------- epochs
+    def should_prune(self, epoch: int) -> bool:
+        cfg = self.cfg
+        return ((cfg.prune_every > 0 and epoch > 0 and epoch % cfg.prune_every == 0)
+                or epoch == cfg.prune_at_epoch
+                or (cfg.prune_at_start and epoch == 0))
+
+    def maybe_seed_prune(self, epoch: int) -> None:
+        """The seed prune at ``seed_prune_epoch``, then a seed refresh every
+        ``seed_refresh_every`` epochs until the real prune has run."""
+        cfg = self.cfg
+        if cfg.seed_prune_epoch < 0:
+            return
+        if epoch >= cfg.seed_prune_epoch and not self._pruned:
+            self.prune(seed=True)
+        elif (cfg.seed_refresh_every > 0 and self._pruned and not self._real_pruned
+              and epoch > cfg.seed_prune_epoch
+              and (epoch - cfg.seed_prune_epoch) % cfg.seed_refresh_every == 0):
+            self.prune(seed=True, keep_frac=cfg.seed_refresh_keep_frac, refresh=True)
+
+    def run_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch: the seed prune if due, ``steps_per_epoch`` steps of the
+        epoch's stage (a val-pose stage samples the 'val' split), then the
+        prune if due. Returns the epoch's mean losses; each step's losses are
+        read back before the next step starts."""
+        cfg = self.cfg
+        self.maybe_seed_prune(epoch)
+        stage = self.stage_for_epoch(epoch)
+        split = "val" if stage.training_val_poses else "train"
+        totals: Dict[str, float] = {}
+        for _ in range(self.steps_per_epoch):
+            batch = self.dataset.sample_batch(self.rng, cfg.batch_size,
+                                              cfg.num_rays_sampled_per_img, split)
+            for k, v in self.train_step(stage, batch).items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+        totals = {k: v / self.steps_per_epoch for k, v in totals.items()}
+        if self.should_prune(epoch):
+            self.prune()
+        self.epoch = epoch + 1
+        self.log_dict = totals
+        return totals
+
+    def train(self, on_epoch_end=None) -> None:
+        """``run_epoch`` from the current epoch to ``cfg.epochs``;
+        ``on_epoch_end(epoch, losses)`` after each."""
+        for epoch in range(self.epoch, self.cfg.epochs):
+            totals = self.run_epoch(epoch)
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, totals)

@@ -316,11 +316,11 @@ def _assert_encode_matches_plain(spec, x, ta, tb, dtype, same_el_order):
     ulp of el of 0. Where the orders agree (``same_el_order``), idx is
     equal on all but 1e-6 of the entries."""
     st = pe.level_statics(spec.scales, spec.capacity, spec.feature_dim)
-    (single,), idx, bary = pe._launch_encode(x, (ta,), st, True, False)
-    (oa, ob), idx_d, bary_d = pe._launch_encode(x, (ta, tb), st, True, True)
-    (oa2, ob2), none_i, none_b = pe._launch_encode(x, (ta, tb), st, False, False)
+    (single,), idx, bary, rank = pe._launch_encode(x, (ta,), st, True, False)
+    (oa, ob), idx_d, bary_d, rank_d = pe._launch_encode(x, (ta, tb), st, True, True)
+    (oa2, ob2), none_i, none_b, none_r = pe._launch_encode(x, (ta, tb), st, False, False)
     torch.cuda.synchronize()
-    assert none_i is None and none_b is None
+    assert none_i is None and none_b is None and none_r is None
     idx_p, bary_p = pe.lattice(ta, x, spec.scales)
     ulps = _el_ulps(spec, x)
     bad = idx != idx_p
@@ -335,7 +335,7 @@ def _assert_encode_matches_plain(spec, x, ta, tb, dtype, same_el_order):
             assert float((got[lv].float() - want[lv].float()).abs().max()) <= tol, lv
     assert torch.equal(single, oa)
     assert torch.equal(oa, oa2) and torch.equal(ob, ob2)
-    assert torch.equal(idx_d, idx) and torch.equal(bary_d, bary)
+    assert torch.equal(idx_d, idx) and torch.equal(bary_d, bary) and torch.equal(rank_d, rank)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -372,7 +372,8 @@ def test_encode_gradients_match_plain_path(dev):
     st = pe.level_statics(spec.scales, spec.capacity, 2)
     for got, gg in ((a.grad, g_a), (b.grad, g_b)):
         _assert_scatter_close(got, idx, bary, gg, spec.capacity, st.rows_used)
-    dx = pe._lattice_levels_dx(x, st.inv_scales, tg.gather_dbary_plain(ta, idx, g_a))
+    dx = pe._lattice_levels_dx(x, st.inv_scales, tg.gather_dbary_plain(ta, idx, g_a),
+                               oa.grad_fn.rank)
     assert float((xx.grad - dx).abs().max()) <= 1e-5 * float(dx.abs().max())
 
 
@@ -394,3 +395,139 @@ def test_encode_launches_and_lattice_outputs(dev):
     assert {k: f.launches for k, f in tg.KERNELS.items()} == {
         "gather": 0, "dual_gather": 0, "table_grad": 1, "dual_table_grad": 0,
         "dbary": 0, "encode": 2, "dual_encode": 0}
+
+
+# ------------------------------------------------- the post-prune slice
+PACKED_B = 163840        # the post-prune microbatch: pack_steps 40 x 4096 rays
+
+
+@pytest.mark.parametrize("n", [32768, 65536, 131072])
+def test_encode_backward_on_the_forward_simplex(dev, n):
+    """At N where cuBLAS rounds E @ s in another order than the encode
+    kernel, the coordinate gradient is still formed on the rank the forward
+    kernel kept: bit-equal (or within 1e-6 of the largest |dx|) to
+    ``_lattice_levels_dx`` on the rank of ``elevate_as_kernel``."""
+    from pagnerf_tpu_torch.profile_encode import backward_rank_check
+    spec, x, ta, _ = _encode_case(dev, 2, n, torch.float32, levels=24, log2_c=18)
+    g = torch.randn((24, 2, n), generator=torch.Generator(device=dev).manual_seed(n),
+                    device=dev)
+    r = backward_rank_check(ta, x, spec.scales, g)
+    assert r["dx_bit_equal"] or r["dx_err_over_max"] <= 1e-6, r
+
+
+def test_encode_backward_unchanged_at_the_flagship_n(dev):
+    """At a training microbatch's N cuBLAS rounds el in the kernel's order:
+    the kept rank is the recomputed one, so dx is what it was."""
+    from pagnerf_tpu_torch.profile_encode import backward_rank_check
+    from pagnerf_tpu_torch.profile_scatter import training_coords
+    spec, x = training_coords(dev)
+    ta = torch.randn((24, spec.capacity, 2), generator=torch.Generator(device=dev)
+                     .manual_seed(0), device=dev)
+    g = torch.randn((24, 2, x.shape[1]), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    r = backward_rank_check(ta, x, spec.scales, g)
+    assert r["dx_bit_equal"] and r["rank_cublas_mismatches"] == 0, r
+    assert r["dx_cublas_rank_err_over_max"] == 0.0, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_kernel_matches_plain_at_packed_b(dev, dtype):
+    spec, x, ta, tb = _encode_case(dev, 2, PACKED_B, dtype, levels=24, log2_c=18)
+    _assert_encode_matches_plain(spec, x, ta, tb, dtype, False)
+
+
+def test_dual_scatter_matches_plain_at_packed_b(dev):
+    spec, x, ta, tb = _encode_case(dev, 2, PACKED_B, torch.float32, levels=24, log2_c=18)
+    st = pe.level_statics(spec.scales, spec.capacity, 2)
+    _, idx, bary, _ = pe._launch_encode(x, (ta, tb), st, True, True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g_a, g_b = (torch.randn((24, 2, PACKED_B), generator=gen, device=dev) for _ in range(2))
+    for ga, gb in ((g_a, g_b), (g_a.abs(), g_b.abs())):
+        da, db = tg.dual_multilevel_table_grad(idx, bary, ga, gb, spec.capacity,
+                                               st.rows_used, st.modes)
+        _assert_scatter_close(da, idx, bary, ga, spec.capacity, st.rows_used)
+        _assert_scatter_close(db, idx, bary, gb, spec.capacity, st.rows_used)
+
+
+def test_packed_trace_matches_dense_trace_on_card(dev):
+    """The tiny flagship on the card (float32 decoders): the packed trace of
+    a voxel march through an occupancy with empty space, with a budget that
+    covers every valid sample, equals the dense trace under the same jitter
+    (channels within 1e-5, gradients at rtol 1e-4 / atol 1e-6 of each
+    tensor's largest entry, the pose gradient within 1e-3 of its largest)."""
+    import dataclasses
+
+    from pagnerf_tpu_torch.core.rays import Rays
+    from pagnerf_tpu_torch.entry import flagship
+    from pagnerf_tpu_torch.ops.occupancy import OccupancyGrid
+    pipe, ds = flagship(tiny=True, device=dev, compute_dtype=torch.float32)
+    pipe.requires_grad_(True)
+    batch = ds.sample_batch(np.random.default_rng(2), 4, 48)
+    m = int(np.nonzero(batch["cam_idx"] != 0)[0][0])
+    base = Rays(origins=torch.from_numpy(batch["base_rays_origins"][m:m + 1]).to(dev),
+                dirs=torch.from_numpy(batch["base_rays_dirs"][m:m + 1]).to(dev),
+                dist_min=0.0, dist_max=6.0)
+    cam = torch.from_numpy(batch["cam_idx"][m:m + 1]).long().to(dev)
+    c = (torch.arange(8, device=dev) + 0.5) / 4 - 1
+    gx, gy, gz = torch.meshgrid(c, c, c, indexing="ij")
+    occ = OccupancyGrid(occupancy=torch.zeros(512, device=dev),
+                        mask=((gx ** 2 + gy ** 2 + gz ** 2) < 0.5).reshape(-1), level=3)
+    jitter = torch.rand((48, 16), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    dense = dataclasses.replace(pipe.tracer_cfg, raymarch_type="voxel", num_steps=16)
+    runs = []
+    for cfg in (dense, dataclasses.replace(dense, pack_steps=16)):
+        pipe.zero_grad(set_to_none=True)
+        rb = pipe(base, frozenset({"rgb", "depth", "semantics", "inst_embedding"}), occ,
+                  stage="train", cam_idx=cam, jitter=jitter, tracer_cfg=cfg)
+        outs = [rb.rgb, rb.depth, rb.semantics, rb.inst_embedding, rb.alpha]
+        sum(torch.sum(o ** 2) for o in outs).backward()
+        runs.append(([o.detach() for o in outs],
+                     {n: p.grad.clone() for n, p in pipe.named_parameters()
+                      if p.grad is not None}))
+    (out_d, g_d), (out_p, g_p) = runs
+    for a, b in zip(out_p, out_d):
+        assert float((a - b).abs().max()) <= 1e-5
+    for name, want in g_d.items():
+        if name == "extrinsics":
+            assert float((g_p[name] - want).abs().max()) <= 1e-3 * float(want.abs().max())
+            continue
+        atol = 1e-6 * max(1.0, float(want.abs().max()))
+        np.testing.assert_allclose(g_p[name].cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=atol, err_msg=name)
+
+
+def test_packed_backward_is_the_same_on_every_run(dev):
+    """The packed layout's gradients at the post-prune B, from a march with
+    empty rays (repeated segment boundaries), are bit-equal over repeats:
+    its prefix sums and boundary differences add in a fixed order."""
+    from pagnerf_tpu_torch.ops import packed as pk
+    from pagnerf_tpu_torch.ops.raymarch import RaymarchResult
+    r, s = 4096, 256
+
+    def grads():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        mask = torch.rand((r, s), generator=gen, device=dev) < 0.13
+        mask[::7] = False
+        t0 = torch.rand((r,), generator=gen, device=dev).requires_grad_()
+        span = (1 + torch.rand((r,), generator=gen, device=dev)).requires_grad_()
+        o, d = (torch.rand((3, r), generator=gen, device=dev).requires_grad_()
+                for _ in range(2))
+        u = (torch.arange(s, device=dev) + 0.5) / s
+        depths = t0.detach()[:, None] + u * span.detach()[:, None]
+        rm = RaymarchResult(positionsT=None, depths=depths, deltas=depths / s, mask=mask,
+                            t0=t0, span=span)
+        ps = pk.pack_samples(rm, o, d, PACKED_B)
+        tau = torch.rand((PACKED_B,), generator=gen, device=dev) * ps.positionsT.sum(0).abs()
+        w, alpha = pk.packed_integration_weights(tau, ps)
+        comp = pk.packed_composite(torch.rand((5, PACKED_B), generator=gen, device=dev)
+                                   * ps.depths[None], w, ps)
+        loss = ((comp * torch.randn(comp.shape, generator=gen, device=dev)).sum()
+                + (alpha * torch.randn(alpha.shape, generator=gen, device=dev)).sum())
+        return [t.detach() for t in (w, alpha, comp)], torch.autograd.grad(loss, (t0, span, o, d))
+
+    outs, ref = grads()
+    for _ in range(10):
+        o2, g2 = grads()
+        assert all(torch.equal(a, b) for a, b in zip(o2, outs))
+        assert all(torch.equal(a, b) for a, b in zip(g2, ref))

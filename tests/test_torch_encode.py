@@ -233,3 +233,28 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
             pe_t.fused_encode_dual(tables[0], tables[1], xb, scales)
         else:
             pe_t.fused_encode(tables[0], xb, scales)
+
+
+def test_rank_kept_for_the_backward_is_the_lattice_rank():
+    """The Function keeps the forward's rank, one byte per level and
+    sample (coordinate i's rank at bits 2i); on the CPU it is the plain
+    lattice's ``_rank_and_el`` rank, and the JAX package's, so dx formed on
+    it equals dx on a recomputed rank bit for bit."""
+    spec, ta, tb, x, ga, _ = _inputs(8, n=500)
+    a, b, xx = _t(ta, tb, x, grad=True)
+    oa, _ = pe_t.fused_encode_dual(a, b, xx, spec.scales)
+    rank = oa.grad_fn.rank
+    assert rank.dtype == torch.uint8 and rank.shape == (spec.num_levels, 500)
+    inv = (1.0 / np.asarray(spec.scales)).astype(np.float32)
+    for lv in range(spec.num_levels):
+        _, _, want = pe_t._rank_and_el(xx.detach() * torch.tensor(inv[lv]))
+        assert torch.equal(pe_t.unpack_rank(rank[lv]), want)
+        _, _, want_j = pe_j._rank_and_el(jnp.asarray(x) * inv[lv])
+        assert np.array_equal(want.numpy(), np.asarray(want_j))
+    assert torch.equal(pe_t.pack_rank(pe_t.unpack_rank(rank)), rank)
+    dbary = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(spec.num_levels, 4, 500)).astype(np.float32))
+    recomputed = pe_t.pack_rank(torch.stack([
+        pe_t._rank_and_el(xx.detach() * torch.tensor(s))[2] for s in inv]))
+    assert torch.equal(pe_t._lattice_levels_dx(xx.detach(), inv, dbary, rank),
+                       pe_t._lattice_levels_dx(xx.detach(), inv, dbary, recomputed))

@@ -95,6 +95,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.train_flagship(tiny=True, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.train_flagship_schedule(tiny=True, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         device.resolve_device()
     assert device.resolve_device("cpu") == torch.device("cpu")
 

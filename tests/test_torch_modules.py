@@ -72,10 +72,12 @@ def test_raymarch_matches_jax():
 
 
 def test_raymarch_refuses_unported_modes():
+    # 'voxel' is ported since (tests/test_torch_prune.py); a mode the JAX
+    # package does not have is refused
     o, d = _rays(4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         rm_t.raymarch(RaysT(torch.from_numpy(o), torch.from_numpy(d), 0.0, 6.0),
-                      OccT.create(level=3), 8, raymarch_type="voxel")
+                      OccT.create(level=3), 8, raymarch_type="octree")
 
 
 def test_composite_matches_jax():

@@ -138,9 +138,9 @@ def test_stage_for_epoch_refuses_unported_parts():
     pipe.requires_grad_(True)
     rgb = PanopticTrainer(pipe, ds, TrainerConfig())
     rgb.stage_for_epoch(0)
-    for epoch in (10, 202):               # val-pose epoch; voxel march + prune
-        with pytest.raises(NotImplementedError):
-            rgb.stage_for_epoch(epoch)
+    # ported since: the val-pose epoch and the voxel march after the prune
+    assert rgb.stage_for_epoch(10).training_val_poses
+    assert rgb.stage_for_epoch(202).raymarch_type == "voxel"
     for kw in ({"grid_tvl1_reg": 1e-3}, {"lod_anneling": True},
                {"fused_micro_step": True},
                {"inst_loss": "sup_contrastive", "sem_epoch_start": 0,
