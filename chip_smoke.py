@@ -85,6 +85,28 @@ Phases, each printing one JSON line as it ends:
    ms, kept share, occupied share, pack_steps, B, step ms, rays/s, peak
    memory, truncated share.
 
+9. validate -- main path 5: ``validate_flagship`` at full width, its launch
+   counts set to 0 before and read after each part: the schedule's first
+   validation before the prune (epoch 99: mip 2, 4 'val' images of 16x12
+   rays, 512 dense steps, rgb and depth, the single encode once per image
+   at N = 98,304), the schedule past the prune (as in ``train_post_prune``),
+   the final validation (mip 0, 3072 rays per image in one chunk, the voxel
+   march and the packed layout at each chunk's budget, all four channels,
+   the dual encode once per image, synthetic 2-D predictions for the
+   ``_pred`` baselines), and the point-cloud map (8 views at mip 2, the
+   dual encode once per view); media go to ``pagnerf_tpu_torch/_build/
+   validate``. Checks: those launches, none with idx/bary; no packed chunk
+   truncated: each final image packed vs dense within 1e-4 (float32
+   decoders); the final validation through the
+   kernels vs through the plain encodes (channels 1e-2, PSNR 0.05 dB,
+   flipped argmax pixels counted); finite, complete metrics and a
+   well-formed map; the single and dual encode at the largest N each part
+   ran, on random tables, against the plain encode (the encode phase's
+   per-level bound, the kernel's lattice against the plain one by the
+   boundary rule), and their times (the dual also with two table loads,
+   no packed copy). Metrics, ``val/render_time_per_img``,
+   wall times and the map's point count.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -209,8 +231,10 @@ def _kernel_wrappers():
 
 
 def _reset_launches() -> None:
-    for fn in _kernel_wrappers().values():
-        fn.launches = 0
+    from pagnerf_tpu_torch.ops import scatter_rows, table_gather
+    _kernel_wrappers()                  # registers the fused encodes first
+    table_gather.reset_launches()
+    scatter_rows.scatter_rows.launches = 0
 
 
 def _launches() -> dict:
@@ -911,6 +935,23 @@ def packed_layout_grads(rays, occ, stage, jitter, ray_max_travel, budget, seed):
     return torch.autograd.grad((comp * g_c).sum() + (alpha * g_a).sum(), (o, d))
 
 
+def schedule_launches(trainer, steps):
+    """The launches ``run_past_prune`` implies: its training ``steps`` (its
+    log past the prune's entry) and its prune (the single encode once per
+    chunk of 65,536 cell points per jittered sample)."""
+    anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+    keys = _launches()
+    expected = {k: 0 for k in keys}
+    for s_ in steps:
+        dual = "semantics" in s_["stage"].channels
+        expected["dual_encode" if dual else "encode"] += len(s_["cam_idx"])
+        expected["dual_table_grad" if dual else "table_grad"] += len(s_["cam_idx"])
+        expected["dbary"] += sum(int(not anchor[c]) for c in s_["cam_idx"])
+    chunks = (max(1, trainer.cfg.prune_samples_per_cell)
+              * math.ceil(trainer.occ.res ** 3 / 65536))
+    return expected, {k: (chunks if k == "encode" else 0) for k in keys}
+
+
 def phase_train_post_prune(dev, flush):
     """Main path 4: the default schedule past its prune at full width
     (``train_flagship_schedule``): the prune, the scene fixture's occupancy,
@@ -947,14 +988,7 @@ def phase_train_post_prune(dev, flush):
     pipe, cfg = trainer.pipeline, trainer.cfg
     anchor = pipe.anchor_mask.cpu().numpy()
 
-    expected = {k: 0 for k in launches}
-    for s_ in steps:
-        dual = "semantics" in s_["stage"].channels
-        expected["dual_encode" if dual else "encode"] += len(s_["cam_idx"])
-        expected["dual_table_grad" if dual else "table_grad"] += len(s_["cam_idx"])
-        expected["dbary"] += sum(int(not anchor[c]) for c in s_["cam_idx"])
-    chunks = max(1, cfg.prune_samples_per_cell) * math.ceil(trainer.occ.res ** 3 / 65536)
-    expected_prune = {k: (chunks if k == "encode" else 0) for k in launches}
+    expected, expected_prune = schedule_launches(trainer, steps)
     stage = steps[0]["stage"]
     fields = dict(
         prune_ms=prune["seconds"] * 1e3, prune_kept_share=prune["occupied_share"],
@@ -1185,6 +1219,225 @@ def phase_train_post_prune(dev, flush):
     torch.cuda.empty_cache()
     return all_launches, times
 
+def _idx_bary_launches() -> dict:
+    """The fused encodes' launches that wrote idx/bary for a backward."""
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    return {"encode": pe.fused_encode.launches_with_idx_bary,
+            "dual_encode": pe.fused_encode_dual.launches_with_idx_bary}
+
+
+def _flips(rb_a, rb_b, stuff_ids):
+    """Pixels whose semantic argmax, or gated instance argmax on things
+    pixels, differs between two renders."""
+    import torch
+
+    sem_a, sem_b = rb_a.semantics.argmax(-1), rb_b.semantics.argmax(-1)
+    things = ~torch.isin(sem_b, torch.tensor(stuff_ids, device=sem_b.device))
+    inst = things & (rb_a.inst_embedding[:, 1:].argmax(-1)
+                     != rb_b.inst_embedding[:, 1:].argmax(-1))
+    return int((sem_a != sem_b).sum()), int(inst.sum())
+
+
+def phase_validate(dev, flush):
+    """Main path 5: ``validate_flagship`` at full width (the pre-prune
+    validation at mip 2, the schedule past the prune, the final validation
+    at mip 0 with the ``_pred`` baselines, the point-cloud map), launch
+    counts read after each part. Then the checks: no validation launch
+    wrote idx/bary; no packed chunk truncated (each final image packed vs
+    dense under float32 decoders within 1e-4 is that gate); the final
+    validation through the kernels vs through the plain encodes (channels
+    1e-2, PSNR 0.05 dB, flipped argmax pixels counted); and rows 8-9 at the
+    N the validations ran, on random tables, against their plain versions;
+    their times, and for the dual encode also the two-load layout's
+    (``_launch_encode(..., packed=False)``, no ``torch.cat`` of the tables)."""
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from pagnerf_tpu_torch.entry import validate_flagship
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    from pagnerf_tpu_torch.train.trainer import PanopticTrainer
+    from pagnerf_tpu_torch.train.validation import _rays_from, validate
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, idx_bary, chunks, coords, renders = {}, {}, {}, {}, {}
+    now = {"chunks": [], "coords": {}, "renders": []}
+    batch_render = PanopticTrainer.batch_render
+    encode_t = pe.PermutoEncodingSpec.encode_T
+    encode_dual_t = pe.PermutoEncodingSpec.encode_dual_T
+
+    def render_spy(self, *args, **kwargs):
+        rb = batch_render(self, *args, **kwargs)
+        now["chunks"] += self.last_render
+        now["renders"].append(rb)
+        return rb
+
+    def keep(name, coordsT):
+        # the largest N the part ran each encode at
+        if coordsT.shape[1] > now["coords"].get(name, torch.empty(3, 0)).shape[1]:
+            now["coords"][name] = coordsT.detach().float().contiguous().clone()
+
+    def encode_spy(self, tables, coordsT, *args, **kwargs):
+        keep("encode", coordsT)
+        return encode_t(self, tables, coordsT, *args, **kwargs)
+
+    def encode_dual_spy(self, tables_a, tables_b, coordsT, *args, **kwargs):
+        keep("dual_encode", coordsT)
+        return encode_dual_t(self, tables_a, tables_b, coordsT, *args, **kwargs)
+
+    def after(part, trainer):
+        torch.cuda.synchronize()
+        launches[part], idx_bary[part] = _launches(), _idx_bary_launches()
+        chunks[part], coords[part] = now["chunks"], now["coords"]
+        renders[part] = now["renders"] if part == "final" else None
+        now.update(chunks=[], coords={}, renders=[])
+        _reset_launches()
+
+    log_dir = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "validate")
+    _reset_launches()
+    with mock.patch.object(PanopticTrainer, "batch_render", render_spy), \
+         mock.patch.object(pe.PermutoEncodingSpec, "encode_T", encode_spy), \
+         mock.patch.object(pe.PermutoEncodingSpec, "encode_dual_T", encode_dual_spy):
+        trainer, res = validate_flagship(device=dev, log_dir=log_dir, after=after)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg, pipe = trainer.cfg, trainer.pipeline
+    pre, final, pts = res["pre_prune"], res["final"], res["map"]["points"]
+    sched = res["schedule"]["log"]
+    fields = dict(
+        pre_prune_epoch=pre["epoch"], pre_prune_metrics=pre["metrics"],
+        pre_prune_validate_s=pre["seconds"], final_metrics=final["metrics"],
+        final_validate_s=final["seconds"],
+        render_time_per_img_s={"pre_prune": pre["metrics"]["val/render_time_per_img"],
+                               "final": final["metrics"]["val/render_time_per_img"]},
+        schedule_s=res["schedule"]["seconds"], map_s=res["map"]["seconds"],
+        map_points=len(pts["points"]), launches=launches, idx_bary_launches=idx_bary,
+        chunks={p: [dict(c) for c in cs] for p, cs in chunks.items() if p != "schedule"},
+        peak_allocated_gib=peak_gb)
+
+    def fail(msg):
+        emit("validate", ok=False, **fields)
+        raise AssertionError(msg)
+
+    # launches: one encode per rendered chunk, single before the panoptic
+    # heads render, dual after; never with idx/bary; the schedule as its log says
+    steps_expected, prune_expected = schedule_launches(trainer, sched[1:])
+    expected = {"pre_prune": {k: (len(chunks["pre_prune"]) if k == "encode" else 0)
+                              for k in launches["pre_prune"]},
+                "schedule": {k: steps_expected[k] + prune_expected[k]
+                             for k in steps_expected}}
+    for part in ("final", "map"):
+        expected[part] = {k: (len(chunks[part]) if k == "dual_encode" else 0)
+                          for k in launches[part]}
+    fields["expected_launches"] = expected
+    if launches != expected:
+        fail(f"validate_flagship launched {launches}, expected {expected}")
+    if any(v for part in ("pre_prune", "final", "map") for v in idx_bary[part].values()):
+        fail(f"a validation encode wrote idx/bary: {idx_bary}")
+    if not (chunks["final"] and all(c["pack_steps"] for c in chunks["final"])
+            and all(c["pack_steps"] == 0 for c in chunks["pre_prune"])):
+        fail("the final validation did not pack, or the pre-prune one did")
+    if not (all(np.isfinite(v) for v in final["metrics"].values())
+            and {"val/iou_gain", "val/pq_things_gain", "val/map_pred"} <= set(final["metrics"])
+            and np.isfinite(pts["points"]).all() and pts["points"].shape[1:] == (3,)):
+        fail("final metrics not finite or incomplete, or the map malformed")
+
+    # the truncation gate: every final image packed vs dense under float32
+    # decoders, equal within 1e-4 only when no chunk truncated
+    data = trainer.dataset.get_images("val", mip=0)
+    stage = trainer.stage_for_epoch(cfg.epochs - 1)
+    dense = dataclasses.replace(stage, pack_steps=0)
+    chans = ("rgb", "depth", "semantics", "inst_embedding")
+    err = {ch: 0.0 for ch in chans}
+    depth_max = 0.0
+    with _Float32Decoders(pipe):
+        for i, cam in enumerate(data["cam_idx"]):
+            rays = _rays_from(data, i, True, dev)
+            rb_p = trainer.batch_render(rays, set(chans), cam_idx=int(cam), stage_cfg=stage)
+            rb_d = trainer.batch_render(rays, set(chans), cam_idx=int(cam), stage_cfg=dense)
+            depth_max = max(depth_max, rb_d.depth.abs().max().item())
+            for ch in chans:
+                err[ch] = max(err[ch], (getattr(rb_p, ch) - getattr(rb_d, ch)).abs().max().item())
+    tol = {ch: 1e-4 * (max(1.0, depth_max) if ch == "depth" else 1.0) for ch in chans}
+    fields.update(packed_vs_dense_err_float32_decoders=err, packed_vs_dense_tol=tol)
+    if not all(err[ch] <= tol[ch] for ch in chans):
+        fail("final validation: packed render vs dense render outside 1e-4")
+
+    # the final validation through the plain encodes
+    plain_renders = []
+
+    def plain_spy(self, *args, **kwargs):
+        rb = batch_render(self, *args, **kwargs)
+        plain_renders.append(rb)
+        return rb
+
+    with mock.patch.object(pe, "fused_encode", pe.encode_plain), \
+         mock.patch.object(pe, "fused_encode_dual", pe.dual_encode_plain), \
+         mock.patch.object(PanopticTrainer, "batch_render", plain_spy):
+        plain_metrics = validate(trainer, cfg.epochs)
+    stuff = trainer.dataset.semantic_info["stuff_ids"]
+    errs, flips = {ch: 0.0 for ch in chans}, [0, 0]
+    d_max = max(rb.depth.abs().max().item() for rb in plain_renders)
+    for rb_k, rb_p in zip(renders["final"], plain_renders):
+        for ch in chans:
+            errs[ch] = max(errs[ch], (getattr(rb_k, ch).float()
+                                      - getattr(rb_p, ch).float()).abs().max().item())
+        flips = [a + b for a, b in zip(flips, _flips(rb_k, rb_p, stuff))]
+    tols = {ch: 1e-2 * (d_max if ch == "depth" else 1.0) for ch in chans}
+    psnr_diff = abs(final["metrics"]["val/psnr"] - plain_metrics["val/psnr"])
+    fields.update(vs_plain_max_abs_err=errs, vs_plain_tol=tols, vs_plain_psnr_diff_db=psnr_diff,
+                  vs_plain_flipped_pixels={"semantics": flips[0], "instance": flips[1],
+                                           "of": sum(c["rays"] for c in chunks["final"])},
+                  plain_metrics=plain_metrics)
+    if not (all(errs[ch] <= tols[ch] for ch in chans) and psnr_diff <= 0.05):
+        fail("final validation through the kernels vs the plain encodes")
+
+    # rows 8-9 at the N the validations ran, random tables, through the
+    # wrappers; the kernel's lattice against the plain one (boundary rule)
+    spec = pipe.nef.grid.spec
+    l, c, f = spec.num_levels, spec.capacity, spec.feature_dim
+    st = pe.level_statics(spec.scales, c, f)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ta = torch.randn((l, c, f), generator=gen, device=dev)
+    tb = torch.randn((l, c, f), generator=gen, device=dev)
+    checks, times = {}, {}
+    for part, name in (("pre_prune", "encode"), ("final", "dual_encode"),
+                       ("map", "dual_encode")):
+        x = coords[part][name]
+        n = x.shape[1]
+        tables = (ta,) if name == "encode" else (ta, tb)
+        with torch.no_grad():
+            outs = ((pe.fused_encode(ta, x, spec.scales),) if name == "encode"
+                    else pe.fused_encode_dual(ta, tb, x, spec.scales))
+            _, idx_k, bary_k, _ = pe._launch_encode(x, (ta,), st, True, False)
+        checks[part] = encode_vs_plain(spec, x, tables, outs, idx_k, bary_k)
+        del outs, idx_k, bary_k
+        kern = ((lambda: pe.fused_encode(ta, x, spec.scales)) if name == "encode"
+                else (lambda: pe.fused_encode_dual(ta, tb, x, spec.scales)))
+        plain = ((lambda: pe.encode_plain(ta, x, spec.scales)) if name == "encode"
+                 else (lambda: pe.dual_encode_plain(ta, tb, x, spec.scales)))
+        bound_ms, bound_by, nbytes, flops = encode_bound(l, c, f, n, len(tables), 4, False,
+                                                         st.rows_used)
+        with torch.no_grad():
+            times[part] = dict(kernel=name, N=n, max_abs_err=checks[part]["max_abs_err"],
+                               ms=cuda_ms(kern, flush=flush),
+                               plain_ms=cuda_ms(plain, reps=5, flush=flush),
+                               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                               flops=flops)
+            if name == "dual_encode":
+                times[part]["two_loads_ms"] = cuda_ms(
+                    lambda: pe._launch_encode(x, tables, st, False, False), flush=flush)
+    fields.update(kernel_checks=checks, kernel_times=times)
+    if not all(ch["ok"] for ch in checks.values()):
+        fail(f"an encode at the validation's N outside its tolerance: {checks}")
+    emit("validate", **fields)
+    all_launches = {k: sum(launches[p][k] for p in launches) for k in launches["final"]}
+    val_launches = {k: sum(launches[p][k] for p in ("pre_prune", "final", "map"))
+                    for k in ("encode", "dual_encode")}
+    del trainer, res, renders, plain_renders, coords, ta, tb
+    torch.cuda.empty_cache()
+    return all_launches, times, val_launches
+
 
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
@@ -1231,6 +1484,7 @@ def main() -> None:
         paths[f"train_{stage_name}"] = phase_train(dev, stage_name)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
+    paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
     del flush_buf
 
     # ---------------------------------------------------------------- report
@@ -1261,6 +1515,9 @@ def main() -> None:
             row["two_loads"] = {"render": pick(r32["dual_two_loads"], ("ms", "bound_ms")),
                                 "train": pick(t32["dual_two_loads"], ("ms", "bound_ms"))}
         row["post_prune"] = post["encode_prune" if name == "single" else "dual_encode_B"]
+        row["validation"] = {"launches": val_launches[key],
+                             **({"pre_prune": val_times["pre_prune"]} if name == "single"
+                                else {"final": val_times["final"], "map": val_times["map"]})}
         rows.append(row)
     for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
                                 ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):

@@ -7,7 +7,8 @@ camera-space base rays, as ``BAPipeline`` does each forward.
 
 ``PinholeIntrinsics`` and ``view_from_c2w`` are numpy helpers for the
 synthetic dataset; they are copies of the JAX package's, kept here so the
-port imports nothing of it.
+port imports nothing of it. ``generate_pinhole_rays`` makes the camera-space
+rays through pixel centres that validation regenerates at each mip level.
 """
 from __future__ import annotations
 
@@ -29,6 +30,13 @@ class PinholeIntrinsics:
     height: int
     near: float = 0.0
     far: float = 6.0
+
+    def rescaled(self, scale: float, new_width: int, new_height: int) -> "PinholeIntrinsics":
+        """The intrinsics of the image resized by ``scale`` (a mip level)."""
+        return PinholeIntrinsics(fx=self.fx * scale, fy=self.fy * scale,
+                                 cx=self.cx * scale, cy=self.cy * scale,
+                                 width=new_width, height=new_height,
+                                 near=self.near, far=self.far)
 
 
 def view_from_c2w(c2w: np.ndarray) -> np.ndarray:
@@ -83,6 +91,26 @@ def inv_transform_rays(params: torch.Tensor, origins: torch.Tensor,
     o_w = torch.einsum("nij,nri->nrj", rot, origins - t[:, None, :])
     d_w = torch.einsum("nij,nri->nrj", rot, dirs)
     return o_w, d_w
+
+
+def generate_centered_pixel_coords(width: int, height: int):
+    """Pixel-centre coordinate grids (x, y), each [height, width] float32."""
+    x = torch.arange(width, dtype=torch.float32) + 0.5
+    y = torch.arange(height, dtype=torch.float32) + 0.5
+    return torch.meshgrid(x, y, indexing="xy")
+
+
+def generate_pinhole_rays(intr: PinholeIntrinsics, dist_min: float = 0.0,
+                          dist_max: float = 6.0) -> Rays:
+    """Camera-space pinhole rays [height, width] through pixel centres, GL
+    convention (the camera looks down -z, y up), in float32 on the CPU."""
+    px, py = generate_centered_pixel_coords(intr.width, intr.height)
+    x = (px - float(intr.cx)) / float(intr.fx)
+    y = (py - float(intr.cy)) / float(intr.fy)
+    dirs = torch.stack([x, -y, -torch.ones_like(x)], dim=-1)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    return Rays(origins=torch.zeros_like(dirs), dirs=dirs,
+                dist_min=dist_min, dist_max=dist_max)
 
 
 def rays_to_3d_points(rays: Rays, depth: torch.Tensor) -> torch.Tensor:

@@ -22,3 +22,14 @@ class RenderBuffer:
     semantics: Optional[torch.Tensor] = None
     inst_embedding: Optional[torch.Tensor] = None
     panoptic_alpha: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def concatenate(buffers) -> "RenderBuffer":
+        """Chunked renders joined along the ray axis; a channel absent from
+        the first buffer stays absent."""
+        out = {}
+        for f in dataclasses.fields(RenderBuffer):
+            vals = [getattr(b, f.name) for b in buffers]
+            if vals[0] is not None:
+                out[f.name] = torch.cat(vals, dim=0)
+        return RenderBuffer(**out)

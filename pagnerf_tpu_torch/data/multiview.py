@@ -7,13 +7,23 @@ that is built; the port takes the helper's numpy fallback (the same
 distribution, other numbers). When an image has fewer pixels than the rays
 asked for -- the flagship's 4096 rays of a 64x48 image -- both sample with
 replacement from one ``np.random.default_rng`` and give the same batch bit
-for bit. Image pyramids for validation are not ported yet.
+for bit.
+
+``get_images`` serves whole images for validation at a mip level. The JAX
+package resizes with ``cv2``; the port resizes by the whole factor 2^mip in
+numpy: the area filter of an image mode is then the block mean in float32,
+and the nearest filter of a label mode takes the pixel ``cv2.INTER_NEAREST``
+takes, the first of each block.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+
+from ..core.camera import (extrinsics_params_from_view_matrix, generate_pinhole_rays,
+                           inv_transform_rays)
 
 # Pixel modes that get flattened and ray-sampled.
 PIXEL_MODES = ("imgs", "semantics", "instance", "semantics_pred", "instance_pred",
@@ -29,6 +39,35 @@ def sample_ray_indices(batch: int, num_rays: int, num_pixels: int,
         return rng.integers(0, num_pixels, (batch, num_rays)).astype(np.int64)
     return np.stack([rng.choice(num_pixels, num_rays, replace=False)
                      for _ in range(batch)]).astype(np.int64)
+
+
+def _resize_stack(arr: np.ndarray, s: int, nearest: bool) -> np.ndarray:
+    """Shrink [N, H, W, ...] by the whole factor ``s``: the first pixel of
+    each s x s block (nearest) or the block's float32 mean (area), in the
+    input's dtype."""
+    n, h, w = arr.shape[:3]
+    if h % s or w % s:
+        raise ValueError(f"images of {h}x{w} do not shrink by a whole factor of {s}")
+    if nearest:
+        return arr[:, ::s, ::s].copy()
+    blocks = arr.astype(np.float32).reshape(n, h // s, s, w // s, s, *arr.shape[3:])
+    return blocks.mean(axis=(2, 4), dtype=np.float32).astype(arr.dtype)
+
+
+def _regenerate_rays(intrinsics, view_matrices: np.ndarray, s: int):
+    """Camera-space base rays [h, w, 3] and world rays [N, h, w, 3] at mip
+    scale ``s``, through the mip image's exact pixel centres (float32)."""
+    intr = intrinsics.rescaled(1.0 / s, intrinsics.width // s, intrinsics.height // s)
+    base = generate_pinhole_rays(intr, dist_min=0.0, dist_max=2.0)
+    h, w = intr.height, intr.width
+    n = view_matrices.shape[0]
+    params = extrinsics_params_from_view_matrix(torch.from_numpy(view_matrices))
+    bo = base.origins.reshape(1, -1, 3).expand(n, h * w, 3)
+    bd = base.dirs.reshape(1, -1, 3).expand(n, h * w, 3)
+    wo, wd = inv_transform_rays(params, bo, bd)
+    wd = wd / (torch.linalg.norm(wd, dim=-1, keepdim=True) + 1e-12)
+    return (base.origins.numpy(), base.dirs.numpy(),
+            wo.reshape(n, h, w, 3).numpy(), wd.reshape(n, h, w, 3).numpy())
 
 
 class MultiviewDataset:
@@ -93,3 +132,39 @@ class MultiviewDataset:
         batch["base_rays_origins"] = bo[ray_idx]
         batch["base_rays_dirs"] = bd[ray_idx]
         return batch
+
+    # label modes shrink by nearest; every other mode by area
+    _NEAREST_MODES = ("semantics", "instance", "semantics_pred", "instance_pred")
+
+    def get_images(self, split: str = "val", mip: int = 0) -> Dict[str, np.ndarray]:
+        """The split's whole images at mip level ``mip`` (shrunk by 2^mip):
+        ``cam_idx``, every pixel mode present, and the rays. At mip > 0 the
+        rays are regenerated through the mip image's pixel centres from the
+        stored intrinsics and view matrices, else strided."""
+        idxs = self.val_idxs if split == "val" else self.train_idxs
+        s = 1 << mip
+        out = {"cam_idx": idxs.astype(np.int32)}
+        for mode in PIXEL_MODES:
+            if mode in self.data and not mode.startswith("rays_"):
+                arr = self.data[mode][idxs]
+                out[mode] = arr if s == 1 else _resize_stack(
+                    arr, s, nearest=mode in self._NEAREST_MODES)
+        if s == 1:
+            for mode in ("rays_origins", "rays_dirs"):
+                if mode in self.data:
+                    out[mode] = self.data[mode][idxs]
+            out["base_rays_origins"] = self.data["base_rays_origins"]
+            out["base_rays_dirs"] = self.data["base_rays_dirs"]
+        elif "intrinsics" in self.data and "view_matrices" in self.data:
+            bo, bd, wo, wd = _regenerate_rays(self.data["intrinsics"],
+                                              self.data["view_matrices"][idxs], s)
+            out["base_rays_origins"], out["base_rays_dirs"] = bo, bd
+            if "rays_origins" in self.data:
+                out["rays_origins"], out["rays_dirs"] = wo, wd
+        else:
+            for mode in ("rays_origins", "rays_dirs"):
+                if mode in self.data:
+                    out[mode] = self.data[mode][idxs][:, ::s, ::s]
+            out["base_rays_origins"] = self.data["base_rays_origins"][::s, ::s]
+            out["base_rays_dirs"] = self.data["base_rays_dirs"][::s, ::s]
+        return out

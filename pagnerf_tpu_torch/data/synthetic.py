@@ -4,9 +4,9 @@
 A numpy copy of the JAX package's analytic sphere scene: K coloured spheres
 in the unit cube with semantic classes and instance ids, rendered in closed
 form from a ring of cameras. ``make_dataset`` returns arrays bit-identical
-to the JAX package's for the same arguments (the tests check it). The noisy
-per-frame prediction channels (``predictions=True`` there) serve training
-and are not ported yet.
+to the JAX package's for the same arguments, and so does
+``add_synthetic_predictions``, the noisy per-frame 2-D predictions that
+validation reports its ``_pred`` baselines against (the tests check both).
 """
 from __future__ import annotations
 
@@ -113,6 +113,128 @@ def _render_analytic(scene: SphereScene, origins: np.ndarray, dirs: np.ndarray,
         inst[hit] = iid
     depth = np.where(np.isfinite(best_t), best_t, 0.0).astype(np.float32)
     return rgb, sem, inst, depth
+
+
+def _shift2d(m: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    out = np.zeros_like(m)
+    h, w = m.shape
+    ys = slice(max(dy, 0), h + min(dy, 0))
+    xs = slice(max(dx, 0), w + min(dx, 0))
+    yd = slice(max(-dy, 0), h + min(-dy, 0))
+    xd = slice(max(-dx, 0), w + min(-dx, 0))
+    out[ys, xs] = m[yd, xd]
+    return out
+
+
+def _dilate3(m: np.ndarray) -> np.ndarray:
+    """3x3 binary dilation via shifts (no scipy dependency)."""
+    out = m.copy()
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            out |= _shift2d(m, dy, dx)
+    return out
+
+
+def _erode3(m: np.ndarray) -> np.ndarray:
+    out = m.copy()
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            out &= _shift2d(m, dy, dx)
+    return out
+
+
+def add_synthetic_predictions(data: Dict, seed: int = 0, drop_prob: float = 0.15,
+                              split_prob: float = 0.2,
+                              boundary_noise_prob: float = 0.7) -> Dict:
+    """Attach Mask2Former-like per-frame predictions to a synthetic data dict.
+
+    Models the properties of the reference's real 2-D supervision (its
+    Mask2Former predictions; the paper's whole point is lifting
+    *inconsistent* per-frame predictions to a consistent 3-D panoptic field):
+
+      * **per-view instance-ID permutation** — each view assigns its detections
+        arbitrary ids from a shuffled pool, so the same sphere has a different id
+        in every view (2-D networks carry no cross-frame identity);
+      * **dropped detections** — a visible instance is missed entirely with
+        ``drop_prob`` (its pixels fall back to background in sem+inst preds);
+      * **split masks** — with ``split_prob`` a detection is broken into two ids
+        along a random axis through its centroid (over-segmentation);
+      * **boundary noise** — each surviving mask is randomly eroded or dilated by
+        one pixel (mask-boundary jitter);
+      * **per-pixel confidence** — sigmoid-like maps in (0, 1): high in mask
+        interiors and confident background, low in the boundary band (mirroring
+        the reference's ``sigmoid(conf)`` with negated background logits).
+
+    Adds ``semantics_pred`` / ``instance_pred`` / ``sem_conf`` / ``inst_conf``
+    channels ([V, H, W]) and raises ``semantic_info.num_instances`` to cover the
+    per-view id space. GT channels are left untouched (metrics baseline).
+    """
+    inst_gt = np.asarray(data["instance"])
+    sem_gt = np.asarray(data["semantics"])
+    v, h, w = inst_gt.shape
+    inst_pred = np.zeros_like(inst_gt)
+    sem_pred = np.zeros_like(sem_gt)
+    sem_conf = np.empty((v, h, w), np.float32)
+    inst_conf = np.empty((v, h, w), np.float32)
+    # class of each GT instance id (things only; 0 stays background)
+    max_gt = int(inst_gt.max())
+    id_class = np.zeros(max_gt + 1, sem_gt.dtype)
+    for iid in range(1, max_gt + 1):
+        px = inst_gt == iid
+        if px.any():
+            id_class[iid] = np.bincount(sem_gt[px]).argmax()
+
+    max_pred_id = 0
+    for vi in range(v):
+        rng = np.random.default_rng(seed * 7919 + vi)
+        # per-view shuffled id pool: detection k gets an arbitrary id
+        pool = rng.permutation(np.arange(1, 2 * max_gt + 2)).tolist()
+        for iid in np.unique(inst_gt[vi]):
+            if iid == 0:
+                continue
+            mask = inst_gt[vi] == iid
+            if rng.random() < drop_prob:
+                continue                       # missed detection
+            parts = [mask]
+            if rng.random() < split_prob and mask.sum() >= 40:
+                ys, xs = np.nonzero(mask)
+                if rng.random() < 0.5:
+                    cut = mask & (np.arange(w)[None, :] < xs.mean())
+                else:
+                    cut = mask & (np.arange(h)[:, None] < ys.mean())
+                a, b = mask & cut, mask & ~cut
+                if a.sum() >= 10 and b.sum() >= 10:
+                    parts = [a, b]
+            for part in parts:
+                if rng.random() < boundary_noise_prob:
+                    part = _erode3(part) if rng.random() < 0.5 else _dilate3(part)
+                if not part.any():
+                    continue
+                pid = pool.pop()
+                inst_pred[vi][part] = pid
+                sem_pred[vi][part] = id_class[iid]
+                max_pred_id = max(max_pred_id, pid)
+        # confidence: interior high, boundary band low, background confident
+        lab = inst_pred[vi]
+        boundary = np.zeros((h, w), bool)
+        for dy, dx in ((0, 1), (1, 0), (0, -1), (-1, 0)):
+            boundary |= _shift2d(lab, dy, dx) != lab
+        conf = np.where(lab > 0, 0.95, 0.85).astype(np.float32)
+        conf[boundary] = 0.6
+        conf += rng.uniform(-0.05, 0.05, (h, w)).astype(np.float32)
+        np.clip(conf, 0.05, 1.0, out=conf)
+        sem_conf[vi] = conf
+        inst_conf[vi] = conf
+
+    data = dict(data)
+    data["semantics_pred"] = sem_pred
+    data["instance_pred"] = inst_pred
+    data["sem_conf"] = sem_conf
+    data["inst_conf"] = inst_conf
+    si = dict(data["semantic_info"])
+    si["num_instances"] = max(si["num_instances"], max_pred_id + 2)
+    data["semantic_info"] = si
+    return data
 
 
 def _pixel_dirs(width: int, height: int, focal: float, ss: int = 1) -> np.ndarray:

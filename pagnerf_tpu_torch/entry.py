@@ -12,7 +12,9 @@ inst_embedding -- and its example inputs.
 ``train_flagship`` trains the pre-prune stages for a few steps;
 ``train_flagship_schedule`` runs the default schedule past its prune: the
 prune, then steps of the panoptic stage (voxel march, packed layout) and of
-a val-pose epoch.
+a val-pose epoch. ``validate_flagship`` runs the schedule's validations
+around that: the mid-training one before the prune, the final one after it,
+and the point-cloud map.
 
 All run on the CUDA card unless the caller passes ``device="cpu"``, and
 raise on a host without one. Weights come from a seeded init
@@ -30,7 +32,7 @@ import torch
 
 from .core.rays import Rays
 from .data.multiview import MultiviewDataset
-from .data.synthetic import make_dataset
+from .data.synthetic import add_synthetic_predictions, make_dataset
 from .device import resolve_device
 from .models.nefs import GridConfig, PanopticDeltaNeF
 from .models.pipeline import BAPipeline
@@ -38,6 +40,8 @@ from .models.tracer import TracerConfig
 from .ops.occupancy import OccupancyGrid
 from .train.optimizer import OptimizerConfig
 from .train.trainer import PanopticTrainer, TrainerConfig
+from .train.validation import validate
+from .utils.render_map import generate_pc_map_from_views
 
 FLAGSHIP_CHANNELS = frozenset({"rgb", "depth", "semantics", "inst_embedding"})
 
@@ -195,36 +199,24 @@ def post_prune_epochs(trainer: PanopticTrainer, steps: int, val_pose_steps: int)
     return panoptic + val * val_pose_steps
 
 
-def train_flagship_schedule(steps: int = 3, device="cuda", tiny: bool = False,
-                            after_prune: Optional[Callable[[PanopticTrainer], None]] = None,
-                            val_pose_steps: int = 1):
-    """The flagship under the default ``TrainerConfig`` schedule past its
-    prune, in three steps:
-
-    1. ``trainer.prune()``, the real prune the schedule runs after epoch
-       201, on the untrained field;
-    2. ``apply_scene_fixture``: an untrained field's prune says nothing of
-       the scene, so the occupancy is set to what a trained field would
-       leave;
-    3. ``steps`` steps of the first panoptic epochs past the prune and
-       ``val_pose_steps`` steps of the next val-pose epoch
-       (``post_prune_epochs``; its 'val' cameras, only the extrinsics
-       free), each on the voxel march and the packed layout sized from the
-       occupied share.
-
-    Batches of 6 images x 4096 rays, one image per microbatch, on the 128^3
-    occupancy grid; ``tiny`` is the JAX package's test size with 32 rays
-    per image and a 64^3 grid. ``after_prune(trainer)``, if given, runs
-    right after the prune (to read its kernel launches). Returns (trainer,
-    log): first ``{"prune": True, "seconds", "occupied_share"}`` of the
-    prune, then one dict per step as ``train_flagship`` logs it, with the
-    step's ``stage``."""
+def schedule_trainer(device="cuda", tiny: bool = False) -> PanopticTrainer:
+    """The flagship's trainer under the default ``TrainerConfig`` schedule:
+    batches of 6 images x 4096 rays (32 when ``tiny``), one image per
+    microbatch, on the 128^3 occupancy grid (64^3 when ``tiny``)."""
     dev = resolve_device(device)
     pipe, ds = flagship(tiny=tiny, device=dev)
     pipe.requires_grad_(True)
     cfg = TrainerConfig(batch_size=6, num_rays_sampled_per_img=32 if tiny else 4096,
                         micro_batch_imgs=1)
-    trainer = PanopticTrainer(pipe, ds, cfg, OptimizerConfig(), occ_level=6 if tiny else 7)
+    return PanopticTrainer(pipe, ds, cfg, OptimizerConfig(), occ_level=6 if tiny else 7)
+
+
+def run_past_prune(trainer: PanopticTrainer, steps: int = 3,
+                   after_prune: Optional[Callable[[PanopticTrainer], None]] = None,
+                   val_pose_steps: int = 1):
+    """Steps 1-3 of ``train_flagship_schedule`` on ``trainer``; returns its
+    log."""
+    ds, cfg = trainer.dataset, trainer.cfg
     t0 = time.perf_counter()
     trainer.prune()
     share = trainer._occ_frac        # a host read: the prune has finished
@@ -243,4 +235,82 @@ def train_flagship_schedule(steps: int = 3, device="cuda", tiny: bool = False,
                     "seconds": time.perf_counter() - t0, "losses": losses,
                     "stage": stage})
         trainer.epoch = epoch
-    return trainer, log
+    return log
+
+
+def train_flagship_schedule(steps: int = 3, device="cuda", tiny: bool = False,
+                            after_prune: Optional[Callable[[PanopticTrainer], None]] = None,
+                            val_pose_steps: int = 1):
+    """The flagship under the default ``TrainerConfig`` schedule past its
+    prune (``schedule_trainer``), in three steps:
+
+    1. ``trainer.prune()``, the real prune the schedule runs after epoch
+       201, on the untrained field;
+    2. ``apply_scene_fixture``: an untrained field's prune says nothing of
+       the scene, so the occupancy is set to what a trained field would
+       leave;
+    3. ``steps`` steps of the first panoptic epochs past the prune and
+       ``val_pose_steps`` steps of the next val-pose epoch
+       (``post_prune_epochs``; its 'val' cameras, only the extrinsics
+       free), each on the voxel march and the packed layout sized from the
+       occupied share.
+
+    ``after_prune(trainer)``, if given, runs right after the prune (to read
+    its kernel launches). Returns (trainer, log): first ``{"prune": True,
+    "seconds", "occupied_share"}`` of the prune, then one dict per step as
+    ``train_flagship`` logs it, with the step's ``stage``."""
+    trainer = schedule_trainer(device, tiny)
+    return trainer, run_past_prune(trainer, steps, after_prune, val_pose_steps)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def validate_flagship(device="cuda", tiny: bool = False, steps: int = 3,
+                      log_dir: Optional[str] = None,
+                      after: Optional[Callable[[str, PanopticTrainer], None]] = None):
+    """The flagship's validations under the default schedule
+    (``schedule_trainer``), in order:
+
+    1. ``pre_prune``: the schedule's first validation, after the first
+       epoch e with (e + 1) a multiple of ``valid_every``: at ``val_mip``,
+       on the dense ray march, rgb and depth (the single encode);
+    2. ``schedule``: ``run_past_prune`` (the prune, the scene fixture,
+       ``steps`` panoptic steps and one val-pose step);
+    3. ``final``: ``validate`` at ``cfg.epochs``: mip 0 (``low_res_val`` is
+       off), the 'val' cameras through the base rays and the extrinsics the
+       val-pose step trained, all four channels on the voxel march and the
+       packed layout (the dual encode), against the ground truth and, as the
+       ``_pred`` baselines, the 2-D predictions that
+       ``add_synthetic_predictions`` attaches to the dataset first;
+    4. ``map``: ``generate_pc_map_from_views`` at mip 2 over every view.
+
+    ``after(part, trainer)``, if given, runs after each part (to read its
+    kernel launches). Every wall time ends with a host read of the results.
+    Returns (trainer, results): per part its ``seconds``, and the
+    validations' ``epoch`` and ``metrics``, the schedule's ``log``, the
+    map's ``points`` (the point-cloud dict)."""
+    trainer = schedule_trainer(device, tiny)
+    cfg, ds = trainer.cfg, trainer.dataset
+    done = after or (lambda part, trainer: None)
+    results = {}
+    epoch = next(e for e in range(cfg.epochs) if (e + 1) % cfg.valid_every == 0)
+    trainer.epoch = epoch + 1             # ``run_epoch(epoch)`` has just ended
+    metrics, seconds = _timed(lambda: validate(trainer, epoch, log_dir=log_dir))
+    results["pre_prune"] = {"epoch": epoch, "seconds": seconds, "metrics": metrics}
+    done("pre_prune", trainer)
+    log, seconds = _timed(lambda: run_past_prune(trainer, steps, None, 1))
+    results["schedule"] = {"seconds": seconds, "log": log}
+    done("schedule", trainer)
+    ds.data = add_synthetic_predictions(ds.data, seed=cfg.seed)
+    trainer.epoch = cfg.epochs            # ``train()`` has ended
+    metrics, seconds = _timed(lambda: validate(trainer, cfg.epochs, log_dir=log_dir))
+    results["final"] = {"epoch": cfg.epochs, "seconds": seconds, "metrics": metrics}
+    done("final", trainer)
+    points, seconds = _timed(lambda: generate_pc_map_from_views(trainer, mip=2))
+    results["map"] = {"seconds": seconds, "points": points}
+    done("map", trainer)
+    return trainer, results

@@ -447,6 +447,7 @@ class _Encode(torch.autograd.Function):
             outs, idx, bary, rank = _launch_encode(x, tables, st, keep, packed=True)
             wrapper = fused_encode if len(tables) == 1 else fused_encode_dual
             wrapper.launches += 1
+            wrapper.launches_with_idx_bary += int(keep)
         if keep:
             ctx.save_for_backward(x, idx, bary, tables[0])
             ctx.rank = rank
@@ -520,8 +521,10 @@ def dual_encode_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
                                           bary.to(tables_a.dtype))
 
 
-fused_encode.launches = 0
-fused_encode_dual.launches = 0
+# ``launches_with_idx_bary``: the launches among them that wrote idx/bary
+# (and the rank) for a backward
+fused_encode.launches = fused_encode.launches_with_idx_bary = 0
+fused_encode_dual.launches = fused_encode_dual.launches_with_idx_bary = 0
 table_gather.KERNELS.update(encode=fused_encode, dual_encode=fused_encode_dual)
 
 

@@ -496,6 +496,8 @@ KERNELS = {"gather": multilevel_table_gather,
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_with_idx_bary"):
+            fn.launches_with_idx_bary = 0

@@ -23,10 +23,12 @@ repeated-ID rejection and the segment-consistency regulariser);
 ``train_step``; ``prune`` (real and seed), ``should_prune``,
 ``maybe_seed_prune``, ``run_epoch`` and ``train``. ``run_epoch`` reads each
 step's losses back before the next step (the JAX package's
-``dispatch_ahead`` is not ported). Not ported yet, and refused by
-``stage_for_epoch``: the TV regularisers, ``sup_contrastive`` and the plain
-linear-assignment loss, LoD annealing and random LoD, the fused micro-step;
-TensoRF upsampling, checkpoints and validation are not ported either.
+``dispatch_ahead`` is not ported). ``batch_render`` is the chunked
+full-image render that validation and the point-cloud map call. Not ported
+yet, and refused by ``stage_for_epoch``: the TV regularisers,
+``sup_contrastive`` and the plain linear-assignment loss, LoD annealing and
+random LoD, the fused micro-step; TensoRF upsampling and checkpoints are not
+ported either.
 """
 from __future__ import annotations
 
@@ -38,12 +40,14 @@ import torch
 
 from ..core.camera import rays_to_3d_points
 from ..core.rays import Rays
+from ..core.render_buffer import RenderBuffer
 from ..data.multiview import MultiviewDataset
 from ..losses.lin_assignment import lin_assignment_things_loss
 from ..losses.photometric import rgb_l1_loss, semantic_loss
 from ..losses.regularizers import segment_consistency_regularizer
 from ..models.pipeline import BAPipeline, Pipeline
 from ..ops.occupancy import OccupancyGrid
+from ..ops.raymarch import raymarch
 from ..utils.lod_annealing import constant_lod_weights
 from .optimizer import MaskedAdam, OptimizerConfig
 
@@ -197,6 +201,8 @@ class PanopticTrainer:
         self._pruned = False
         self._real_pruned = False
         self._occ_frac = 0.25
+        # ``batch_render``'s chunks of its last call
+        self.last_render: List[Dict[str, int]] = []
 
         si = dataset.semantic_info
         self.num_classes = si["num_classes"]
@@ -516,3 +522,68 @@ class PanopticTrainer:
             totals = self.run_epoch(epoch)
             if on_epoch_end is not None:
                 on_epoch_end(epoch, totals)
+
+    # ----------------------------------------------------------- rendering
+    @torch.no_grad()
+    def batch_render(self, rays: Rays, channels, cam_idx: Optional[int] = None,
+                     stage_cfg: Optional[StageConfig] = None) -> RenderBuffer:
+        """Render ``rays`` (any shape; the result is per ray, flattened) in
+        chunks of ``cfg.render_batch`` rays: the JAX package's
+        ``batch_render``. It runs under ``no_grad``, so the encode keeps no
+        idx/bary/rank and autograd keeps no graph.
+
+        The march, ``num_steps``, ``compact_steps`` and ``pack_steps`` are
+        those of the current stage (of epoch ``self.epoch - 1``) unless
+        ``stage_cfg`` is given. A BA pipeline with a ``cam_idx`` first moves
+        the camera-space rays through that camera's extrinsics. In a packed
+        stage a count-only march of each chunk picks the smallest doubling
+        of ``pack_steps`` whose buffer holds every valid sample of the
+        chunk, so water-filling keeps them all; a chunk whose budget would
+        reach ``num_steps`` renders dense. No chunk truncates.
+
+        The JAX package pads the rays to a multiple of ``render_batch``,
+        because its jitted chunk needs a static shape, and sizes a chunk's
+        budget over the padded rays. The port renders the last chunk at its
+        own length and sizes each budget over the chunk's real rays. Since no
+        chunk truncates, the outputs on the real rays agree either way, up to
+        the rounding of the packed sums. ``last_render`` lists the chunks:
+        their ``rays``, ``valid`` samples (packed stages), ``pack_steps`` (0:
+        dense) and the ``samples`` the field was evaluated at."""
+        if stage_cfg is None:
+            stage_cfg = self.stage_for_epoch(max(self.epoch - 1, 0))
+        cfg = dataclasses.replace(self.pipeline.tracer_cfg,
+                                  raymarch_type=stage_cfg.raymarch_type,
+                                  num_steps=stage_cfg.num_steps,
+                                  compact_steps=stage_cfg.compact_steps,
+                                  pack_steps=stage_cfg.pack_steps)
+        flat = Rays(origins=rays.origins.to(self.device, torch.float32),
+                    dirs=rays.dirs.to(self.device, torch.float32),
+                    dist_min=rays.dist_min, dist_max=rays.dist_max).reshape(-1)
+        if isinstance(self.pipeline, BAPipeline) and cam_idx is not None:
+            flat = self.pipeline.transform_rays(
+                flat.reshape(1, -1), torch.tensor([cam_idx], device=self.device))
+        n, rbatch = flat.origins.shape[0], self.cfg.render_batch
+        outs, self.last_render = [], []
+        for i in range(0, n, rbatch):
+            chunk = Rays(origins=flat.origins[i:i + rbatch], dirs=flat.dirs[i:i + rbatch],
+                         dist_min=0.0, dist_max=6.0)
+            m = chunk.origins.shape[0]
+            chunk_cfg, info = cfg, {"rays": m}
+            if cfg.pack_steps:
+                # the march of the packed trace, midpoint samples
+                valid = int(raymarch(chunk, self.occ, cfg.num_steps, cfg.raymarch_type,
+                                     None, cfg.ray_max_travel).mask.sum())
+                p = cfg.pack_steps
+                while p < cfg.num_steps and p * m < valid:
+                    p *= 2
+                if p >= cfg.num_steps:
+                    p = 0                    # the budget reached the dense size
+                chunk_cfg = dataclasses.replace(cfg, pack_steps=p)
+                info["valid"] = valid
+            info["pack_steps"] = chunk_cfg.pack_steps
+            info["samples"] = m * (chunk_cfg.pack_steps or chunk_cfg.compact_steps
+                                   or chunk_cfg.num_steps)
+            self.last_render.append(info)
+            outs.append(self.pipeline(chunk, channels, self.occ, self.lod_w,
+                                      stage="val", tracer_cfg=chunk_cfg))
+        return RenderBuffer.concatenate(outs)

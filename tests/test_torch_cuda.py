@@ -531,3 +531,75 @@ def test_packed_backward_is_the_same_on_every_run(dev):
         o2, g2 = grads()
         assert all(torch.equal(a, b) for a, b in zip(o2, outs))
         assert all(torch.equal(a, b) for a, b in zip(g2, ref))
+
+
+@pytest.mark.parametrize("when", ["pre_prune", "final"])
+def test_validate_kernels_match_plain_encodes(dev, when):
+    """The flagship's validation on the card through the fused encodes
+    against the same validation with the plain encodes patched in: every
+    rendered channel within the render phase's 1e-2 (depth: of its largest
+    value), PSNR within 0.05 dB, the flipped argmax pixels of the semantic
+    and gated instance maps counted (untrained bf16 decoders: near-equal
+    logits may flip). 'pre_prune' is the schedule's first validation (mip 2,
+    dense ray march, single encode), 'final' the one after a prune, a
+    panoptic and a val-pose step (mip 0, voxel march, packed, dual encode,
+    synthetic predictions). No validation encode writes idx/bary, though
+    the parameters require grad."""
+    import contextlib
+    from unittest import mock
+
+    from pagnerf_tpu_torch import entry
+    from pagnerf_tpu_torch.data.synthetic import add_synthetic_predictions
+    from pagnerf_tpu_torch.train.trainer import PanopticTrainer
+    from pagnerf_tpu_torch.train.validation import validate
+
+    trainer = entry.schedule_trainer(dev)
+    cfg = trainer.cfg
+    if when == "pre_prune":
+        epoch = cfg.valid_every - 1
+        trainer.epoch = epoch + 1
+        chans = ("rgb", "depth")
+    else:
+        entry.run_past_prune(trainer, steps=1)
+        trainer.dataset.data = add_synthetic_predictions(trainer.dataset.data)
+        epoch = trainer.epoch = cfg.epochs
+        chans = ("rgb", "depth", "semantics", "inst_embedding")
+    render = PanopticTrainer.batch_render
+    runs = []
+    for plain in (False, True):
+        seen = []
+
+        def spy(self, *args, **kwargs):
+            rb = render(self, *args, **kwargs)
+            seen.append(rb)
+            return rb
+        tg.reset_launches()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(PanopticTrainer, "batch_render", spy))
+            if plain:
+                stack.enter_context(mock.patch.object(pe, "fused_encode", pe.encode_plain))
+                stack.enter_context(mock.patch.object(pe, "fused_encode_dual",
+                                                      pe.dual_encode_plain))
+            metrics = validate(trainer, epoch)
+        torch.cuda.synchronize()
+        if not plain:
+            kernel = "encode" if when == "pre_prune" else "dual_encode"
+            assert tg.KERNELS[kernel].launches == len(seen) == 4
+            assert tg.KERNELS[kernel].launches_with_idx_bary == 0
+        runs.append((metrics, seen))
+    (m_k, rb_k), (m_p, rb_p) = runs
+    d_max = max(float(rb.depth.abs().max()) for rb in rb_p)
+    stuff = trainer.dataset.semantic_info["stuff_ids"]
+    flips = 0
+    for a, b in zip(rb_k, rb_p):
+        for ch in chans:
+            tol = 1e-2 * (d_max if ch == "depth" else 1.0)
+            assert float((getattr(a, ch).float() - getattr(b, ch).float()).abs().max()) <= tol, ch
+        if when == "final":      # counted, reported on a failure
+            sem_a, sem_b = a.semantics.argmax(-1), b.semantics.argmax(-1)
+            things = ~torch.isin(sem_b, torch.tensor(stuff, device=dev))
+            flips += int((sem_a != sem_b).sum()) + int(
+                (things & (a.inst_embedding[:, 1:].argmax(-1)
+                           != b.inst_embedding[:, 1:].argmax(-1))).sum())
+    assert abs(m_k["val/psnr"] - m_p["val/psnr"]) <= 0.05, (m_k, m_p, flips)
+    assert sorted(m_k) == sorted(m_p)

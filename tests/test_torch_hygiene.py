@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``pagnerf_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, the JAX package or ``__graft_entry__``; its
-kernel builds by nvcc + ctypes alone; its entry points refuse to run on a
-host without a CUDA card unless asked for the CPU."""
+``chip_smoke.py`` imports JAX, flax, the JAX package or ``__graft_entry__``,
+nor a package the card's machine lacks (cv2, PIL, imageio, sklearn,
+tensorboard); its kernel builds by nvcc + ctypes alone; its entry points
+refuse to run on a host without a CUDA card unless asked for the CPU."""
 import ast
 import os
 
@@ -10,6 +11,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "pagnerf_tpu", "__graft_entry__")
+# not installed on the card's machine
+MISSING_ON_CARD = ("cv2", "PIL", "imageio", "sklearn", "tensorboard", "tensorboardX")
 
 
 def _port_sources():
@@ -46,6 +49,14 @@ def test_port_sources_found():
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_imports_missing_on_the_card(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in MISSING_ON_CARD]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
@@ -96,6 +107,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         entry.train_flagship(tiny=True, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.train_flagship_schedule(tiny=True, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.validate_flagship(tiny=True, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.resolve_device()
     assert device.resolve_device("cpu") == torch.device("cpu")
