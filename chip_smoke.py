@@ -107,6 +107,32 @@ Phases, each printing one JSON line as it ends:
    no packed copy). Metrics, ``val/render_time_per_img``,
    wall times and the map's point count.
 
+10. cli -- main path 6: ``cli.main`` (the command line) on
+   ``configs/synthetic/schedule_preds_flagship_tuned_60ep.yaml`` at full
+   width (24 LoDs x 2^18 x F=2, main and delta grid, 120 views at 96x72,
+   4096 rays per image, 5 images per step, 96 dense steps, the voxel march
+   of 256 steps and the packed layout after the prune) for 4 epochs, its
+   milestones moved by ``CLI_FLAGS``: LoD annealing and an LR step, the
+   seed prune, the real prune and the voxel switch, the panoptic heads with
+   sem_conf / inst_conf, a val-pose epoch, checkpoints, a validation and the
+   final validation; ``--perf`` makes the trainer's timer write each step,
+   prune, epoch and validation to the run's ``perf.jsonl``. Launch counts
+   set to 0 before and read after: the encodes, scatters and dbary the
+   sampled cameras, the prunes and the validation chunks imply, the
+   gathers never. Then ``--valid-only --pretrained`` the final checkpoint
+   must reproduce the final metrics exactly. While the run goes, the first
+   call of each kernel at each N the training path gives it is recorded
+   (the dense microbatch's N = 4096 x 96 = 393,216, the seed prune's packed
+   B, the voxel stage's packed B); after it, each is held against its plain
+   version there: the single and dual encode on the recorded coordinates
+   with random tables (the encode phase's per-level bound, the kept
+   idx/bary by the boundary rule), the single and dual scatter (64 eps) and
+   dbary (4 eps) on the recorded idx, bary, cotangents and tables (the dual
+   scatter also where the path ran only the single one, its second
+   cotangent random); their times and bounds. Each epoch's wall and
+   losses, the prunes' walls and kept shares, B and the truncated share;
+   run directories under ``pagnerf_tpu_torch/_build/cli``.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -1439,6 +1465,331 @@ def phase_validate(dev, flush):
     return all_launches, times, val_launches
 
 
+CLI_CONFIG = "configs/synthetic/schedule_preds_flagship_tuned_60ep.yaml"
+# the tuned config's milestones moved into 4 epochs: epoch 0 dense RGB on the
+# ray march with the LoD window opening over it; the learning rate's first
+# step after epoch 0's 12 steps; epoch 1 the seed prune (packed layout) and,
+# at its end, the real prune; epoch 2 the voxel march and the panoptic heads
+# (sem_conf / inst_conf from the config); epoch 3 a val-pose epoch; a
+# checkpoint after epochs 1 and 3, a validation after epoch 3, then the
+# final checkpoint and the final validation
+CLI_FLAGS = ["--epochs", "4", "--lod-annel-epochs", "1", "--lr-step-size", "1",
+             "--seed-prune-epoch", "1", "--prune-every", "-1", "--prune-at-epoch", "1",
+             "--voxel-raymarch-epoch-start", "1", "--sem-epoch-start", "2",
+             "--inst-epoch-start", "2", "--val-extrinsics-start", "3",
+             "--val-extrinsics-every", "3", "--valid-every", "4", "--save-every", "2"]
+
+
+def cli_launches(steps, anchor, renders, prunes, prune_chunks):
+    """The launches a ``cli.main`` run implies: per training microbatch (one
+    image; ``steps`` are the timer's ``train_step`` records) one encode and
+    one table-gradient scatter, dual when the stage renders a panoptic
+    channel, and dbary when its camera is not an anchor frame; per prune the
+    single encode once per chunk of 65,536 cell points per jittered sample
+    (``prune_chunks``); per rendered validation chunk one encode, dual when
+    the validation renders a panoptic channel."""
+    keys = _launches()
+    expected = {k: 0 for k in keys}
+    for s_ in steps:
+        dual = bool(set(s_["channels"]) & {"semantics", "inst_embedding"})
+        for cam in s_["cam_idx"]:
+            expected["dual_encode" if dual else "encode"] += 1
+            expected["dual_table_grad" if dual else "table_grad"] += 1
+            expected["dbary"] += int(not anchor[cam])
+    expected["encode"] += prunes * prune_chunks
+    for channels, chunks in renders:
+        dual = bool(set(channels) & {"semantics", "inst_embedding"})
+        expected["dual_encode" if dual else "encode"] += chunks
+    return expected
+
+
+def recorded_kernel_checks(spec, calls, dev, flush):
+    """Each kernel of the training path at each N it ran at in a ``cli.main``
+    run (``calls``: the first call per kernel and N, recorded as the path
+    made it), through its wrapper on the card against its plain version:
+    the encodes on the recorded coordinates with random tables (outputs and
+    the kept idx/bary by ``encode_vs_plain``); the scatters (64 eps_f32 of
+    each entry's sum of |bary * g|) and dbary (4 eps_f32 of sum_f |g * T|)
+    on the recorded idx, bary, cotangents and tables. Where the path ran
+    the single scatter at an N and not the dual one, the dual runs there too
+    on the single's events, the second cotangent random. Returns (checks,
+    times), keyed by kernel and then N."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    from pagnerf_tpu_torch.ops import table_gather as tg
+
+    l, c, f = spec.num_levels, spec.capacity, spec.feature_dim
+    st = pe.level_statics(spec.scales, c, f)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ta = torch.randn((l, c, f), generator=gen, device=dev)
+    tb = torch.randn((l, c, f), generator=gen, device=dev)
+    a, b = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    for (kind, n), rec in list(calls.items()):
+        if kind == "table_grad" and ("dual_table_grad", n) not in calls:
+            calls[("dual_table_grad", n)] = dict(
+                rec, g_b=torch.randn(rec["g"].shape, generator=gen, device=dev),
+                g_b_random=True)
+    checks, times = {}, {}
+
+    def scatter_worst(got, idx, bary, gs, rows_used):
+        worst = 0.0
+        for d_, g_ in zip(got, gs):
+            diff = (d_ - tg.table_grad_plain(idx, bary, g_, c, rows_used)).abs()
+            tol_ = 64 * F32_EPS * tg.table_grad_plain(idx, bary.abs(), g_.abs(), c,
+                                                      rows_used)
+            worst = max(worst, (diff / tol_.clamp(min=1e-30)).max().item())
+        return worst
+
+    for (kind, n), rec in sorted(calls.items()):
+        key = str(n)
+        if kind in ("encode", "dual_encode"):
+            x = rec["x"]
+            if kind == "encode":
+                out = pe.fused_encode(a, x, spec.scales)
+                _, idx, bary, _ = out.grad_fn.saved_tensors
+                ch = encode_vs_plain(spec, x, (ta,), (out.detach(),), idx, bary)
+                kern = lambda: pe.fused_encode(a, x, spec.scales)
+                plain = lambda: pe.encode_plain(ta, x, spec.scales)
+            else:
+                oa, ob = pe.fused_encode_dual(a, b, x, spec.scales)
+                _, idx, bary, _ = oa.grad_fn.saved_tensors
+                ch = encode_vs_plain(spec, x, (ta, tb), (oa.detach(), ob.detach()), idx,
+                                     bary)
+                kern = lambda: pe.fused_encode_dual(a, b, x, spec.scales)
+                plain = lambda: pe.dual_encode_plain(ta, tb, x, spec.scales)
+            out = oa = ob = idx = bary = None
+            bound_ms, bound_by, _, _ = encode_bound(l, c, f, n, 1 if kind == "encode" else 2,
+                                                    4, True, st.rows_used)
+            tm = dict(with_idx_bary=True, max_abs_err=ch["max_abs_err"])
+        elif kind == "dbary":
+            args = (rec["tables"], rec["idx"], rec["g"])
+            got = tg.multilevel_gather_dbary(*args)
+            diff = (got - tg.gather_dbary_plain(*args)).abs()
+            mag = tg.gather_dbary_plain(rec["tables"].abs(), rec["idx"], rec["g"].abs())
+            worst = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+            ch = dict(N=n, max_abs_err=diff.max().item(), worst_err_over_tol=worst,
+                      tol="4 eps_f32 * sum_f |g*T| per entry", ok=worst <= 1.0)
+            del got, diff, mag
+            kern = lambda: tg.multilevel_gather_dbary(*args)
+            plain = lambda: tg.gather_dbary_plain(*args)
+            bound_ms, bound_by, _, _ = dbary_bound(l, c, f, n, st.rows_used)
+            tm = dict(max_abs_err=ch["max_abs_err"])
+        else:
+            plan = dict(rows_used=rec["rows_used"], modes=rec["modes"])
+            idx, bary, c_ = rec["idx"], rec["bary"], rec["c"]
+            if kind == "table_grad":
+                gs = (rec["g"],)
+                kern = lambda: tg.multilevel_table_grad(idx, bary, gs[0], c_, **plan)
+                plain = lambda: tg.table_grad_plain(idx, bary, gs[0], c_)
+                got = (kern(),)
+            else:
+                gs = (rec["g"], rec["g_b"])
+                kern = lambda: tg.dual_multilevel_table_grad(idx, bary, *gs, c_, **plan)
+                plain = lambda: tg.dual_table_grad_plain(idx, bary, *gs, c_)
+                got = kern()
+            worst = scatter_worst(got, idx, bary, gs, rec["rows_used"])
+            del got
+            ch = dict(N=n, worst_err_over_tol=worst,
+                      tol="64 eps_f32 * sum|bary*g| per entry", ok=worst <= 1.0,
+                      **({"g_b": "random"} if rec.get("g_b_random") else {}))
+            bound_ms, bound_by, _, _ = scatter_bound(l, c, f, n, len(gs))
+            tm = dict(worst_err_over_tol=worst)
+        checks.setdefault(kind, {})[key] = ch
+        times.setdefault(kind, {})[key] = dict(
+            N=n, **tm, ms=cuda_ms(kern, flush=flush), plain_ms=cuda_ms(plain, reps=5, flush=flush),
+            bound_ms=bound_ms, bound_by=bound_by)
+    del a, b, ta, tb
+    return checks, times
+
+
+class _Spied:
+    """A module as one caller sees it, some of its functions replaced: the
+    module's own functions still find the originals (and their launch
+    counts) by their global names."""
+
+    def __init__(self, module, **replaced):
+        self._module = module
+        self.__dict__.update(replaced)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def phase_cli(dev, flush):
+    """Main path 6: ``cli.main`` on the tuned 60-epoch config at full width
+    for 4 epochs (``CLI_FLAGS``, with ``--perf``: the trainer's timer writes
+    each step, prune, epoch and validation to the run's ``perf.jsonl``),
+    launch counts set to 0 before and read after; then ``--valid-only
+    --pretrained`` the final checkpoint, which must reproduce the final
+    validation's metrics exactly. Each epoch's wall and losses, the prunes'
+    walls and kept shares, the packed B and the truncated share. While the
+    run goes, the first call of each kernel at each N of the training path
+    (the dense N = 4096 x 96 = 393,216, the seed prune's B, the voxel
+    stage's B) is recorded; after it, each is held against its plain
+    version there (``recorded_kernel_checks``), with times and bounds."""
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.quality_run import packing, read_perf, summary
+    from pagnerf_tpu_torch.train.trainer import PanopticTrainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log_root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "cli")
+    shutil.rmtree(log_root, ignore_errors=True)
+    argv = ["--config", os.path.join(ROOT, CLI_CONFIG), "--device", "cuda",
+            "--log-dir", log_root, "--perf"] + CLI_FLAGS
+    trainers, renders, calls, pack_totals = [], [], {}, {}
+    get_modules = cli.get_modules_from_config
+    batch_render = PanopticTrainer.batch_render
+    encode_t, encode_dual_t = pe.PermutoEncodingSpec.encode_T, pe.PermutoEncodingSpec.encode_dual_T
+    table_grad, dual_table_grad = tg.multilevel_table_grad, tg.dual_multilevel_table_grad
+    dbary = tg.multilevel_gather_dbary
+
+    def keep(kind, n, make):
+        # the first call of a kernel at an N, as the path made it
+        if (kind, n) not in calls:
+            calls[(kind, n)] = make()
+
+    def modules_spy(*args, **kwargs):
+        out = get_modules(*args, **kwargs)
+        trainers.append(out[2])
+        return out
+
+    def render_spy(self, rays, channels, *args, **kwargs):
+        rb = batch_render(self, rays, channels, *args, **kwargs)
+        renders.append((tuple(sorted(channels)), len(self.last_render)))
+        return rb
+
+    def encode_spy(self, tables, coordsT, *args, **kwargs):
+        if torch.is_grad_enabled():
+            keep("encode", coordsT.shape[1],
+                 lambda: {"x": coordsT.detach().float().contiguous().clone()})
+        return encode_t(self, tables, coordsT, *args, **kwargs)
+
+    def encode_dual_spy(self, tables_a, tables_b, coordsT, *args, **kwargs):
+        if torch.is_grad_enabled():
+            keep("dual_encode", coordsT.shape[1],
+                 lambda: {"x": coordsT.detach().float().contiguous().clone()})
+        return encode_dual_t(self, tables_a, tables_b, coordsT, *args, **kwargs)
+
+    def table_grad_spy(idx, bary, g, capacity, rows_used=None, modes=None):
+        keep("table_grad", idx.shape[2], lambda: dict(
+            idx=idx.clone(), bary=bary.clone(), g=g.clone(), c=capacity,
+            rows_used=rows_used, modes=modes))
+        return table_grad(idx, bary, g, capacity, rows_used, modes)
+
+    def dual_table_grad_spy(idx, bary, g_a, g_b, capacity, rows_used=None, modes=None):
+        keep("dual_table_grad", idx.shape[2], lambda: dict(
+            idx=idx.clone(), bary=bary.clone(), g=g_a.clone(), g_b=g_b.clone(), c=capacity,
+            rows_used=rows_used, modes=modes))
+        return dual_table_grad(idx, bary, g_a, g_b, capacity, rows_used, modes)
+
+    def dbary_spy(tables, idx, g):
+        keep("dbary", idx.shape[2], lambda: dict(tables=tables.clone(), idx=idx.clone(),
+                                                 g=g.clone()))
+        return dbary(tables, idx, g)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with packing(pack_totals), \
+         mock.patch.object(cli, "get_modules_from_config", modules_spy), \
+         mock.patch.object(PanopticTrainer, "batch_render", render_spy), \
+         mock.patch.object(pe.PermutoEncodingSpec, "encode_T", encode_spy), \
+         mock.patch.object(pe.PermutoEncodingSpec, "encode_dual_T", encode_dual_spy), \
+         mock.patch.object(pe, "table_gather", _Spied(
+             tg, multilevel_table_grad=table_grad_spy,
+             dual_multilevel_table_grad=dual_table_grad_spy,
+             multilevel_gather_dbary=dbary_spy)):
+        final = cli.main(argv + ["--exp-name", "train"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer = trainers[0]
+    run_dir, records = read_perf(log_root, "train")
+    anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+    summ = summary(records, pack_totals)
+    steps = [r for r in records if r["name"] == "train_step"]
+    prunes = [r for r in records if r["name"] == "prune"]
+    expected = cli_launches(steps, anchor, renders, len(prunes),
+                            max(1, trainer.cfg.prune_samples_per_cell)
+                            * math.ceil(trainer.occ.res ** 3 / 65536))
+    epochs = [{"epoch": r["epoch"], "s": r["ms"] / 1e3, "losses": r["losses"],
+               "stages": sorted({s_["stage"] for s_ in steps if s_["epoch"] == r["epoch"]})}
+              for r in records if r["name"] == "epoch"]
+    fields = dict(config=CLI_CONFIG, flags=" ".join(CLI_FLAGS), wall_s=wall, epochs=epochs,
+                  prunes=summ["prunes"], stages=summ["stages"], packing=summ["packing"],
+                  validations=summ["validations"], launches=launches,
+                  expected_launches=expected, peak_allocated_gib=peak_gb,
+                  lr_after={g: trainer.opt.lr(g) for g in ("grid", "decoder")},
+                  opt_count=trainer.opt.count["grid"], final_metrics=final,
+                  recorded_calls=sorted(f"{k}@{n}" for k, n in calls))
+
+    def fail(msg):
+        emit("cli", ok=False, **fields)
+        raise AssertionError(msg)
+
+    stages = [e["stages"] for e in epochs]
+    if stages != [["ray_dense_rgb"], ["ray_packed_rgb"], ["voxel_packed_panoptic"],
+                  ["val_pose"]]:
+        fail(f"the 4 epochs ran the stages {stages}")
+    if [(p["epoch"], p["seed"]) for p in prunes] != [(1, True), (1, False)]:
+        fail(f"prunes {prunes}: expected the seed prune and the real prune in epoch 1")
+    if launches != expected:
+        fail(f"cli.main launched {launches}, expected {expected}")
+    if not (launches["encode"] and launches["dual_encode"] and launches["table_grad"]
+            and launches["dual_table_grad"] and launches["dbary"]):
+        fail("a kernel of the path was not launched")
+    if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
+        fail("a loss is not finite")
+    if not (all(np.isfinite(v) for v in final.values())
+            and {"val/iou_gain", "val/pq_things_gain", "val/map_pred"} <= set(final)):
+        fail("final metrics not finite or incomplete")
+    fields["checkpoint_bytes"] = os.path.getsize(os.path.join(run_dir, "model.ckpt"))
+
+    # --valid-only --pretrained the final checkpoint: the same metrics
+    _reset_launches()
+    again = cli.main(argv + ["--exp-name", "valid_only", "--valid-only", "--pretrained",
+                             os.path.join(run_dir, "model.ckpt")])
+    torch.cuda.synchronize()
+    fields["valid_only_launches"] = _launches()
+    differ = {k: (final[k], again.get(k)) for k in final
+              if k != "val/render_time_per_img" and final[k] != again.get(k)}
+    fields.update(valid_only_metrics=again, valid_only_differs=differ)
+    if differ or sorted(again) != sorted(final):
+        fail(f"--valid-only --pretrained did not reproduce the final metrics: {differ}")
+
+    # every kernel of the training path at each N it ran at, against plain
+    spec = trainer.pipeline.nef.grid.spec
+    dense_n = trainer.cfg.num_rays_sampled_per_img * trainer.pipeline.tracer_cfg.num_steps
+    packed_b = sorted({b for st_ in summ["stages"].values() for b in st_["B"]})
+    want = {"encode": {dense_n, *packed_b}, "dual_encode": set(summ["stages"][
+        "voxel_packed_panoptic"]["B"]), "table_grad": {dense_n, *packed_b},
+        "dbary": {dense_n, *packed_b}}
+    fields.update(dense_N=dense_n, packed_B=packed_b)
+    for kind, ns in want.items():
+        missing = ns - {n for k, n in calls if k == kind}
+        if missing:
+            fail(f"no {kind} call was recorded at N = {sorted(missing)}")
+    del trainer, trainers
+    checks, times = recorded_kernel_checks(spec, calls, dev, flush)
+    calls.clear()
+    fields.update(kernel_checks=checks, kernel_times=times)
+    if not all(ch["ok"] for by_n in checks.values() for ch in by_n.values()):
+        fail(f"a kernel at one of this path's N outside its tolerance: {checks}")
+    emit("cli", **fields)
+    torch.cuda.empty_cache()
+    return launches, times
+
+
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
     import torch
@@ -1485,6 +1836,7 @@ def main() -> None:
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
     paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
+    paths["cli"], cli_times = phase_cli(dev, flush_buf.zero_)
     del flush_buf
 
     # ---------------------------------------------------------------- report
@@ -1518,6 +1870,7 @@ def main() -> None:
         row["validation"] = {"launches": val_launches[key],
                              **({"pre_prune": val_times["pre_prune"]} if name == "single"
                                 else {"final": val_times["final"], "map": val_times["map"]})}
+        row["cli"] = cli_times[key]
         rows.append(row)
     for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
                                 ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):
@@ -1554,6 +1907,8 @@ def main() -> None:
         if name in ("table_grad_dual", "gather_dbary"):
             row["post_prune"] = post["dual_table_grad_B" if name == "table_grad_dual"
                                      else "dbary_B"]
+        if key in cli_times:
+            row["cli"] = cli_times[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

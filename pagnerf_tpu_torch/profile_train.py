@@ -1,6 +1,7 @@
 """Where the flagship training step's time goes, on the CUDA card.
 
     python -m pagnerf_tpu_torch.profile_train [rgb|panoptic|post_prune]
+    python -m pagnerf_tpu_torch.profile_train tuned_rgb [tuned_post_prune --pretrained CKPT]
 
 Prints one JSON object for one stage (default: all three, one object each):
 the wall time of a whole step and of one microbatch's forward + backward
@@ -15,11 +16,18 @@ device kernels of one profiled microbatch with their summed device time
 one non-anchor camera's 4096 rays: 512 dense steps in the pre-prune stages
 ('rgb', 'panoptic' at epoch 2); for 'post_prune', the first panoptic stage
 past ``train_flagship_schedule``'s prune and scene fixture (epoch 601): the
-voxel march's 256 steps packed into pack_steps x 4096 samples.
+voxel march's 256 steps packed into pack_steps x 4096 samples. The
+'tuned_*' stages are ``configs/synthetic/schedule_preds_flagship_tuned_60ep.yaml``
+built by the factory (``cli``'s trainer): 'tuned_rgb' its epoch-0 stage, one
+image's 4096 rays x 96 dense steps (N = 393,216); 'tuned_post_prune' the
+stage of the last epoch a checkpoint of that config ran (``--pretrained``,
+e.g. the ``model.ckpt`` of a ``quality_run``: its trained prune's occupancy
+and packed budget).
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -28,14 +36,30 @@ import time
 import numpy as np
 import torch
 
+from .config.config import parse_options
+from .config.factory import get_modules_from_config
 from .core.rays import Rays
 from .entry import post_prune_epochs, train_flagship, train_flagship_schedule
 from .ops import permuto_encoding, table_gather
 from .ops.assignment import lap_assign
 from .ops.packed import pack_samples, segment_broadcast
 from .ops.raymarch import raymarch
+from .train.checkpoint import load_checkpoint
 
 STAGES = ("rgb", "panoptic", "post_prune")
+TUNED_STAGES = ("tuned_rgb", "tuned_post_prune")
+TUNED_CONFIG = "configs/synthetic/schedule_preds_flagship_tuned_60ep.yaml"
+
+
+def tuned_trainer(pretrained=None, device="cuda"):
+    """The tuned config's trainer as ``cli`` builds it, with ``pretrained``
+    restored."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = parse_options(["--config", os.path.join(root, TUNED_CONFIG)])
+    trainer = get_modules_from_config(args, device)[2]
+    if pretrained:
+        load_checkpoint(pretrained, trainer)
+    return trainer
 
 
 def _event_ms(fn, reps: int = 5) -> float:
@@ -64,8 +88,14 @@ def _wall_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_stage(stage_name: str, card: str, device="cuda") -> dict:
-    if stage_name == "post_prune":
+def profile_stage(stage_name: str, card: str, device="cuda", pretrained=None) -> dict:
+    if stage_name == "tuned_rgb":
+        trainer = tuned_trainer(device=device)
+        stage = trainer.stage_for_epoch(0)
+    elif stage_name == "tuned_post_prune":
+        trainer = tuned_trainer(pretrained, device)
+        stage = trainer.stage_for_epoch(trainer.epoch - 1)
+    elif stage_name == "post_prune":
         trainer, _ = train_flagship_schedule(steps=0, val_pose_steps=0, device=device)
         stage = trainer.stage_for_epoch(post_prune_epochs(trainer, 1, 0)[0])
     else:
@@ -196,11 +226,19 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=20, check=True).stdout.strip()
-    for stage_name in (sys.argv[1:] or STAGES):
-        if stage_name not in STAGES:
-            raise SystemExit(f"profile_train: stage must be one of {STAGES}")
+    argv = sys.argv[1:]
+    pretrained = None
+    if "--pretrained" in argv:
+        i = argv.index("--pretrained")
+        pretrained = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    for stage_name in (argv or STAGES):
+        if stage_name not in STAGES + TUNED_STAGES:
+            raise SystemExit(f"profile_train: stage must be one of {STAGES + TUNED_STAGES}")
+        if stage_name == "tuned_post_prune" and not pretrained:
+            raise SystemExit("profile_train: tuned_post_prune needs --pretrained CKPT")
         torch.cuda.reset_peak_memory_stats()
-        print(json.dumps(profile_stage(stage_name, card)), flush=True)
+        print(json.dumps(profile_stage(stage_name, card, pretrained=pretrained)), flush=True)
 
 
 if __name__ == "__main__":

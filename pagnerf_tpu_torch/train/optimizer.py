@@ -18,14 +18,23 @@ unused. Here a missing gradient is a zero gradient, as it is in JAX.
 - a step with any non-finite gradient changes nothing: parameters, moments
   and counts stay bit-identical.
 
-Ported: Adam with the constant schedule. The other optimizers, weight decay
-and the learning-rate schedules raise.
+The learning rate of each group follows its schedule (``lr_schedule``):
+constant, or with ``use_lr_scheduler`` the ``step``, ``one_cycle`` and
+``panoptic_step`` schedules of the JAX package. As optax's
+``scale_by_schedule`` does, the rate of an update is read at the group's
+count *before* the update increments it, while Adam's bias correction uses
+the incremented count. The counts run on across ``reset_moments``; a skipped
+step changes no count, so it moves no schedule either.
+
+Ported: Adam with every schedule. The other optimizers and weight decay
+raise.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 
@@ -74,11 +83,86 @@ def label_for_path(path: str) -> str:
 
 
 def group_lr(cfg: OptimizerConfig, group: str) -> float:
+    """The group's base learning rate."""
     return {"decoder": cfg.lr, "sem": cfg.lr, "inst": cfg.lr, "rest": cfg.lr,
             "grid": cfg.lr * cfg.grid_lr_weight,
             "delta_grid": cfg.lr * cfg.delta_grid_lr_weight,
             "extrinsics": cfg.extrinsics_lr if cfg.extrinsics_lr >= 0 else cfg.lr,
             }[group]
+
+
+Schedule = Callable[[int], float]
+
+
+def _staircase_decay(init: float, transition_steps: int, rate: float) -> Schedule:
+    """``optax.exponential_decay(init, transition_steps, rate, staircase=True)``
+    as XLA compiles it: float32 throughout, and the division of the count by
+    the constant ``transition_steps`` a product with its float32 reciprocal,
+    so at some multiples of it (41, 47, 55, 61, ... steps) the floor, and the
+    decay, come one step late."""
+    init32, rate32 = np.float32(init), np.float32(rate)
+    recip = np.float32(1.0) / np.float32(transition_steps)
+
+    def lr(count: int) -> float:
+        if count <= 0:
+            return float(init32)
+        p = np.floor(np.float32(count) * recip)
+        return float(init32 * np.power(rate32, p))
+    return lr
+
+
+def _linear_onecycle(transition_steps: int, peak: float, pct_start: float,
+                     div_factor: float, final_div_factor: float) -> Schedule:
+    """``optax.linear_onecycle_schedule`` (``pct_final`` 0.85) as XLA
+    compiles its piecewise-linear form: the boundaries and values in float64
+    on the host, then per interval one float32 slope ``(end - start) * (1 /
+    interval)`` and one fused multiply-add ``(count - bound) * slope +
+    start``; past the last boundary the last value."""
+    scales = {int(pct_start * transition_steps): div_factor,
+              int(0.85 * transition_steps): 1.0 / div_factor,
+              transition_steps: 1.0 / final_div_factor}
+    bounds, factors = zip(*sorted(scales.items()))
+    bounds = (0,) + bounds
+    values = np.cumprod(np.array((peak / div_factor,) + factors))
+    starts = values[:-1].astype(np.float32)
+    slopes = ((values[1:] - values[:-1]).astype(np.float32)
+              * (np.float32(1.0) / np.diff(bounds).astype(np.float32)))
+    last = np.float32(values[-1])
+
+    def lr(count: int) -> float:
+        for i in range(len(bounds) - 1):
+            if bounds[i] <= count < bounds[i + 1]:
+                x = float(np.float32(count - bounds[i]))
+                # one rounding of x * slope + start (x * slope is exact in float64)
+                return float(np.float32(x * float(slopes[i]) + float(starts[i])))
+        return float(last) if count >= bounds[-1] else 0.0
+    return lr
+
+
+def lr_schedule(cfg: OptimizerConfig, group: str) -> Schedule:
+    """The group's learning rate as a function of its count (the JAX
+    package's ``_schedule``): constant without ``use_lr_scheduler``;
+    ``step`` decays every group by ``lr_step_gamma`` every ``lr_step_size``
+    epochs; ``one_cycle`` runs over ``num_epochs + 1`` epochs; ``panoptic_step``
+    decays only the sem, inst and delta_grid groups."""
+    base = group_lr(cfg, group)
+    const = float(np.float32(base))
+    if not cfg.use_lr_scheduler:
+        return lambda count: const
+    spe = max(cfg.steps_per_epoch, 1)
+    kind = cfg.lr_scheduler_type
+    if kind == "step" or (kind == "panoptic_step"
+                          and group in ("sem", "inst", "delta_grid")):
+        if cfg.lr_step_size <= 0:
+            return lambda count: const
+        return _staircase_decay(base, cfg.lr_step_size * spe, cfg.lr_step_gamma)
+    if kind == "panoptic_step":
+        return lambda count: const
+    if kind == "one_cycle":
+        return _linear_onecycle((cfg.num_epochs + 1) * spe, base,
+                                cfg.lr_warmup_epochs / max(cfg.num_epochs, 1),
+                                cfg.lr_div_factor, cfg.lr_div_factor)
+    raise ValueError(f"unknown lr scheduler {kind!r}")
 
 
 class MaskedAdam:
@@ -89,14 +173,13 @@ class MaskedAdam:
                  params: Mapping[str, torch.Tensor]):
         unported = [name for name, on in (
             (f"optimizer_type={cfg.optimizer_type!r}", cfg.optimizer_type != "adam"),
-            ("weight_decay", cfg.weight_decay > 0),
-            ("use_lr_scheduler", cfg.use_lr_scheduler)) if on]
+            ("weight_decay", cfg.weight_decay > 0)) if on]
         if unported:
             raise NotImplementedError(f"optimizer settings not ported yet: {unported}")
         self.cfg = cfg
         self.params = dict(params)
         self.group = {name: label_for_path(name) for name in self.params}
-        self.lr = {g: group_lr(cfg, g) for g in GROUPS}
+        self.schedule = {g: lr_schedule(cfg, g) for g in GROUPS}
         self.count = {g: 0 for g in GROUPS}
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
@@ -121,6 +204,9 @@ class MaskedAdam:
         finite = all(bool(torch.isfinite(x).all()) for x in g.values())
         if not finite:
             return False
+        # the rate at the count before this update, as optax reads it
+        neg_lr = {grp: torch.tensor(-self.lr(grp), dtype=torch.float32)
+                  for grp in GROUPS}
         for grp in GROUPS:
             self.count[grp] += 1
         for n, p in self.params.items():
@@ -134,9 +220,13 @@ class MaskedAdam:
             bc2 = 1 - torch.tensor(_B2, dtype=torch.float32) ** t
             step = (mu / bc1.to(mu.device)) / (
                 torch.sqrt(nu / bc2.to(nu.device)) + self.cfg.eps)
-            p.add_(step * (-self.lr[grp]))
+            p.add_(step * neg_lr[grp].to(step.device))
             self.mu[n], self.nu[n] = mu, nu
         return True
+
+    def lr(self, group: str) -> float:
+        """The group's learning rate for its next update."""
+        return self.schedule[group](self.count[group])
 
     def reset_moments(self) -> None:
         """Zero every Adam moment and keep each group's count, as the JAX

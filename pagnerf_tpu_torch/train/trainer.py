@@ -21,18 +21,21 @@ the packed and compacted layouts after a prune and the val-pose epochs; the
 losses of the RGB, semantic and ``linear_assignment_things`` heads (with the
 repeated-ID rejection and the segment-consistency regulariser);
 ``train_step``; ``prune`` (real and seed), ``should_prune``,
-``maybe_seed_prune``, ``run_epoch`` and ``train``. ``run_epoch`` reads each
-step's losses back before the next step (the JAX package's
-``dispatch_ahead`` is not ported). ``batch_render`` is the chunked
-full-image render that validation and the point-cloud map call. Not ported
-yet, and refused by ``stage_for_epoch``: the TV regularisers,
-``sup_contrastive`` and the plain linear-assignment loss, LoD annealing and
-random LoD, the fused micro-step; TensoRF upsampling and checkpoints are not
-ported either.
+``maybe_seed_prune``, ``run_epoch`` and ``train``, with LoD annealing (the
+weights set once per epoch from the global step) and random LoD (a cut drawn
+from the numpy generator before each step's batch, so the sampled rays stay
+the JAX trainer's). ``run_epoch`` reads each step's losses back before the
+next step (the JAX package's ``dispatch_ahead`` is not ported) and times
+its phases, each prune and each epoch on ``timer`` (``--perf``).
+``batch_render`` is the chunked full-image render that validation and the
+point-cloud map call. Not ported yet, and refused by ``stage_for_epoch``:
+the TV regularisers, ``sup_contrastive`` and the plain linear-assignment
+loss, the fused micro-step; TensoRF upsampling is not ported either.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -48,7 +51,8 @@ from ..losses.regularizers import segment_consistency_regularizer
 from ..models.pipeline import BAPipeline, Pipeline
 from ..ops.occupancy import OccupancyGrid
 from ..ops.raymarch import raymarch
-from ..utils.lod_annealing import constant_lod_weights
+from ..utils.lod_annealing import constant_lod_weights, lod_weights
+from ..utils.logging_utils import PerfTimer
 from .optimizer import MaskedAdam, OptimizerConfig
 
 
@@ -158,6 +162,18 @@ class StageConfig:
     training_val_poses: bool
     extrinsics_on: bool
 
+    @property
+    def label(self) -> str:
+        """March, layout and heads (``ray_dense_rgb``, ``voxel_packed_panoptic``,
+        ...; ``val_pose`` for a val-pose epoch): the stage a ``--perf`` record
+        names. "panoptic" renders a semantic or instance channel (the dual
+        encode)."""
+        if self.training_val_poses:
+            return "val_pose"
+        layout = "packed" if self.pack_steps else ("compact" if self.compact_steps else "dense")
+        heads = ("panoptic" if self.channels & {"semantics", "inst_embedding"} else "rgb")
+        return f"{self.raymarch_type}_{layout}_{heads}"
+
 
 Draw = Callable[[Sequence[int]], torch.Tensor]
 
@@ -194,6 +210,8 @@ class PanopticTrainer:
             nef.grid_cfg.num_lods, nef.grid_cfg.feature_dim)).to(self.device)
         self.epoch = 0
         self.global_step = 0
+        # inactive unless the factory turns it on (--perf)
+        self.timer = PerfTimer(activate=False)
         self.log_dict: Dict[str, float] = {}
         # set by ``prune``: a prune has run (the packed or compacted layout
         # may follow), a real one has (seed refreshes stop), and the share of
@@ -241,7 +259,6 @@ class PanopticTrainer:
             f"inst_loss={cfg.inst_loss!r}": (use_inst and cfg.inst_loss
                                              != "linear_assignment_things"),
             "contrast_sem_weight (sup_contrastive)": use_sem and cfg.contrast_sem_weight > 0,
-            "LoD annealing / random LoD": cfg.lod_anneling or cfg.random_lod,
             "fused_micro_step": cfg.fused_micro_step,
         }
         asked = [k for k, v in unported.items() if v]
@@ -447,6 +464,7 @@ class PanopticTrainer:
         the occupancy, one float64 step down, then the float32 comparison.
         ``refresh=True`` (a seed refresh) does not dilate. A real prune
         resets the Adam moments and keeps the counts."""
+        t0 = time.perf_counter()
         cfg = self.cfg
         res3 = self.occ.res ** 3
         density = None
@@ -472,6 +490,8 @@ class PanopticTrainer:
         if not seed:
             self.opt.reset_moments()
             self._real_pruned = True
+        self.timer.record("prune", time.perf_counter() - t0, epoch=self.epoch, seed=seed,
+                          refresh=refresh, kept_share=self._occ_frac)
 
     # -------------------------------------------------------------- epochs
     def should_prune(self, epoch: int) -> bool:
@@ -494,25 +514,47 @@ class PanopticTrainer:
             self.prune(seed=True, keep_frac=cfg.seed_refresh_keep_frac, refresh=True)
 
     def run_epoch(self, epoch: int) -> Dict[str, float]:
-        """One epoch: the seed prune if due, ``steps_per_epoch`` steps of the
-        epoch's stage (a val-pose stage samples the 'val' split), then the
-        prune if due. Returns the epoch's mean losses; each step's losses are
-        read back before the next step starts."""
+        """One epoch: the seed prune if due, the LoD annealing weights at
+        the global step (from ``lod_annel_epoch_start``, over
+        ``lod_annel_epochs``), ``steps_per_epoch`` steps of the epoch's stage
+        (a val-pose stage samples the 'val' split; with ``random_lod`` each
+        step first draws the levels it keeps), then the prune if due.
+        Returns the epoch's mean losses; each step's losses are read back
+        before the next step starts, so the timer's host clock sees each
+        step's device work."""
+        t0 = time.perf_counter()
         cfg = self.cfg
         self.maybe_seed_prune(epoch)
         stage = self.stage_for_epoch(epoch)
+        grid = self.pipeline.nef.grid_cfg
+        if cfg.lod_anneling and epoch >= cfg.lod_annel_epoch_start:
+            self.lod_w = torch.from_numpy(lod_weights(
+                self.global_step, grid.num_lods, grid.feature_dim,
+                cfg.lod_annel_epochs, self.steps_per_epoch)).to(self.device)
         split = "val" if stage.training_val_poses else "train"
         totals: Dict[str, float] = {}
         for _ in range(self.steps_per_epoch):
+            if cfg.random_lod:
+                cut = int(self.rng.integers(1, grid.num_lods + 1))
+                w = np.zeros(grid.num_lods, np.float32)
+                w[:cut] = 1.0
+                self.lod_w = torch.from_numpy(np.repeat(w, grid.feature_dim)).to(self.device)
+            self.timer.reset()
             batch = self.dataset.sample_batch(self.rng, cfg.batch_size,
                                               cfg.num_rays_sampled_per_img, split)
+            self.timer.check("data_sample")
             for k, v in self.train_step(stage, batch).items():
                 totals[k] = totals.get(k, 0.0) + float(v)
+            self.timer.check("train_step", epoch=epoch, stage=stage.label,
+                             channels=sorted(stage.channels), pack_steps=stage.pack_steps,
+                             rays=cfg.num_rays_sampled_per_img,
+                             cam_idx=batch["cam_idx"].tolist())
         totals = {k: v / self.steps_per_epoch for k, v in totals.items()}
         if self.should_prune(epoch):
             self.prune()
         self.epoch = epoch + 1
         self.log_dict = totals
+        self.timer.record("epoch", time.perf_counter() - t0, epoch=epoch, losses=totals)
         return totals
 
     def train(self, on_epoch_end=None) -> None:

@@ -436,6 +436,29 @@ def test_encode_kernel_matches_plain_at_packed_b(dev, dtype):
     _assert_encode_matches_plain(spec, x, ta, tb, dtype, False)
 
 
+TUNED_N = 4096 * 96      # the tuned config's dense microbatch and validation chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_kernel_matches_plain_at_the_tuned_n(dev, dtype):
+    """N = 393,216, the tuned flagship config's (``cli``): cuBLAS's order of
+    the plain lattice's E @ s at this N is not probed, so the boundary rule
+    holds the vertices."""
+    spec, x, ta, tb = _encode_case(dev, 2, TUNED_N, dtype, levels=24, log2_c=18,
+                                   finest=0.04)
+    _assert_encode_matches_plain(spec, x, ta, tb, dtype, False)
+
+
+def test_encode_backward_on_the_forward_simplex_at_the_tuned_n(dev):
+    from pagnerf_tpu_torch.profile_encode import backward_rank_check
+    spec, x, ta, _ = _encode_case(dev, 2, TUNED_N, torch.float32, levels=24, log2_c=18,
+                                  finest=0.04)
+    g = torch.randn((24, 2, TUNED_N), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    r = backward_rank_check(ta, x, spec.scales, g)
+    assert r["dx_bit_equal"] or r["dx_err_over_max"] <= 1e-6, r
+
+
 def test_dual_scatter_matches_plain_at_packed_b(dev):
     spec, x, ta, tb = _encode_case(dev, 2, PACKED_B, torch.float32, levels=24, log2_c=18)
     st = pe.level_statics(spec.scales, spec.capacity, 2)

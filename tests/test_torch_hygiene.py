@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``pagnerf_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, the JAX package or ``__graft_entry__``,
 nor a package the card's machine lacks (cv2, PIL, imageio, sklearn,
-tensorboard); its kernel builds by nvcc + ctypes alone; its entry points
+tensorboard, yaml, msgpack, flax); its kernel builds by nvcc + ctypes alone; its entry points
 refuse to run on a host without a CUDA card unless asked for the CPU."""
 import ast
 import os
@@ -12,7 +12,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "pagnerf_tpu", "__graft_entry__")
 # not installed on the card's machine
-MISSING_ON_CARD = ("cv2", "PIL", "imageio", "sklearn", "tensorboard", "tensorboardX")
+MISSING_ON_CARD = ("cv2", "PIL", "imageio", "sklearn", "tensorboard", "tensorboardX",
+                   "yaml", "msgpack", "flax")
 
 
 def _port_sources():
@@ -97,7 +98,7 @@ def test_build_dir_is_ignored_by_git():
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
-    from pagnerf_tpu_torch import device, entry
+    from pagnerf_tpu_torch import cli, device, entry
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.entry()
@@ -111,6 +112,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         entry.validate_flagship(tiny=True, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", os.path.join(ROOT, "configs", "synthetic", "tiny.yaml")])
     assert device.resolve_device("cpu") == torch.device("cpu")
 
 

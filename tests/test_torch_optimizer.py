@@ -126,7 +126,8 @@ def test_group_labels_and_rates():
 
 def test_unported_settings_raise():
     p = {"w": torch.zeros(2)}
-    for kw in ({"optimizer_type": "sgd"}, {"weight_decay": 0.1},
-               {"use_lr_scheduler": True}):
+    for kw in ({"optimizer_type": "sgd"}, {"weight_decay": 0.1}):
         with pytest.raises(NotImplementedError):
             opt_t.MaskedAdam(opt_t.OptimizerConfig(**kw), p)
+    # ported since: the learning-rate schedules (tests/test_torch_schedules.py)
+    opt_t.MaskedAdam(opt_t.OptimizerConfig(use_lr_scheduler=True), p)

@@ -138,11 +138,13 @@ def test_stage_for_epoch_refuses_unported_parts():
     pipe.requires_grad_(True)
     rgb = PanopticTrainer(pipe, ds, TrainerConfig())
     rgb.stage_for_epoch(0)
-    # ported since: the val-pose epoch and the voxel march after the prune
+    # ported since: the val-pose epoch and the voxel march after the prune,
+    # LoD annealing and random LoD
     assert rgb.stage_for_epoch(10).training_val_poses
     assert rgb.stage_for_epoch(202).raymarch_type == "voxel"
-    for kw in ({"grid_tvl1_reg": 1e-3}, {"lod_anneling": True},
-               {"fused_micro_step": True},
+    for kw in ({"lod_anneling": True}, {"random_lod": True}):
+        PanopticTrainer(pipe, ds, TrainerConfig(**kw)).stage_for_epoch(0)
+    for kw in ({"grid_tvl1_reg": 1e-3}, {"fused_micro_step": True},
                {"inst_loss": "sup_contrastive", "sem_epoch_start": 0,
                 "inst_epoch_start": 0}):
         with pytest.raises(NotImplementedError):
