@@ -133,6 +133,29 @@ Phases, each printing one JSON line as it ends:
    losses, the prunes' walls and kept shares, B and the truncated share;
    run directories under ``pagnerf_tpu_torch/_build/cli``.
 
+11. bup20 -- main path 7: the flagship's own config,
+   ``configs/bup20/best.yaml``, through ``cli.main`` over a BUP20-format
+   tree of the synthetic scene that the port writes itself
+   (``data/bup20_tree.py``; 90 frames at 320x180, a quarter of BUP20's
+   1280x720 per side; the real BUP20 is not in the repository) under
+   ``pagnerf_tpu_torch/_build/bup20``: ``--validate-dataset`` (and
+   ``-deep``) report 0 errors on the tree and at least one on a copy with
+   a depth frame deleted; then training at the config's full width (24
+   LoDs x 2^18 x F=2, main and delta grid, hidden 64, 512 steps, 4096
+   rays x batch 6, max_depth 1.4) with only the epochs and the stage
+   starts and the periodic validation moved (``BUP20_FLAGS``): RGB
+   steps, panoptic steps, a validation at val_mip 2 (80x45) and the final
+   one at mip 0 (320x180, as best.yaml makes it), the sizes read from
+   what ``get_images`` returned. Launch counts set to 0 before and read
+   after: those the steps' cameras and the validation chunks imply. Each
+   kernel at each N the run gave it against its plain version
+   (``recorded_kernel_checks``), the validation's dual encodes without
+   idx/bary at N = 8000 x 512, 3600 x 512 and 1600 x 512 too, with times
+   and bounds. The loader's wall, the step wall and rays/s per stage, each
+   validation's wall and the metrics;
+   then the port's readers on a 1280x720 tree (every PNG row
+   Paeth-filtered): one RGB and one depth decode and the window's files.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -140,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -1512,8 +1536,10 @@ def recorded_kernel_checks(spec, calls, dev, flush):
     each entry's sum of |bary * g|) and dbary (4 eps_f32 of sum_f |g * T|)
     on the recorded idx, bary, cotangents and tables. Where the path ran
     the single scatter at an N and not the dual one, the dual runs there too
-    on the single's events, the second cotangent random. Returns (checks,
-    times), keyed by kernel and then N."""
+    on the single's events, the second cotangent random. Encodes
+    that the path ran under ``no_grad`` (kind + ``NO_IDX_BARY``: the
+    validation's chunks) run so here too, and only their outputs are held.
+    Returns (checks, times), keyed by kernel and then N."""
     import torch
 
     from pagnerf_tpu_torch.ops import permuto_encoding as pe
@@ -1543,25 +1569,25 @@ def recorded_kernel_checks(spec, calls, dev, flush):
 
     for (kind, n), rec in sorted(calls.items()):
         key = str(n)
-        if kind in ("encode", "dual_encode"):
-            x = rec["x"]
-            if kind == "encode":
-                out = pe.fused_encode(a, x, spec.scales)
-                _, idx, bary, _ = out.grad_fn.saved_tensors
-                ch = encode_vs_plain(spec, x, (ta,), (out.detach(),), idx, bary)
-                kern = lambda: pe.fused_encode(a, x, spec.scales)
-                plain = lambda: pe.encode_plain(ta, x, spec.scales)
-            else:
-                oa, ob = pe.fused_encode_dual(a, b, x, spec.scales)
-                _, idx, bary, _ = oa.grad_fn.saved_tensors
-                ch = encode_vs_plain(spec, x, (ta, tb), (oa.detach(), ob.detach()), idx,
-                                     bary)
-                kern = lambda: pe.fused_encode_dual(a, b, x, spec.scales)
-                plain = lambda: pe.dual_encode_plain(ta, tb, x, spec.scales)
-            out = oa = ob = idx = bary = None
-            bound_ms, bound_by, _, _ = encode_bound(l, c, f, n, 1 if kind == "encode" else 2,
-                                                    4, True, st.rows_used)
-            tm = dict(with_idx_bary=True, max_abs_err=ch["max_abs_err"])
+        if kind.startswith(("encode", "dual_encode")):
+            x, dual, grad = rec["x"], kind.startswith("dual"), not kind.endswith(NO_IDX_BARY)
+
+            def kern():
+                with torch.set_grad_enabled(grad):
+                    return (pe.fused_encode_dual(a, b, x, spec.scales) if dual
+                            else (pe.fused_encode(a, x, spec.scales),))
+            plain = lambda: (pe.dual_encode_plain(ta, tb, x, spec.scales) if dual
+                             else pe.encode_plain(ta, x, spec.scales))
+            outs = kern()
+            idx = bary = None
+            if grad:
+                _, idx, bary, _ = outs[0].grad_fn.saved_tensors
+            ch = encode_vs_plain(spec, x, (ta, tb) if dual else (ta,),
+                                 tuple(o.detach() for o in outs), idx, bary)
+            outs = idx = bary = None
+            bound_ms, bound_by, _, _ = encode_bound(l, c, f, n, 2 if dual else 1, 4, grad,
+                                                    st.rows_used)
+            tm = dict(with_idx_bary=grad, max_abs_err=ch["max_abs_err"])
         elif kind == "dbary":
             args = (rec["tables"], rec["idx"], rec["g"])
             got = tg.multilevel_gather_dbary(*args)
@@ -1616,37 +1642,32 @@ class _Spied:
         return getattr(self._module, name)
 
 
-def phase_cli(dev, flush):
-    """Main path 6: ``cli.main`` on the tuned 60-epoch config at full width
-    for 4 epochs (``CLI_FLAGS``, with ``--perf``: the trainer's timer writes
-    each step, prune, epoch and validation to the run's ``perf.jsonl``),
-    launch counts set to 0 before and read after; then ``--valid-only
-    --pretrained`` the final checkpoint, which must reproduce the final
-    validation's metrics exactly. Each epoch's wall and losses, the prunes'
-    walls and kept shares, the packed B and the truncated share. While the
-    run goes, the first call of each kernel at each N of the training path
-    (the dense N = 4096 x 96 = 393,216, the seed prune's B, the voxel
-    stage's B) is recorded; after it, each is held against its plain
-    version there (``recorded_kernel_checks``), with times and bounds."""
-    import shutil
+# the kind of an encode the path ran under no_grad (it writes no idx/bary)
+NO_IDX_BARY = "_no_idx_bary"
+
+
+@contextlib.contextmanager
+def recorded_run(calls, trainers, renders, pack_totals, no_grad=False):
+    """While a ``cli.main`` run goes: its trainer into ``trainers``, each
+    ``batch_render``'s channels and chunk count into ``renders``, the
+    packing totals (``quality_run.packing``) into ``pack_totals``, and the
+    first call of each kernel at each N the training path gives it into
+    ``calls`` (keyed by kernel and N, as ``recorded_kernel_checks`` takes
+    them: spied through a stand-in of ``table_gather`` that
+    ``permuto_encoding`` sees, so the wrappers' launch counts are
+    untouched). With ``no_grad`` also the first encode at each N that ran
+    under ``no_grad`` (the validation's chunks), as kind ``encode`` or
+    ``dual_encode`` + ``NO_IDX_BARY``."""
     from unittest import mock
 
-    import numpy as np
     import torch
 
     from pagnerf_tpu_torch import cli
     from pagnerf_tpu_torch.ops import permuto_encoding as pe
     from pagnerf_tpu_torch.ops import table_gather as tg
-    from pagnerf_tpu_torch.quality_run import packing, read_perf, summary
+    from pagnerf_tpu_torch.quality_run import packing
     from pagnerf_tpu_torch.train.trainer import PanopticTrainer
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    log_root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "cli")
-    shutil.rmtree(log_root, ignore_errors=True)
-    argv = ["--config", os.path.join(ROOT, CLI_CONFIG), "--device", "cuda",
-            "--log-dir", log_root, "--perf"] + CLI_FLAGS
-    trainers, renders, calls, pack_totals = [], [], {}, {}
     get_modules = cli.get_modules_from_config
     batch_render = PanopticTrainer.batch_render
     encode_t, encode_dual_t = pe.PermutoEncodingSpec.encode_T, pe.PermutoEncodingSpec.encode_dual_T
@@ -1668,16 +1689,17 @@ def phase_cli(dev, flush):
         renders.append((tuple(sorted(channels)), len(self.last_render)))
         return rb
 
-    def encode_spy(self, tables, coordsT, *args, **kwargs):
-        if torch.is_grad_enabled():
-            keep("encode", coordsT.shape[1],
+    def keep_encode(kind, coordsT):
+        if torch.is_grad_enabled() or no_grad:
+            keep(kind if torch.is_grad_enabled() else kind + NO_IDX_BARY, coordsT.shape[1],
                  lambda: {"x": coordsT.detach().float().contiguous().clone()})
+
+    def encode_spy(self, tables, coordsT, *args, **kwargs):
+        keep_encode("encode", coordsT)
         return encode_t(self, tables, coordsT, *args, **kwargs)
 
     def encode_dual_spy(self, tables_a, tables_b, coordsT, *args, **kwargs):
-        if torch.is_grad_enabled():
-            keep("dual_encode", coordsT.shape[1],
-                 lambda: {"x": coordsT.detach().float().contiguous().clone()})
+        keep_encode("dual_encode", coordsT)
         return encode_dual_t(self, tables_a, tables_b, coordsT, *args, **kwargs)
 
     def table_grad_spy(idx, bary, g, capacity, rows_used=None, modes=None):
@@ -1697,8 +1719,6 @@ def phase_cli(dev, flush):
                                                  g=g.clone()))
         return dbary(tables, idx, g)
 
-    _reset_launches()
-    t0 = time.perf_counter()
     with packing(pack_totals), \
          mock.patch.object(cli, "get_modules_from_config", modules_spy), \
          mock.patch.object(PanopticTrainer, "batch_render", render_spy), \
@@ -1708,6 +1728,39 @@ def phase_cli(dev, flush):
              tg, multilevel_table_grad=table_grad_spy,
              dual_multilevel_table_grad=dual_table_grad_spy,
              multilevel_gather_dbary=dbary_spy)):
+        yield
+
+
+def phase_cli(dev, flush):
+    """Main path 6: ``cli.main`` on the tuned 60-epoch config at full width
+    for 4 epochs (``CLI_FLAGS``, with ``--perf``: the trainer's timer writes
+    each step, prune, epoch and validation to the run's ``perf.jsonl``),
+    launch counts set to 0 before and read after; then ``--valid-only
+    --pretrained`` the final checkpoint, which must reproduce the final
+    validation's metrics exactly. Each epoch's wall and losses, the prunes'
+    walls and kept shares, the packed B and the truncated share. While the
+    run goes, the first call of each kernel at each N of the training path
+    (the dense N = 4096 x 96 = 393,216, the seed prune's B, the voxel
+    stage's B) is recorded; after it, each is held against its plain
+    version there (``recorded_kernel_checks``), with times and bounds."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.quality_run import read_perf, summary
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log_root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "cli")
+    shutil.rmtree(log_root, ignore_errors=True)
+    argv = ["--config", os.path.join(ROOT, CLI_CONFIG), "--device", "cuda",
+            "--log-dir", log_root, "--perf"] + CLI_FLAGS
+    trainers, renders, calls, pack_totals = [], [], {}, {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    with recorded_run(calls, trainers, renders, pack_totals):
         final = cli.main(argv + ["--exp-name", "train"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1790,6 +1843,229 @@ def phase_cli(dev, flush):
     return launches, times
 
 
+BUP20_CONFIG = "configs/bup20/best.yaml"
+# a quarter of BUP20's 1280x720 per side
+BUP20_SIZE = (320, 180)
+# only the schedule's milestones move: epoch 0 dense RGB on the ray march,
+# epochs 1-2 the panoptic heads (the val poses train every 10th epoch from
+# 1, so none here); the periodic validation (valid_every 100) after the
+# last epoch, at val_mip 2; then the final checkpoint and the final
+# validation, at mip 0 as best.yaml makes it (it sets no low_res_val)
+BUP20_FLAGS = ["--epochs", "3", "--sem-epoch-start", "1", "--inst-epoch-start", "1",
+               "--valid-every", "3"]
+
+
+def bup20_loader_at_full_size(root, size=(1280, 720)):
+    """A 1280x720 BUP20 tree (every PNG row Paeth-filtered, the slowest
+    rows to decode) and the walls of the port's readers on it: one RGB
+    and one depth frame, and the window's files of best.yaml's eval frame
+    (both subsets: RGB, depth, predictions with the depth filter, the
+    centre's COCO masks)."""
+    import shutil
+
+    from pagnerf_tpu_torch.data.bup20_tree import SEQUENCE, write_bup20_tree
+    from pagnerf_tpu_torch.data.formats.agrobot_base import BUP20SequenceDataset
+    from pagnerf_tpu_torch.data.image_io import read_png
+
+    shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "BUP_20")
+    t = time.perf_counter()
+    stamps = write_bup20_tree(tree, *size, supersample=1, paeth=True)
+    out = {"size": list(size), "write_s": time.perf_counter() - t}
+    frame = os.path.join(tree, SEQUENCE, f"{stamps[47]}.png")
+    t = time.perf_counter()
+    read_png(frame, "RGB")
+    out["rgb_decode_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    read_png(os.path.join(tree, SEQUENCE, "depth", os.path.basename(frame)))
+    out["depth_decode_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    frames = []
+    for sub in ("train", "val"):
+        ds = BUP20SequenceDataset(os.path.join(tree, "BUP_20.json"), subset=sub,
+                                  preds_rel_path="preds_mask2former", max_depth=1.4)
+        frames += ds[5]
+    out.update(window_files_s=time.perf_counter() - t, window_frames=len(frames))
+    del frames
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_bup20(dev, flush, card):
+    """Main path 7: the flagship's own config, ``configs/bup20/best.yaml``,
+    through ``cli.main`` over a BUP20-format tree of the synthetic scene
+    (``data/bup20_tree.py``: 90 frames at 320x180, a quarter of BUP20's
+    1280x720 per side; COCO polygons and RLE, image sets, 8-bit RGB and
+    16-bit depth PNGs, params.yaml, odometry, Mask2Former pickles) under
+    ``pagnerf_tpu_torch/_build/bup20``. First ``--validate-dataset`` (and
+    ``--validate-dataset-deep``) must report 0 errors, and at least one on
+    a copy with a depth frame deleted. Then ``cli.main`` trains best.yaml
+    at its full width (24 LoDs x 2^18 x F=2, main and delta grid, hidden
+    64, 512 ray-march steps, 4096 rays x batch 6, max_depth 1.4, so the
+    predictions are depth-filtered), only the epochs and the stage starts
+    moved (``BUP20_FLAGS``): RGB and panoptic steps, a validation at
+    val_mip 2 (80x45) and the final one at mip 0 (320x180), the sizes
+    read from what ``get_images`` returned. Launch counts set to 0 before
+    and read after: those the steps' cameras and the validation chunks
+    imply. Each kernel at each N the run gave it, the validation's
+    encodes (no idx/bary) at each chunk's N too, is held against its plain
+    version (``recorded_kernel_checks``). The loader's wall, the step wall
+    and rays/s per stage, each validation's wall and the metrics. Last,
+    the port's readers at BUP20's full size
+    (``bup20_loader_at_full_size``)."""
+    import io
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.config import factory
+    from pagnerf_tpu_torch.config.config import parse_options
+    from pagnerf_tpu_torch.data.bup20_tree import SEQUENCE, write_bup20_tree
+    from pagnerf_tpu_torch.data.multiview import MultiviewDataset
+    from pagnerf_tpu_torch.quality_run import read_perf, summary
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "bup20")
+    shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "data", "BUP_20")
+    t = time.perf_counter()
+    write_bup20_tree(tree, *BUP20_SIZE)
+    fields = dict(config=BUP20_CONFIG, flags=" ".join(BUP20_FLAGS), card=card,
+                  tree=os.path.relpath(tree, ROOT), size=list(BUP20_SIZE),
+                  tree_write_s=time.perf_counter() - t)
+
+    def fail(msg):
+        emit("bup20", ok=False, **fields)
+        raise AssertionError(msg)
+
+    # the validator: 0 errors on the tree, at least one on a broken copy
+    base = ["--config", os.path.join(ROOT, BUP20_CONFIG), "--dataset-path", tree]
+
+    def validate_(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            n = cli.main(argv + ["--validate-dataset"])
+        return n, buf.getvalue().strip().splitlines()[-1]
+
+    broken = os.path.join(root, "broken", "BUP_20")
+    shutil.copytree(tree, broken)
+    os.unlink(sorted(glob.glob(os.path.join(broken, SEQUENCE, "depth", "*.png")))[3])
+    checks = {"tree": validate_(base), "tree_deep": validate_(base + ["--validate-dataset-deep"]),
+              "broken": validate_(["--config", os.path.join(ROOT, BUP20_CONFIG),
+                                   "--dataset-path", broken])}
+    shutil.rmtree(os.path.dirname(broken))
+    fields["validate"] = {k: {"errors": n, "report": line} for k, (n, line) in checks.items()}
+    if checks["tree"][0] or checks["tree_deep"][0] or checks["broken"][0] < 1:
+        fail(f"--validate-dataset: {checks}")
+
+    # training best.yaml over the tree
+    log_root = os.path.join(root, "runs")
+    argv = base + ["--device", "cuda", "--log-dir", log_root, "--perf",
+                   "--exp-name", "train"] + BUP20_FLAGS
+    args = parse_options(cli.split_device(argv)[1])
+    trainers, renders, calls, pack_totals, loads, images = [], [], {}, {}, [], []
+    load_dataset, get_images = factory.load_dataset, MultiviewDataset.get_images
+
+    def load_spy(args):
+        t_ = time.perf_counter()
+        ds = load_dataset(args)
+        loads.append(time.perf_counter() - t_)
+        return ds
+
+    def images_spy(self, split="val", mip=0):
+        out = get_images(self, split, mip)
+        images.append((split, mip, tuple(out["imgs"].shape[:3])))
+        return out
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with recorded_run(calls, trainers, renders, pack_totals, no_grad=True), \
+            mock.patch.object(factory, "load_dataset", load_spy), \
+            mock.patch.object(MultiviewDataset, "get_images", images_spy):
+        final = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    trainer = trainers[0]
+    run_dir, records = read_perf(log_root, "train")
+    anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+    summ = summary(records, pack_totals)
+    steps = [r for r in records if r["name"] == "train_step"]
+    expected = cli_launches(steps, anchor, renders, 0, 0)
+    rays_per_step = trainer.cfg.num_rays_sampled_per_img * trainer.cfg.batch_size
+    stages = {k: dict(v, rays_per_s=(rays_per_step / (v["median_ms"] / 1e3)
+                                     if v["median_ms"] else None))
+              for k, v in summ["stages"].items()}
+    epochs = [{"epoch": r["epoch"], "s": r["ms"] / 1e3, "losses": r["losses"],
+               "stages": sorted({s_["stage"] for s_ in steps if s_["epoch"] == r["epoch"]})}
+              for r in records if r["name"] == "epoch"]
+    data = trainer.dataset.data
+    fields.update(
+        loader_s=loads[0], frames=int(data["imgs"].shape[0]),
+        train_frames=len(trainer.dataset.train_idxs), val_frames=len(trainer.dataset.val_idxs),
+        wall_s=wall, epochs=epochs, stages=stages, validations=summ["validations"],
+        val_mip=trainer.cfg.val_mip, validated_images=images, launches=launches,
+        expected_launches=expected,
+        peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        final_metrics=final, recorded_calls=sorted(f"{k}@{n}" for k, n in calls),
+        width={k: getattr(args, k) for k in (
+            "num_lods", "capacity_log_2", "delta_capacity_log_2", "feature_dim", "hidden_dim",
+            "num_steps", "num_rays_sampled_per_img", "batch_size", "max_depth", "val_mip",
+            "nef_type", "multiview_dataset_format")},
+        preds_kept_share=float((data["instance_pred"] > 0).mean()))
+    if [e["stages"] for e in epochs] != [["ray_dense_rgb"], ["ray_dense_panoptic"],
+                                         ["ray_dense_panoptic"]]:
+        fail(f"the 3 epochs ran the stages {[e['stages'] for e in epochs]}")
+    if launches != expected:
+        fail(f"cli.main launched {launches}, expected {expected}")
+    if not all(launches[k] for k in ("encode", "dual_encode", "table_grad",
+                                     "dual_table_grad", "dbary")):
+        fail("a kernel of the path was not launched")
+    if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
+        fail("a loss is not finite")
+    if not (all(np.isfinite(v) for v in final.values())
+            and {"val/psnr", "val/iou", "val/pq_things", "val/map"} <= set(final)):
+        fail("final metrics not finite or incomplete")
+    # a validation at val_mip 2 and the final one at mip 0, as rendered
+    w, h = BUP20_SIZE
+    want_images = [("val", 2, (len(trainer.dataset.val_idxs), h // 4, w // 4)),
+                   ("val", 0, (len(trainer.dataset.val_idxs), h, w))]
+    if trainer.cfg.val_mip != 2 or images != want_images:
+        fail(f"validated {images}, expected {want_images}")
+    # each validation image in chunks of render_batch rays, the last one shorter
+    rbatch, steps_ = trainer.cfg.render_batch, trainer.pipeline.tracer_cfg.num_steps
+    chunk_ns = {rays_ * steps_ for _, _, (_, hh, ww) in images
+                for rays_ in ([rbatch] * (hh * ww // rbatch) + [hh * ww % rbatch]) if rays_}
+    chunks = [-(-hh * ww // rbatch) for _, _, (nn, hh, ww) in images for _ in range(nn)]
+    if [r[1] for r in renders] != chunks:
+        fail(f"validation renders {renders}, expected chunks {chunks}")
+
+    # every kernel of the path at each N it ran at, against plain
+    spec = trainer.pipeline.nef.grid.spec
+    dense_n = trainer.cfg.num_rays_sampled_per_img * steps_
+    fields.update(dense_N=dense_n, validation_N=sorted(chunk_ns))
+    want = [(kind, dense_n) for kind in ("encode", "dual_encode", "table_grad",
+                                         "dual_table_grad", "dbary")]
+    want += [("dual_encode" + NO_IDX_BARY, n) for n in chunk_ns]
+    if set(want) - set(calls):
+        fail(f"no call was recorded at {sorted(set(want) - set(calls))}")
+    del trainer, trainers, data
+    checks, times = recorded_kernel_checks(spec, calls, dev, flush)
+    calls.clear()
+    fields.update(kernel_checks=checks, kernel_times=times)
+    if not all(ch["ok"] for by_n in checks.values() for ch in by_n.values()):
+        fail(f"a kernel at one of this path's N outside its tolerance: {checks}")
+    torch.cuda.empty_cache()
+    fields["full_size_loader"] = bup20_loader_at_full_size(os.path.join(root, "full"))
+    shutil.rmtree(tree)
+    emit("bup20", **fields)
+    return launches, times
+
+
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
     import torch
@@ -1837,6 +2113,7 @@ def main() -> None:
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
     paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
     paths["cli"], cli_times = phase_cli(dev, flush_buf.zero_)
+    paths["bup20"], bup20_times = phase_bup20(dev, flush_buf.zero_, smi_line)
     del flush_buf
 
     # ---------------------------------------------------------------- report
@@ -1871,6 +2148,9 @@ def main() -> None:
                              **({"pre_prune": val_times["pre_prune"]} if name == "single"
                                 else {"final": val_times["final"], "map": val_times["map"]})}
         row["cli"] = cli_times[key]
+        row["bup20"] = bup20_times[key]
+        if key + NO_IDX_BARY in bup20_times:
+            row["bup20_validation"] = bup20_times[key + NO_IDX_BARY]
         rows.append(row)
     for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
                                 ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):
@@ -1909,6 +2189,8 @@ def main() -> None:
                                      else "dbary_B"]
         if key in cli_times:
             row["cli"] = cli_times[key]
+        if key in bup20_times:
+            row["bup20"] = bup20_times[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -21,8 +21,16 @@ its wall on the host clock, to ``perf.jsonl`` in the run directory.
 ``trainer_fields`` replace ``TrainerConfig`` fields that no flag sets
 (``seed``, ``compact_steps_after_prune``; ``config/factory.py``).
 
-``--render-views``, ``--viewer`` and ``--validate-dataset`` raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 9).
+``--validate-dataset`` (with ``--validate-dataset-deep``: every frame
+opened) walks the tree at ``--dataset-path`` without training and without a
+device, prints the report of ``data/validate.py`` and returns the number of
+errors, which is also the command's exit code:
+
+    python -m pagnerf_tpu_torch.cli --config configs/bup20/best.yaml \
+        --dataset-path <dir>/BUP_20 --validate-dataset
+
+``--render-views`` and ``--viewer`` raise ``NotImplementedError``
+(``ROADMAP.md`` Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -35,14 +43,13 @@ import time
 from typing import Optional, Sequence
 
 from .config.config import build_parser, config_to_yaml, parse_options
-from .config.factory import get_modules_from_config
+from .config.factory import get_modules_from_config, roadmap_item
+from .data.validate import run_validation
 from .device import resolve_device
 from .train import checkpoint
 from .train.validation import validate
 from .utils.logging_utils import SummaryWriter, default_log_setup
 from .utils.render_map import generate_pc_map_from_views
-
-_ITEM9 = "ROADMAP.md Queue 1 item 9"
 
 
 def split_device(argv: Sequence[str]):
@@ -57,12 +64,14 @@ def split_device(argv: Sequence[str]):
 def main(argv: Optional[Sequence[str]] = None, **trainer_fields):
     """Run the command line ``argv`` (default ``sys.argv[1:]``)."""
     device, rest = split_device(sys.argv[1:] if argv is None else argv)
-    dev = resolve_device(device)
     args = parse_options(rest)
-    for flag in ("validate_dataset", "render_views", "viewer"):
+    if args.validate_dataset:
+        return run_validation(args)
+    dev = resolve_device(device)
+    for flag in ("render_views", "viewer"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet ({_ITEM9})")
+                f"--{flag.replace('_', '-')} is not ported yet ({roadmap_item(7)})")
 
     stamp = time.strftime("%Y%m%d-%H%M%S")
     log_dir = os.path.join(args.log_dir, args.exp_name or "run", stamp)
@@ -127,4 +136,6 @@ def main(argv: Optional[Sequence[str]] = None, **trainer_fields):
 
 
 if __name__ == "__main__":
-    main()
+    ret = main()
+    if isinstance(ret, int):
+        sys.exit(min(ret, 255))

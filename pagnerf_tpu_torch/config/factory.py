@@ -14,10 +14,13 @@ softmax head; a ``BAPipeline`` with anchor frame 0 when extrinsics (train or
 val) are optimised.
 
 The parameters come from a seeded init (``TrainerConfig.seed``) and require
-grad. What the port does not have yet raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item: dataset formats other than ``synthetic``, NeF types
-other than ``PanopticNeF`` / ``PanopticDeltaNeF``, grid types other than
-``PermutoGrid``.
+grad. The datasets are the JAX factory's: the synthetic scene, a BUP20 tree
+(``data/formats/bup20.py``) and a NeRF-standard tree
+(``data/formats/nerf_standard.py``); another format raises
+``NotImplementedError``, as it does there. What the port does not have yet
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: NeF types
+other than ``PanopticNeF`` / ``PanopticDeltaNeF`` (Queue 1 items 3-5), grid
+types other than ``PermutoGrid`` (item 5).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Tuple
 
 import torch
 
+from ..data.formats.bup20 import load_bup20
+from ..data.formats.nerf_standard import load_nerf_standard
 from ..data.multiview import MultiviewDataset
 from ..data.synthetic import add_synthetic_predictions, make_dataset
 from ..device import resolve_device
@@ -39,11 +44,16 @@ from .config import register_class, str2mod
 
 log = logging.getLogger(__name__)
 
-# NeF types the JAX package registers and the port does not have yet
-UNPORTED_NEFS = ("PanopticDDensityNeF", "MeanShiftPanopticNeF",
-                 "MeanShiftPanopticDeltaNeF", "MeanShiftPanopticDDensityNeF",
-                 "SemanticNeF", "PanopticLiftingNeF")
-_ITEM9 = "ROADMAP.md Queue 1 item 9"
+# NeF types the JAX package registers and the port does not have yet, with
+# the ROADMAP.md item that ports each: the DD tracer (3), the mean-shift
+# NeFs (4), the other models (5)
+UNPORTED_NEFS = {"PanopticDDensityNeF": 3, "MeanShiftPanopticNeF": 4,
+                 "MeanShiftPanopticDeltaNeF": 4, "MeanShiftPanopticDDensityNeF": 4,
+                 "SemanticNeF": 5, "PanopticLiftingNeF": 5}
+
+
+def roadmap_item(n: int) -> str:
+    return f"ROADMAP.md Queue 1 item {n}"
 
 
 def register_default_classes() -> None:
@@ -58,7 +68,7 @@ def _dtype(name: str) -> torch.dtype:
 def grid_config_from_args(args, delta: bool = False) -> GridConfig:
     if args.grid_type != "PermutoGrid":
         raise NotImplementedError(
-            f"grid_type {args.grid_type!r} is not ported yet ({_ITEM9}); "
+            f"grid_type {args.grid_type!r} is not ported yet ({roadmap_item(5)}); "
             "the port has PermutoGrid")
     return GridConfig(
         grid_type=args.grid_type, num_lods=args.num_lods,
@@ -69,31 +79,39 @@ def grid_config_from_args(args, delta: bool = False) -> GridConfig:
 
 
 def load_dataset(args) -> MultiviewDataset:
-    """The synthetic scene of ``make_dataset`` (seed 0); with
-    ``synthetic_preds`` (or a ``load_modes`` entry naming predictions) the
-    noisy 2-D predictions of ``add_synthetic_predictions`` on top, as the
-    JAX package's ``make_dataset(predictions=True)`` attaches them."""
+    """The dataset of ``multiview_dataset_format``, as the JAX factory
+    loads it: ``synthetic`` is the scene of ``make_dataset`` (seed 0), with
+    the noisy 2-D predictions of ``add_synthetic_predictions`` on top when
+    ``synthetic_preds`` is set or a ``load_modes`` entry names predictions;
+    ``bup20`` reads the tree at ``dataset_path`` (``load_bup20``);
+    ``standard`` / ``nerf_standard`` its transforms (``load_nerf_standard``
+    at ``mip``)."""
     fmt = args.multiview_dataset_format
-    if fmt != "synthetic":
-        raise NotImplementedError(
-            f"dataset format {fmt!r} is not ported yet ({_ITEM9}); the port "
-            "reads the synthetic scene only")
-    res = args.synthetic_res or [40, 30]
-    preds = bool(args.synthetic_preds) or any(
-        "pred" in str(m) for m in args.load_modes or [])
-    data = make_dataset(num_views=args.synthetic_num_views, width=int(res[0]),
-                        height=int(res[1]), num_spheres=args.synthetic_num_spheres,
-                        pose_noise=(args.pose_noise_strength
-                                    if args.add_noise_to_train_poses else 0.0))
-    if preds:
-        data = add_synthetic_predictions(data, seed=0)
+    if fmt == "synthetic":
+        res = args.synthetic_res or [40, 30]
+        preds = bool(args.synthetic_preds) or any(
+            "pred" in str(m) for m in args.load_modes or [])
+        data = make_dataset(num_views=args.synthetic_num_views, width=int(res[0]),
+                            height=int(res[1]), num_spheres=args.synthetic_num_spheres,
+                            pose_noise=(args.pose_noise_strength
+                                        if args.add_noise_to_train_poses else 0.0))
+        if preds:
+            data = add_synthetic_predictions(data, seed=0)
+    elif fmt == "bup20":
+        data = load_bup20(args)
+    elif fmt in ("standard", "nerf_standard"):
+        data = load_nerf_standard(args.dataset_path, mip=args.mip or 0,
+                                  bg_color=args.bg_color)
+    else:
+        raise NotImplementedError(f"dataset format {fmt!r} is not supported")
     return MultiviewDataset(data)
 
 
 def nef_from_args(args, semantic_info) -> torch.nn.Module:
     register_default_classes()
     if args.nef_type in UNPORTED_NEFS:
-        raise NotImplementedError(f"nef_type {args.nef_type!r} is not ported yet ({_ITEM9})")
+        raise NotImplementedError(f"nef_type {args.nef_type!r} is not ported yet "
+                                  f"({roadmap_item(UNPORTED_NEFS[args.nef_type])})")
     nef_cls = str2mod.get(args.nef_type, PanopticDeltaNeF)
     kwargs = dict(
         grid=grid_config_from_args(args),

@@ -1,19 +1,21 @@
 """A reader and a writer for the YAML subset of the repository's configs.
 
 The card's machine has no PyYAML, so the port carries its own. The subset is
-what ``configs/`` uses: block mappings nested by indentation, ``#``
-comments, plain or quoted scalars, and flow lists of scalars such as
-``[96, 72]``. Plain scalars resolve as PyYAML's ``safe_load`` resolves them
-(YAML 1.1): ``true`` / ``yes`` / ``on`` and their negations are booleans,
-``~`` / ``null`` / an empty value are None, integers may be hex, octal or
-binary, and a float needs a dot (``1e-4`` stays a string, as it does in
-PyYAML). Anything outside the subset -- block sequences, anchors, tags,
-multi-line scalars, flow mappings, nested flow lists, tabs, documents --
-raises ``YamlLiteError``.
+what ``configs/`` and the datasets' files use (``params.yaml``,
+``BUP_20.yaml``, as PyYAML's ``safe_dump`` writes them): block mappings
+nested by indentation, block sequences (``- x``, nested ``- - x``,
+sequences of mappings, a sequence at its key's indentation), ``#``
+comments, plain or quoted scalars, and flow lists such as ``[96, 72]`` or
+``[[1, 2], []]``. Plain scalars resolve as PyYAML's ``safe_load`` resolves
+them (YAML 1.1): ``true`` / ``yes`` / ``on`` and their negations are
+booleans, ``~`` / ``null`` / an empty value are None, integers may be hex,
+octal or binary, and a float needs a dot (``1e-4`` stays a string, as it
+does in PyYAML). Anything outside the subset -- anchors, tags, multi-line
+scalars, flow mappings, tabs, documents -- raises ``YamlLiteError``.
 
 ``dump`` writes nested dicts of scalars and lists in the same subset, block
-mappings with sorted keys, so ``load(dump(x)) == x`` and PyYAML reads the
-same values.
+mappings with sorted keys and lists as flow lists, so ``load(dump(x)) == x``
+and PyYAML reads the same values.
 """
 from __future__ import annotations
 
@@ -132,35 +134,50 @@ def _scalar(text: str, lineno: int, in_flow: bool = False) -> Any:
     return resolve_plain(text)
 
 
+def _flow_items(text: str, pos: int, lineno: int) -> Tuple[List[Any], int]:
+    """(items, position after the closing bracket) of the flow list whose
+    ``[`` is at ``text[pos]``; nested lists recurse."""
+    items: List[Any] = []
+    cur: List[str] = []
+    pending = False            # a value since the last comma
+    i = pos + 1
+    while i < len(text):
+        ch = text[i]
+        if ch in "'\"" and not "".join(cur).strip():
+            value, rest = _quoted(text[i:], lineno)
+            cur = [text[i:len(text) - len(rest)]]
+            i = len(text) - len(rest)
+            continue
+        if ch == "[" and not "".join(cur).strip():
+            value, i = _flow_items(text, i, lineno)
+            items.append(value)
+            pending = True
+            continue
+        if ch in ",]":
+            if "".join(cur).strip():
+                if pending:
+                    raise YamlLiteError(f"line {lineno}: text after a nested flow list")
+                items.append(_scalar("".join(cur), lineno, in_flow=True))
+            elif ch == "," and not pending:
+                raise YamlLiteError(f"line {lineno}: an empty entry in a flow list")
+            cur, pending = [], False
+            i += 1
+            if ch == "]":
+                return items, i
+            continue
+        if ch in "[]{}":
+            raise YamlLiteError(f"line {lineno}: flow mappings are outside the subset")
+        cur.append(ch)
+        i += 1
+    raise YamlLiteError(f"line {lineno}: a flow list must close on its line")
+
+
 def _flow_list(text: str, lineno: int) -> List[Any]:
     text = text.strip()
-    if not text.endswith("]"):
-        raise YamlLiteError(f"line {lineno}: a flow list must close on its line")
-    body = text[1:-1].strip()
-    if not body:
-        return []
-    items, cur, quote = [], [], None
-    for ch in body:
-        if quote:
-            cur.append(ch)
-            if ch == quote:
-                quote = None
-        elif ch in "'\"" and not "".join(cur).strip():
-            quote = ch
-            cur.append(ch)
-        elif ch == ",":
-            items.append("".join(cur))
-            cur = []
-        elif ch in "[]{}":
-            raise YamlLiteError(f"line {lineno}: nested flow collections are outside the subset")
-        else:
-            cur.append(ch)
-    items.append("".join(cur))
-    if not items[-1].strip():          # a trailing comma
-        items.pop()
-    if any(not it.strip() for it in items):
-        raise YamlLiteError(f"line {lineno}: an empty entry in a flow list")
-    return [_scalar(it, lineno, in_flow=True) for it in items]
+    items, end = _flow_items(text, 0, lineno)
+    if text[end:].strip():
+        raise YamlLiteError(f"line {lineno}: text after a flow list: {text[end:]!r}")
+    return items
 
 
 def _value(text: str, lineno: int) -> Any:
@@ -185,8 +202,8 @@ def _split_key(body: str, lineno: int) -> Tuple[Any, str]:
 
 
 def load(text: str) -> Any:
-    """The value of a YAML document in the subset: a dict, or None for an
-    empty document."""
+    """The value of a YAML document in the subset: a dict or a list, or None
+    for an empty document."""
     lines: List[Tuple[int, int, str]] = []     # (lineno, indent, body)
     for lineno, raw in enumerate(text.splitlines(), 1):
         if "\t" in raw[:len(raw) - len(raw.lstrip())]:
@@ -200,11 +217,75 @@ def load(text: str) -> Any:
         lines.append((lineno, indent, body.strip()))
     if not lines:
         return None
-    value, pos = _block(lines, 0, lines[0][1])
+    value, pos = _node(lines, 0, lines[0][1])
     if pos != len(lines):
         lineno = lines[pos][0]
         raise YamlLiteError(f"line {lineno}: unexpected indentation")
     return value
+
+
+def _is_item(body: str) -> bool:
+    return body == "-" or body.startswith("- ")
+
+
+def _is_entry(body: str) -> bool:
+    """Whether ``body`` starts a mapping entry (``key:`` or ``key: value``)."""
+    if body[:1] in ("'", '"'):
+        try:
+            _, rest = _quoted(body, 0)
+        except YamlLiteError:
+            return False
+        return rest.lstrip(" ").startswith(":")
+    if body[:1] in "[{":
+        return False
+    return re.match(r"^[^:]*?:(?:\s|$)", body) is not None
+
+
+def _node(lines, pos: int, indent: int) -> Tuple[Any, int]:
+    """The block sequence or mapping whose entries start at column
+    ``indent`` from ``pos``."""
+    if _is_item(lines[pos][2]):
+        return _sequence(lines, pos, indent)
+    return _block(lines, pos, indent)
+
+
+def _inline(lines, pos: int, indent: int, lineno: int, col: int, body: str
+            ) -> Tuple[Any, int]:
+    """The value that starts on a line after an item's ``- `` (at column
+    ``col``): a nested sequence or a mapping continued on the lines at
+    ``col``, else one value on its own line."""
+    if _is_item(body) or _is_entry(body):
+        lines[pos] = (lineno, col, body)
+        return _node(lines, pos, col)
+    value = _value(body, lineno)
+    pos += 1
+    if pos < len(lines) and lines[pos][1] > indent:
+        raise YamlLiteError(f"line {lines[pos][0]}: multi-line scalars are outside the subset")
+    return value, pos
+
+
+def _sequence(lines, pos: int, indent: int) -> Tuple[List[Any], int]:
+    """The block sequence whose ``- `` items start at column ``indent``."""
+    out: List[Any] = []
+    while pos < len(lines):
+        lineno, ind, body = lines[pos]
+        if ind < indent:
+            break
+        if ind > indent:
+            raise YamlLiteError(f"line {lineno}: unexpected indentation")
+        if not _is_item(body):
+            break
+        rest = body[1:].lstrip(" ")
+        if not rest:
+            pos += 1
+            if pos < len(lines) and lines[pos][1] > indent:
+                value, pos = _node(lines, pos, lines[pos][1])
+            else:
+                value = None
+        else:
+            value, pos = _inline(lines, pos, indent, lineno, ind + len(body) - len(rest), rest)
+        out.append(value)
+    return out, pos
 
 
 def _block(lines, pos: int, indent: int) -> Tuple[Dict, int]:
@@ -216,8 +297,10 @@ def _block(lines, pos: int, indent: int) -> Tuple[Dict, int]:
             break
         if ind > indent:
             raise YamlLiteError(f"line {lineno}: unexpected indentation")
-        if body.startswith("- ") or body == "-":
-            raise YamlLiteError(f"line {lineno}: block sequences are outside the subset")
+        if _is_item(body):
+            if out:
+                break                  # the parent sequence's next item
+            raise YamlLiteError(f"line {lineno}: a sequence item inside a mapping")
         key, rest = _split_key(body, lineno)
         pos += 1
         if rest.strip():
@@ -226,7 +309,10 @@ def _block(lines, pos: int, indent: int) -> Tuple[Dict, int]:
                 raise YamlLiteError(
                     f"line {lines[pos][0]}: multi-line scalars are outside the subset")
         elif pos < len(lines) and lines[pos][1] > indent:
-            out[key], pos = _block(lines, pos, lines[pos][1])
+            out[key], pos = _node(lines, pos, lines[pos][1])
+        elif pos < len(lines) and lines[pos][1] == indent and _is_item(lines[pos][2]):
+            # a sequence may sit at its key's indentation
+            out[key], pos = _sequence(lines, pos, indent)
         else:
             out[key] = None
     return out, pos
@@ -260,9 +346,17 @@ def _dump_scalar(v: Any) -> str:
     raise YamlLiteError(f"cannot write a {type(v).__name__} value in the subset")
 
 
+def _dump_flow(v: Any) -> str:
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_flow(x) for x in v) + "]"
+    if isinstance(v, dict):
+        raise YamlLiteError("a mapping in a list is outside the writer's subset")
+    return _dump_scalar(v)
+
+
 def dump(data: Dict, indent: int = 0) -> str:
-    """``data`` (nested dicts of scalars and flat lists) as block YAML with
-    sorted keys; lists as flow lists."""
+    """``data`` (nested dicts of scalars and lists) as block YAML with
+    sorted keys; lists, nested ones too, as flow lists."""
     out = []
     pad = " " * indent
     for key in sorted(data, key=str):
@@ -274,9 +368,7 @@ def dump(data: Dict, indent: int = 0) -> str:
             else:
                 raise YamlLiteError("an empty mapping is outside the subset")
         elif isinstance(v, (list, tuple)):
-            if any(isinstance(x, (list, tuple, dict)) for x in v):
-                raise YamlLiteError("nested collections in a list are outside the subset")
-            out.append(f"{pad}{k}: [" + ", ".join(_dump_scalar(x) for x in v) + "]\n")
+            out.append(f"{pad}{k}: {_dump_flow(v)}\n")
         else:
             out.append(f"{pad}{k}: {_dump_scalar(v)}\n")
     return "".join(out)

@@ -5,8 +5,8 @@ rotation (the first two columns of the world->camera rotation, Zhou et al.
 CVPR'19) plus the translation. ``transform_rays`` applies them to
 camera-space base rays, as ``BAPipeline`` does each forward.
 
-``PinholeIntrinsics`` and ``view_from_c2w`` are numpy helpers for the
-synthetic dataset; they are copies of the JAX package's, kept here so the
+``PinholeIntrinsics``, ``view_from_c2w`` and ``cv_to_gl_pose`` are numpy
+helpers for the datasets; they are copies of the JAX package's, kept here so the
 port imports nothing of it. ``generate_pinhole_rays`` makes the camera-space
 rays through pixel centres that validation regenerates at each mip level.
 """
@@ -37,6 +37,13 @@ class PinholeIntrinsics:
                                  cx=self.cx * scale, cy=self.cy * scale,
                                  width=new_width, height=new_height,
                                  near=self.near, far=self.far)
+
+
+def cv_to_gl_pose(pose: np.ndarray) -> np.ndarray:
+    """Flip a camera-to-world pose from OpenCV (x right, y down, z forward)
+    to OpenGL (x right, y up, z backward) axes."""
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(pose.dtype)
+    return pose @ flip
 
 
 def view_from_c2w(c2w: np.ndarray) -> np.ndarray:

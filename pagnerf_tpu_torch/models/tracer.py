@@ -67,14 +67,16 @@ class TracerConfig:
 
     def check_ported(self, stage: str) -> None:
         """Raise for settings whose code paths are not ported yet."""
-        unported = {"ray_chunk": self.ray_chunk,
-                    "sample_chunk": self.sample_chunk,
-                    "DD tracer": self.is_dd,
+        # each with the ROADMAP.md Queue 1 item that ports it
+        unported = {"ray_chunk": (self.ray_chunk, 6),
+                    "sample_chunk": (self.sample_chunk, 6),
+                    "DD tracer": (self.is_dd, 3),
                     "ray_sparsity_reg (train)": (self.ray_sparsity_reg > 0.0
-                                                 and stage == "train")}
-        asked = [k for k, v in unported.items() if v]
+                                                 and stage == "train", 6)}
+        asked = [f"{k} (ROADMAP.md Queue 1 item {n})" for k, (on, n) in unported.items()
+                 if on]
         if asked:
-            raise NotImplementedError(f"tracer settings not ported yet: {asked}")
+            raise NotImplementedError(f"tracer settings not ported yet: {'; '.join(asked)}")
 
 
 def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,

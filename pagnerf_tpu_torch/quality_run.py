@@ -36,6 +36,12 @@ prune in place of the packed one), ``--no-cut`` trains on the whole dense
 march after the prunes (``--packed-compaction false`` and
 ``TrainerConfig.compact_steps_after_prune=0``, which no flag sets), and
 ``--matmul-precision`` sets ``torch.set_float32_matmul_precision``.
+
+After the runs, ``pose_drift`` reads the learned extrinsics of each run's
+final checkpoint and prints how far every train and val camera moved from
+its initial pose (rotation in degrees, camera centre in scene units): the
+scene's poses are exact (the config adds no pose noise), so any offset is
+drift.
 """
 from __future__ import annotations
 
@@ -154,6 +160,42 @@ def summary(records, pack_totals=None) -> dict:
                             for r in records if r["name"] == "validate"]}
 
 
+def pose_drift(ckpt_path: str, config_argv: Sequence[str]) -> dict:
+    """How far the learned extrinsics of a checkpoint lie from the initial
+    poses of the config's dataset: per camera the rotation angle between
+    the learned and the initial world->camera rotation (degrees) and the
+    distance between the camera centres (scene units), summarised over the
+    train and the val cameras (mean, median, max, and the camera of the
+    max)."""
+    from .config.config import parse_options
+    from .config.factory import load_dataset
+    from .core.camera import r6_to_rotmat
+
+    state = torch.load(ckpt_path, weights_only=True, map_location="cpu")
+    learned = state["params"]["extrinsics"].double()
+    ds = load_dataset(parse_options(list(config_argv)))
+    init = torch.from_numpy(ds.data["view_matrices"]).double()
+    rot_l = r6_to_rotmat(learned[:, :6])
+    rot_i = init[:, :3, :3]
+    cos = ((torch.einsum("nij,nij->n", rot_l, rot_i) - 1.0) / 2.0).clamp(-1.0, 1.0)
+    angle = torch.rad2deg(torch.arccos(cos))
+    centre_l = -torch.einsum("nji,nj->ni", rot_l, learned[:, 6:9])
+    centre_i = -torch.einsum("nji,nj->ni", rot_i, init[:, :3, 3])
+    shift = torch.linalg.norm(centre_l - centre_i, dim=-1)
+
+    def stats(idx):
+        idx = torch.as_tensor(idx, dtype=torch.long)
+        out = {"cameras": len(idx)}
+        for name, v in (("rotation_deg", angle[idx]), ("centre_shift", shift[idx])):
+            out[name] = {"mean": v.mean().item(), "median": v.median().item(),
+                         "max": v.max().item(), "max_camera": int(idx[v.argmax()])}
+        return out
+
+    return {"checkpoint": os.path.relpath(ckpt_path, ROOT), "epoch": state["epoch"],
+            "train": stats(ds.train_idxs), "val": stats(ds.val_idxs),
+            "camera0": {"rotation_deg": angle[0].item(), "centre_shift": shift[0].item()}}
+
+
 def run(seed: int = 0, device: str = "cuda", out: str = "", log_root: str = "",
         epochs: int = 60, flags: Sequence[str] = (), name: str = "",
         no_cut: bool = False) -> dict:
@@ -178,6 +220,7 @@ def run(seed: int = 0, device: str = "cuda", out: str = "", log_root: str = "",
                                "--epochs", "70", "--valid-every", "10"], **fields)
             records += read_perf(base, "resume")[1]
     wall = time.perf_counter() - t0
+    config_argv = cli.split_device(common)[1]
     record = read_record()
     vals = []
     for r in (r for r in records if r["name"] == "validate"):
@@ -201,8 +244,11 @@ def run(seed: int = 0, device: str = "cuda", out: str = "", log_root: str = "",
               "epochs": [{"epoch": r["epoch"], "s": r["ms"] / 1e3, "losses": r["losses"]}
                          for r in records if r["name"] == "epoch"],
               "validations": vals, "band": band,
-              "within_band": bool(band) and all(b["within"] for b in band.values())}
+              "within_band": bool(band) and all(b["within"] for b in band.values()),
+              "pose_drift": [pose_drift(os.path.join(d, "model.ckpt"), config_argv)
+                             for d in sorted(glob.glob(os.path.join(base, "*", "*", "")))]}
     print(json.dumps({"timings": result["timings"], "wall_s": wall}), flush=True)
+    print(json.dumps({"pose_drift": result["pose_drift"]}), flush=True)
     print(json.dumps({"band": band, "within_band": result["within_band"]}), flush=True)
     if out:
         os.makedirs(out, exist_ok=True)

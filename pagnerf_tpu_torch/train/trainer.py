@@ -252,20 +252,23 @@ class PanopticTrainer:
             channels.add("inst_embedding")
         if cfg.inst_outlier_rejection and use_inst:
             channels.add("depth")
+        # each with the ROADMAP.md Queue 1 item that ports it
         unported = {
             "grid TV regularisers": (cfg.grid_tvl1_reg > 0 or cfg.grid_tvl2_reg > 0
                                      or cfg.delta_grid_tvl1_reg > 0
-                                     or cfg.delta_grid_tvl2_reg > 0),
+                                     or cfg.delta_grid_tvl2_reg > 0, 6),
             f"inst_loss={cfg.inst_loss!r}": (use_inst and cfg.inst_loss
-                                             != "linear_assignment_things"),
-            "contrast_sem_weight (sup_contrastive)": use_sem and cfg.contrast_sem_weight > 0,
-            "fused_micro_step": cfg.fused_micro_step,
+                                             != "linear_assignment_things", 4),
+            "contrast_sem_weight (sup_contrastive)": (use_sem and cfg.contrast_sem_weight > 0,
+                                                      4),
+            "fused_micro_step": (cfg.fused_micro_step, 8),
         }
-        asked = [k for k, v in unported.items() if v]
+        asked = [f"{k} (ROADMAP.md Queue 1 item {n})" for k, (on, n) in unported.items()
+                 if on]
         if asked:
             raise NotImplementedError(
                 f"the training stage at epoch {epoch} needs parts not ported yet: "
-                f"{asked}")
+                f"{'; '.join(asked)}")
         voxel = epoch > cfg.voxel_raymarch_epoch_start
         base = self.pipeline.tracer_cfg
         if voxel:

@@ -73,18 +73,42 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray):
+def _paeth_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Each row's bytes minus their Paeth predictor (PNG filter type 4)."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def write_png(path: str, img: np.ndarray, paeth: bool = False):
     """uint8 (or [0, 1] float) image [H, W], [H, W, 3] or [H, W, 4] -> an
-    8-bit grey, RGB or RGBA PNG, every row unfiltered."""
+    8-bit grey, RGB or RGBA PNG; a uint16 [H, W] image -> a 16-bit grey
+    PNG (big-endian samples). Every row unfiltered, or with ``paeth`` every
+    row Paeth-filtered (the filter a reader must undo pixel by pixel)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if img.dtype != np.uint8:
-        img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-    channels = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype == np.uint16:
+        if img.ndim != 2:
+            raise ValueError(f"a 16-bit PNG is written from [H, W], not {img.shape}")
+        depth, channels, img = 16, 1, img.astype(">u2")
+    else:
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        depth, channels = 8, 1 if img.ndim == 2 else img.shape[2]
     color_type = {1: 0, 3: 2, 4: 6}[channels]
     h, w = img.shape[:2]
-    rows = np.ascontiguousarray(img).reshape(h, w * channels)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
-    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    rows = np.ascontiguousarray(img).view(np.uint8).reshape(h, w * channels * depth // 8)
+    if paeth:
+        rows = _paeth_rows(rows, channels * depth // 8)
+    ftype = np.full((h, 1), 4 if paeth else 0, np.uint8)
+    raw = np.concatenate([ftype, rows], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
                 + _png_chunk(b"IDAT", zlib.compress(raw)) + _png_chunk(b"IEND", b""))

@@ -14,6 +14,7 @@
 import argparse
 import dataclasses
 import glob
+import json
 import os
 import types
 
@@ -62,15 +63,16 @@ def test_yaml_reader_matches_pyyaml(path):
     "k: 1e-4", "k: 1.0e-4", "k: 0x1F", "k: 017", "k: 0b101", "k: +5", "k: -.inf",
     "k: yes", "k: Off", "k: ~", "k:", "k: 1_000", "k: 'true'", "k: ''", "k: 'it''s'",
     'k: "a\\"b"', "k: [a, 'b, c', 1.5, null]", "k: []", "k: [1,]", "a:\n  b:\n    c: 1\n  d: x",
-    "# only a comment\nk: v  # trailing", "k: a#b"])
+    "# only a comment\nk: v  # trailing", "k: a#b", "k: [[1]]", "k:\n  - 1"])
 def test_yaml_scalars_resolve_as_pyyaml(text):
     got, want = yaml_lite.load(text), yaml.safe_load(text)
     assert got == want and [type(v) for v in got.values()] == [type(v) for v in want.values()]
 
 
 @pytest.mark.parametrize("text", [
-    "k: [[1]]", "k: &a 1", "k:\n  - 1", "k: !!str 1", "k: a: b", "k: 1:30",
-    "k: 2020-01-01", "---\nk: 1", "k: |\n  x", "k: {a: 1}", "k: v\n    w", "\tk: 1"])
+    "k: &a 1", "k: !!str 1", "k: a: b", "k: 1:30",
+    "k: 2020-01-01", "---\nk: 1", "k: |\n  x", "k: {a: 1}", "k: v\n    w", "\tk: 1",
+    "k: [1, [2]x]", "k: [1,,2]", "k: [[1]", "a: 1\n- 2", "- a\n  b", "k:\n  - 1\n   - 2"])
 def test_yaml_outside_the_subset_raises(text):
     with pytest.raises(yaml_lite.YamlLiteError):
         yaml_lite.load(text)
@@ -207,15 +209,24 @@ def _args(*extra):
         ["--config", os.path.join(ROOT, "configs/synthetic/tiny.yaml"), *extra])
 
 
+# the ROADMAP.md Queue 1 item that ports each; a format neither package
+# reads names none
+_ITEM = {"replica": None, "PanopticDDensityNeF": 3, "MeanShiftPanopticDeltaNeF": 4,
+         "SemanticNeF": 5, "HashGrid": 5}
+
+
 @pytest.mark.parametrize("extra, what", [
-    (("--multiview-dataset-format", "bup20"), "dataset format"),
+    (("--multiview-dataset-format", "replica"), "dataset format"),
     (("--nef-type", "PanopticDDensityNeF"), "nef_type"),
     (("--nef-type", "MeanShiftPanopticDeltaNeF"), "nef_type"),
     (("--nef-type", "SemanticNeF"), "nef_type"),
     (("--grid-type", "HashGrid"), "grid_type"),
 ])
 def test_factory_refuses_what_is_not_ported(extra, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md Queue 1 item 9"):
+    item = _ITEM[extra[1]]
+    match = (f"{what}.*ROADMAP.md Queue 1 item {item}\\b" if item
+             else f"{what} .* is not supported")
+    with pytest.raises(NotImplementedError, match=match):
         factory_t.get_modules_from_config(_args(*extra), "cpu")
 
 
@@ -235,3 +246,93 @@ def test_optimizer_still_refuses_other_optimizers(extra):
 
 def test_argparse_namespace_type():
     assert isinstance(_args(), argparse.Namespace)
+
+
+# ------------------------------------------------------------------ every config
+# What each config is refused at, first, with the ROADMAP.md Queue 1 item
+# that ports it (None: it builds and every epoch's stage passes)
+FIRST_REFUSAL = {
+    "configs/bup20/best_contrast_delta.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
+    "configs/bup20/config_hp_base.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
+    # a NeRF-standard tree has no labels, so no sup_contrastive stage runs
+    "configs/bup20/contrastive_delta_app.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
+    "configs/bup20/lin_assign_app.yaml": "epoch 101 .*linear_assignment'.*item 4",
+    "configs/bup20/lin_assign_delta_app.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
+    "configs/bup20/lin_assign_direct_app.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
+    "configs/bup20/mean_shift_contrastive.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
+    "configs/bup20/mean_shift_contrastive_app.yaml": "MeanShiftPanopticNeF.*item 4",
+    "configs/bup20/mean_shift_panoptic_delta.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
+    "configs/bup20/mean_shift_panoptic_delta_app.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
+    "configs/bup20/panoptic_dd.yaml": "PanopticDDensityNeF.*item 3",
+    "configs/bup20/panoptic_lifting_app.yaml": "PanopticLiftingNeF.*item 5",
+    "configs/bup20/panoptic_nerf.yaml": "MeanShiftPanopticNeF.*item 4",
+    "configs/bup20/semantic_nerf_app.yaml": "SemanticNeF.*item 5",
+}
+# the model's width cut for the CPU (which parts are ported does not depend on it)
+SHRINK = ["--num-lods", "4", "--capacity-log-2", "8", "--delta-capacity-log-2", "8"]
+
+
+@pytest.fixture(scope="module")
+def tiny_trees(tmp_path_factory):
+    """A 16x9 BUP20 tree and a 16x12 NeRF-standard tree of 4 RGBA frames."""
+    from pagnerf_tpu_torch.data.bup20_tree import write_bup20_tree
+    from pagnerf_tpu_torch.utils.visualization import write_png
+    bup20 = tmp_path_factory.mktemp("tiny") / "BUP_20"
+    write_bup20_tree(str(bup20), width=16, height=9, supersample=1)
+    nerf = tmp_path_factory.mktemp("nerf")
+    rng = np.random.default_rng(0)
+    for split in ("train", "val"):
+        frames = []
+        for i in range(2):
+            write_png(str(nerf / f"{split}_{i}.png"),
+                      rng.integers(0, 256, (12, 16, 4)).astype(np.uint8))
+            c2w = np.eye(4)
+            c2w[:3, 3] = [0.1 * i, 0.0, 1.0]
+            frames.append({"file_path": f"{split}_{i}", "transform_matrix": c2w.tolist()})
+        (nerf / f"transforms_{split}.json").write_text(
+            json.dumps({"camera_angle_x": 0.8, "frames": frames}))
+    return {"bup20": bup20, "standard": nerf}
+
+
+def _tiny_argv(path, trees):
+    fmt = config_t.parse_options(["--config", os.path.join(ROOT, path)]).multiview_dataset_format
+    if fmt == "bup20":
+        return ["--dataset-path", str(trees["bup20"]), "--dataset-center-idx", "0",
+                "--load-modes", "imgs", "semantics", "instance", "preds_mask2former"]
+    if fmt == "standard":
+        return ["--dataset-path", str(trees["standard"])]
+    return ["--synthetic-res", "16", "12", "--synthetic-num-views", "4"]
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_every_config_builds_or_names_its_first_unported_part(path, tiny_trees,
+                                                             monkeypatch):
+    """The factory with the dataset swapped for a tiny one of the config's
+    format (the config's own dataset settings otherwise), then
+    ``stage_for_epoch`` and ``check_ported`` at every epoch of the config."""
+    args = config_t.parse_options(["--config", os.path.join(ROOT, path)] + SHRINK)
+    tiny = factory_t.load_dataset(config_t.parse_options(
+        ["--config", os.path.join(ROOT, path)] + _tiny_argv(path, tiny_trees)))
+    monkeypatch.setattr(factory_t, "load_dataset", lambda a: tiny)
+
+    def run():
+        pipe, _, trainer = factory_t.get_modules_from_config(args, "cpu")
+        for epoch in range(args.epochs):
+            trainer.stage_for_epoch(epoch)
+            pipe.tracer_cfg.check_ported("train")
+
+    if path in FIRST_REFUSAL:
+        with pytest.raises(NotImplementedError, match=FIRST_REFUSAL[path]):
+            run()
+    else:
+        run()
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_no_config_is_refused_at_its_dataset_format(path, tiny_trees):
+    args = config_t.parse_options(["--config", os.path.join(ROOT, path)]
+                                  + _tiny_argv(path, tiny_trees))
+    ds = factory_t.load_dataset(args)
+    assert ds.num_train > 0 and ds.data["imgs"].shape[1:3] in ((9, 16), (12, 16))
+    if args.multiview_dataset_format == "bup20":
+        assert "semantics_pred" in ds.data and len(ds.val_idxs) == 40

@@ -449,6 +449,21 @@ def test_encode_kernel_matches_plain_at_the_tuned_n(dev, dtype):
     _assert_encode_matches_plain(spec, x, ta, tb, dtype, False)
 
 
+# best.yaml's validation chunks over a 320x180 BUP20-format tree
+# (render_batch 8000 rays x 512 steps): a full chunk, an 80x45 image at
+# val_mip 2 in one chunk, the last chunk of a 320x180 image at mip 0
+BUP20_VALIDATION_N = (8000 * 512, 3600 * 512, 1600 * 512)
+
+
+@pytest.mark.parametrize("n", BUP20_VALIDATION_N)
+def test_encode_kernel_matches_plain_at_the_bup20_validation_n(dev, n):
+    """The dual encode without idx/bary, as validation runs it, equals the
+    one that keeps them, and both hold to the plain encode (boundary rule)
+    at the N of best.yaml's validation chunks."""
+    spec, x, ta, tb = _encode_case(dev, 2, n, torch.float32, levels=24, log2_c=18)
+    _assert_encode_matches_plain(spec, x, ta, tb, torch.float32, False)
+
+
 def test_encode_backward_on_the_forward_simplex_at_the_tuned_n(dev):
     from pagnerf_tpu_torch.profile_encode import backward_rank_check
     spec, x, ta, _ = _encode_case(dev, 2, TUNED_N, torch.float32, levels=24, log2_c=18,
