@@ -156,6 +156,33 @@ Phases, each printing one JSON line as it ends:
    then the port's readers on a 1280x720 tree (every PNG row
    Paeth-filtered): one RGB and one depth decode and the window's files.
 
+12. panoptic_dd -- main path 8: ``configs/bup20/panoptic_dd.yaml``
+   (``PanopticDDensityNeF`` under the delta-density tracer: the panoptic
+   channels integrate under the NeF's own ``panoptic_density``) through
+   ``cli.main`` over the bup20 phase's tree at the same full width with
+   ``BUP20_FLAGS``: an RGB epoch (the single encode and scatter: no
+   panoptic channel is asked for), two panoptic epochs (the dual encode
+   and scatter, dbary), a validation at mip 2 and the final one at mip 0.
+   Launch counts set to 0 before and read after: those the steps' cameras
+   and the validation chunks imply. One panoptic microbatch's gradients
+   through the kernels against the plain backward; max |panoptic_alpha -
+   alpha| of a rendered batch must be > 0 (the DD transmittance is used).
+   Each kernel at the training N on this path's own idx, bary and
+   cotangents, and at any (kernel, N) no earlier phase recorded, against
+   its plain version, with times and bounds.
+
+13. mean_shift -- main path 9: ``configs/bup20/mean_shift_contrastive.yaml``
+   (``MeanShiftPanopticDeltaNeF`` with raw normalised embeddings and the
+   ``sup_contrastive`` instance loss), as ``panoptic_dd``; the launches
+   include each validation's clustering renders (20,000 pixels over the
+   training images, N = 512 x 512 per image). Besides: the contrastive
+   loss of a full batch on the card against the same tensors' loss on the
+   CPU (1e-4 relative); each validation fits the mean shift
+   (``train_clustering``) and predicts every image through it: the fit's
+   and the predictions' walls, the centres and clusters, and the last
+   image's chunked predict against the one broadcast of the JAX package
+   (walls, its bytes, equal ids); finite PQ and mAP.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -793,12 +820,53 @@ def _plain_backward_grads(trainer, stage, sub, jitter):
     return grads, losses, mags
 
 
+def kernel_vs_plain_grads(trainer, stage, dev):
+    """One microbatch of a camera that is not an anchor frame (a batch drawn
+    with seed 1, jitter from seed 2) through the kernels and through the
+    plain backward versions: the tables within 64 eps_f32 of each entry's
+    sum of |bary * g|, the extrinsics within 1e-3 of their largest
+    gradient. Returns (fields, ok)."""
+    import numpy as np
+    import torch
+
+    cfg = trainer.cfg
+    anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+    batch = trainer.dataset.sample_batch(np.random.default_rng(1), cfg.batch_size,
+                                         cfg.num_rays_sampled_per_img)
+    m = int(np.nonzero(~anchor[batch["cam_idx"]])[0][0])
+    sub = {k: v[m:m + 1] if getattr(v, "ndim", 0) >= 1
+           and v.shape[0] == batch["imgs"].shape[0] else v for k, v in batch.items()}
+    jitter = torch.rand((cfg.num_rays_sampled_per_img, stage.num_steps),
+                        generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    g_k, l_k = trainer.grad_step(stage, sub, jitter)
+    g_p, l_p, mags = _plain_backward_grads(trainer, stage, sub, jitter)
+    table_err, worst = {}, {}
+    for name, mag in mags.items():
+        diff = (g_k[name] - g_p[name]).abs()
+        table_err[name] = diff.max().item()
+        worst[name] = (diff / (64 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+    # extrinsics: dbary's fused dot rounds 1 ulp apart from the plain
+    # products per sample; 2.1M samples sum into 9 numbers through the
+    # lattice and ray-transform backward
+    ext_ref = g_p["extrinsics"].abs().max().item()
+    ext_err = (g_k["extrinsics"] - g_p["extrinsics"]).abs().max().item()
+    loss_err = max(abs(float(l_k[k]) - float(l_p[k])) for k in l_k)
+    check = dict(plain_check_microbatch_cam=int(sub["cam_idx"][0]),
+                 plain_check_channels=sorted(stage.channels),
+                 plain_check_table_max_abs_err=table_err,
+                 plain_check_table_worst_err_over_tol=worst,
+                 plain_check_extrinsics_err=ext_err,
+                 plain_check_extrinsics_max=ext_ref, plain_check_loss_err=loss_err)
+    ok = (all(w <= 1.0 for w in worst.values()) and ext_ref > 0
+          and ext_err <= 1e-3 * ext_ref)
+    return check, ok
+
+
 def phase_train(dev, stage_name):
     import numpy as np
     import torch
 
     from pagnerf_tpu_torch.entry import train_flagship
-    from pagnerf_tpu_torch.ops import table_gather as tg
     from pagnerf_tpu_torch.ops.assignment import lap_assign
 
     torch.cuda.empty_cache()
@@ -827,36 +895,10 @@ def phase_train(dev, stage_name):
         if not all(np.isfinite(v) for v in s["losses"].values()):
             raise AssertionError(f"{stage_name} step losses not finite: {s}")
 
-    # one microbatch through the kernels and through the plain backward
     stage = trainer.stage_for_epoch(log[-1]["epoch"])
     cfg = trainer.cfg
-    batch = trainer.dataset.sample_batch(np.random.default_rng(1), cfg.batch_size,
-                                         cfg.num_rays_sampled_per_img)
-    m = int(np.nonzero(~anchor[batch["cam_idx"]])[0][0])
-    sub = {k: v[m:m + 1] if getattr(v, "ndim", 0) >= 1
-           and v.shape[0] == batch["imgs"].shape[0] else v for k, v in batch.items()}
-    jitter = torch.rand((cfg.num_rays_sampled_per_img, stage.num_steps),
-                        generator=torch.Generator(device=dev).manual_seed(2), device=dev)
-    g_k, l_k = trainer.grad_step(stage, sub, jitter)
-    g_p, l_p, mags = _plain_backward_grads(trainer, stage, sub, jitter)
-    table_err, worst = {}, {}
-    for name, mag in mags.items():
-        diff = (g_k[name] - g_p[name]).abs()
-        table_err[name] = diff.max().item()
-        worst[name] = (diff / (64 * F32_EPS * mag).clamp(min=1e-30)).max().item()
-    # extrinsics: dbary's fused dot rounds 1 ulp apart from the plain
-    # products per sample; 2.1M samples sum into 9 numbers through the
-    # lattice and ray-transform backward
-    ext_ref = g_p["extrinsics"].abs().max().item()
-    ext_err = (g_k["extrinsics"] - g_p["extrinsics"]).abs().max().item()
-    loss_err = max(abs(float(l_k[k]) - float(l_p[k])) for k in l_k)
-    check = dict(plain_check_microbatch_cam=int(sub["cam_idx"][0]),
-                 plain_check_table_max_abs_err=table_err,
-                 plain_check_table_worst_err_over_tol=worst,
-                 plain_check_extrinsics_err=ext_err,
-                 plain_check_extrinsics_max=ext_ref, plain_check_loss_err=loss_err)
-    if not (all(w <= 1.0 for w in worst.values()) and ext_ref > 0
-            and ext_err <= 1e-3 * ext_ref):
+    check, ok = kernel_vs_plain_grads(trainer, stage, dev)
+    if not ok:
         emit(f"train_{stage_name}", ok=False, launches=launches, **check)
         raise AssertionError(f"{stage_name}: gradients through the kernels vs the "
                              f"plain backward outside tolerance: {check}")
@@ -2061,13 +2103,295 @@ def phase_bup20(dev, flush, card):
         fail(f"a kernel at one of this path's N outside its tolerance: {checks}")
     torch.cuda.empty_cache()
     fields["full_size_loader"] = bup20_loader_at_full_size(os.path.join(root, "full"))
-    shutil.rmtree(tree)
     emit("bup20", **fields)
+    return launches, times, tree
+
+
+# the configs this slice unlocks, over the bup20 phase's tree with its flags
+BUP20_VARIANTS = {"panoptic_dd": "configs/bup20/panoptic_dd.yaml",
+                  "mean_shift": "configs/bup20/mean_shift_contrastive.yaml"}
+TRAIN_KINDS = ("encode", "dual_encode", "table_grad", "dual_table_grad", "dbary")
+
+
+def dd_alpha_gap(trainer, dev, rays=4096):
+    """max |panoptic_alpha - alpha| over a render of the first training
+    camera's first ``rays`` pixels with a panoptic channel."""
+    import torch
+
+    from pagnerf_tpu_torch.core.rays import Rays
+
+    ds = trainer.dataset
+    o = torch.as_tensor(ds.data["base_rays_origins"].reshape(-1, 3)[:rays], device=dev)
+    d = torch.as_tensor(ds.data["base_rays_dirs"].reshape(-1, 3)[:rays], device=dev)
+    rb = trainer.batch_render(Rays(origins=o, dirs=d, dist_min=0.0, dist_max=6.0),
+                              {"rgb", "semantics"}, cam_idx=int(ds.train_idxs[0]))
+    return float((rb.panoptic_alpha - rb.alpha).abs().max())
+
+
+def contrastive_card_vs_cpu(trainer, dev):
+    """A full batch (``batch_size`` images x ``num_rays_sampled_per_img``,
+    seed 3) rendered microbatch by microbatch without gradients through the
+    trainer's losses; the instance head's ``sup_contrastive_loss`` inputs
+    of all microbatches are stacked and its loss on the card is held against
+    the loss of the same tensors on the CPU (1e-4 relative)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch.train import trainer as trainer_mod
+
+    cfg = trainer.cfg
+    stage = trainer.stage_for_epoch(trainer.epoch - 1)
+    batch = trainer.dataset.sample_batch(np.random.default_rng(3), cfg.batch_size,
+                                         cfg.num_rays_sampled_per_img)
+    seen, loss = [], trainer_mod.sup_contrastive_loss
+
+    def spy(features, labels, anchor_mask=None, **kw):
+        if anchor_mask is not None:          # the instance loss, not contrast_sem
+            seen.append((features, labels, anchor_mask, kw))
+        return loss(features, labels, anchor_mask, **kw)
+    with torch.no_grad(), mock.patch.object(trainer_mod, "sup_contrastive_loss", spy):
+        for sub in trainer._micro_batches(batch):
+            rays = sub["imgs"].shape[0] * sub["imgs"].shape[1]
+            trainer.compute_losses(trainer._to_device(sub), stage,
+                                   trainer.draw((rays, stage.num_steps)))
+    kw = seen[0][3]
+    feats, labels, mask = (torch.cat([s[i] for s in seen]) for i in range(3))
+    t = time.perf_counter()
+    card = float(loss(feats, labels, mask, **kw))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = float(loss(feats.cpu(), labels.cpu(), mask.cpu(), **kw))
+    cpu_s = time.perf_counter() - t
+    return dict(images=int(feats.shape[0]), rays=int(feats.shape[1]),
+                embedding_dim=int(feats.shape[2]), anchors=int(mask.sum()),
+                loss_card=card, loss_cpu=cpu, card_s=card_s, cpu_s=cpu_s,
+                rel_err=abs(card - cpu) / max(abs(cpu), 1e-30))
+
+
+@contextlib.contextmanager
+def clustering_walls(out):
+    """While a run goes: each validation's ``train_clustering`` wall (the
+    renders and the fit), the fit's host wall and its input centres and
+    fitted clusters, each image's ``predict_clusters`` wall; the last
+    predicted embeddings and model are kept in ``out``."""
+    from unittest import mock
+
+    from pagnerf_tpu_torch.train import validation
+    from pagnerf_tpu_torch.utils import clustering
+
+    fit_v, fit_m, predict = (validation.train_clustering, clustering.MeanShift.train_clustering,
+                             clustering.MeanShift.predict_clusters)
+
+    def fit_v_spy(*args, **kwargs):
+        t = time.perf_counter()
+        ms = fit_v(*args, **kwargs)
+        out.setdefault("train_clustering_s", []).append(time.perf_counter() - t)
+        return ms
+
+    def fit_m_spy(self, embeddings, labels):
+        t = time.perf_counter()
+        fit_m(self, embeddings, labels)
+        out.setdefault("fit_s", []).append(time.perf_counter() - t)
+        out.setdefault("centres", []).append(
+            len(clustering.mean_class_embedding(embeddings, labels)))
+        out.setdefault("clusters", []).append(len(self.ms.cluster_centers_))
+
+    def predict_spy(self, embeddings):
+        t = time.perf_counter()
+        ids = predict(self, embeddings)
+        out.setdefault("predict_s", []).append(time.perf_counter() - t)
+        out["last"] = (self, embeddings)
+        return ids
+    with mock.patch.object(validation, "train_clustering", fit_v_spy), \
+            mock.patch.object(clustering.MeanShift, "train_clustering", fit_m_spy), \
+            mock.patch.object(clustering.MeanShift, "predict_clusters", predict_spy):
+        yield
+
+
+def broadcast_predict(ms, embeddings):
+    """The last image's prediction by the JAX package's one broadcast
+    ([pixels, clusters, D] float64) against the chunked one: walls, the
+    broadcast's bytes, equal ids."""
+    import numpy as np
+
+    flat = embeddings.reshape(-1, embeddings.shape[-1])
+    centres = ms.ms.cluster_centers_
+    t = time.perf_counter()
+    chunked = ms.ms.predict(flat)
+    chunked_s = time.perf_counter() - t
+    t = time.perf_counter()
+    full = np.argmin(np.linalg.norm(flat[:, None] - centres[None], axis=-1), axis=-1)
+    broadcast_s = time.perf_counter() - t
+    return dict(pixels=int(flat.shape[0]), clusters=int(centres.shape[0]),
+                dim=int(flat.shape[1]), chunked_s=chunked_s, broadcast_s=broadcast_s,
+                broadcast_gib=flat.shape[0] * centres.shape[0] * flat.shape[1] * 8 / 2 ** 30,
+                equal=bool(np.array_equal(chunked, full)))
+
+
+def phase_bup20_variant(dev, flush, card, tree, name, seen):
+    """Main paths 8 and 9: ``BUP20_VARIANTS[name]`` through ``cli.main`` over
+    the bup20 phase's tree at full width (24 LoDs x 2^18 x F=2, main and
+    delta grid, hidden 64, 512 steps, 4096 rays x batch 6) with
+    ``BUP20_FLAGS``: an RGB epoch, two panoptic epochs, a validation at mip
+    2 and the final one at mip 0. Launch counts set to 0 before and read
+    after: those the steps' cameras and the render chunks imply (the
+    clustering's renders too). One panoptic microbatch's gradients through
+    the kernels against the plain backward. 'panoptic_dd': max
+    |panoptic_alpha - alpha| of a rendered batch must be > 0.
+    'mean_shift': the contrastive loss of a batch on the card against the
+    CPU's (1e-4 relative); each validation fits the mean shift
+    (``train_clustering``) and predicts every image through it: walls,
+    centres and clusters, the chunked predict against the broadcast one.
+    Each kernel at the training N (this path's own idx, bary and
+    cotangents) and at every (kernel, N) that no earlier phase recorded
+    (``seen``) against its plain version. Finite losses and metrics."""
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.data.multiview import MultiviewDataset
+    from pagnerf_tpu_torch.quality_run import read_perf, summary
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = BUP20_VARIANTS[name]
+    log_root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", name)
+    shutil.rmtree(log_root, ignore_errors=True)
+    argv = ["--config", os.path.join(ROOT, config), "--dataset-path", tree, "--device",
+            "cuda", "--log-dir", log_root, "--perf", "--exp-name", "train"] + BUP20_FLAGS
+    trainers, renders, calls, pack_totals, images, clus = [], [], {}, {}, [], {}
+    get_images = MultiviewDataset.get_images
+
+    def images_spy(self, split="val", mip=0):
+        out = get_images(self, split, mip)
+        images.append((split, mip, tuple(out["imgs"].shape[:3])))
+        return out
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with recorded_run(calls, trainers, renders, pack_totals, no_grad=True), \
+            mock.patch.object(MultiviewDataset, "get_images", images_spy), \
+            clustering_walls(clus):
+        final = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    trainer = trainers[0]
+    run_dir, records = read_perf(log_root, "train")
+    anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+    summ = summary(records, pack_totals)
+    steps = [r for r in records if r["name"] == "train_step"]
+    expected = cli_launches(steps, anchor, renders, 0, 0)
+    cfg = trainer.cfg
+    rays_per_step = cfg.num_rays_sampled_per_img * cfg.batch_size
+    stages = {k: dict(v, rays_per_s=(rays_per_step / (v["median_ms"] / 1e3)
+                                     if v["median_ms"] else None))
+              for k, v in summ["stages"].items()}
+    epochs = [{"epoch": r["epoch"], "s": r["ms"] / 1e3, "losses": r["losses"],
+               "stages": sorted({s_["stage"] for s_ in steps if s_["epoch"] == r["epoch"]})}
+              for r in records if r["name"] == "epoch"]
+    nef = trainer.pipeline.nef
+    fields = dict(config=config, flags=" ".join(BUP20_FLAGS), card=card,
+                  nef_type=type(nef).__name__, tracer_type=trainer.pipeline.tracer_cfg.tracer_type,
+                  inst_loss=cfg.inst_loss, wall_s=wall, epochs=epochs, stages=stages,
+                  validations=summ["validations"], validated_images=images,
+                  launches=launches, expected_launches=expected,
+                  peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  final_metrics=final, recorded_calls=sorted(f"{k}@{n}" for k, n in calls))
+
+    def fail(msg):
+        emit(name, ok=False, **fields)
+        raise AssertionError(msg)
+
+    want_nef = {"panoptic_dd": "PanopticDDensityNeF", "mean_shift": "MeanShiftPanopticDeltaNeF"}
+    if type(nef).__name__ != want_nef[name]:
+        fail(f"the config built a {type(nef).__name__}")
+    if [e["stages"] for e in epochs] != [["ray_dense_rgb"], ["ray_dense_panoptic"],
+                                         ["ray_dense_panoptic"]]:
+        fail(f"the 3 epochs ran the stages {[e['stages'] for e in epochs]}")
+    if launches != expected:
+        fail(f"cli.main launched {launches}, expected {expected}")
+    if not all(launches[k] for k in TRAIN_KINDS):
+        fail("a kernel of the path was not launched")
+    if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
+        fail("a loss is not finite")
+    if not (all(np.isfinite(v) for v in final.values())
+            and {"val/psnr", "val/iou", "val/pq_things", "val/map"} <= set(final)):
+        fail("final metrics not finite or incomplete")
+    w, h = BUP20_SIZE
+    n_val = len(trainer.dataset.val_idxs)
+    want_images = [("val", 2, (n_val, h // 4, w // 4)), ("val", 0, (n_val, h, w))]
+    if images != want_images:
+        fail(f"validated {images}, expected {want_images}")
+    # each validation: the clustering's renders (num_clustering_samples
+    # pixels over the training images, at the dataset's size) first, then
+    # each image in chunks of render_batch rays
+    rbatch, steps_ = cfg.render_batch, trainer.pipeline.tracer_cfg.num_steps
+    n_train = len(trainer.dataset.train_idxs)
+    clus_rays = min(max(1, cfg.num_clustering_samples // n_train), w * h)
+    clus_chunks = [-(-clus_rays // rbatch)] * n_train if name == "mean_shift" else []
+    chunks = [c for _, _, (nn, hh, ww) in images
+              for c in clus_chunks + [-(-hh * ww // rbatch)] * nn]
+    if [r[1] for r in renders] != chunks:
+        fail(f"renders {[r[1] for r in renders]}, expected chunks {chunks}")
+
+    # one panoptic microbatch through the kernels and the plain backward
+    check, ok = kernel_vs_plain_grads(trainer, trainer.stage_for_epoch(cfg.epochs - 1), dev)
+    fields["grad_check"] = check
+    if not ok:
+        fail(f"gradients through the kernels vs the plain backward: {check}")
+    if name == "panoptic_dd":
+        gap = dd_alpha_gap(trainer, dev)
+        fields["max_abs_panoptic_alpha_minus_alpha"] = gap
+        if not gap > 0:
+            fail("the DD tracer's panoptic alpha equals the colour alpha")
+    else:
+        fields["contrastive_card_vs_cpu"] = con = contrastive_card_vs_cpu(trainer, dev)
+        if not con["rel_err"] <= 1e-4:
+            fail(f"sup_contrastive on the card vs the CPU: {con}")
+        last = clus.pop("last", None)
+        fields["clustering"] = dict(clus, predicts=len(clus.get("predict_s", [])),
+                                    predict_s_total=sum(clus.get("predict_s", [])))
+        if not (len(clus.get("fit_s", [])) == 2 and last is not None
+                and fields["clustering"]["predicts"] == n_val * 2
+                and all(c >= 1 for c in clus["clusters"])):
+            fail(f"the validations did not fit and predict the mean shift: {clus}")
+        fields["predict_broadcast_vs_chunked"] = bc = broadcast_predict(*last)
+        if not bc["equal"]:
+            fail(f"the chunked predict differs from the broadcast one: {bc}")
+
+    # each kernel at this path's training N and at any N no earlier phase gave it
+    spec = nef.grid.spec
+    dense_n = cfg.num_rays_sampled_per_img * steps_
+    fields["dense_N"] = dense_n
+    if set((k, dense_n) for k in TRAIN_KINDS) - set(calls):
+        fail(f"no call was recorded at {sorted(set((k, dense_n) for k in TRAIN_KINDS) - set(calls))}")
+    check_calls = {key: rec for key, rec in calls.items()
+                   if key not in seen or (key[0] in TRAIN_KINDS and key[1] == dense_n)}
+    fields["checked_calls"] = sorted(f"{k}@{n}" for k, n in check_calls)
+    seen |= set(calls)
+    del trainer, trainers
+    calls.clear()
+    checks, times = recorded_kernel_checks(spec, check_calls, dev, flush)
+    check_calls.clear()
+    fields.update(kernel_checks=checks, kernel_times=times)
+    if not all(ch["ok"] for by_n in checks.values() for ch in by_n.values()):
+        fail(f"a kernel at one of this path's N outside its tolerance: {checks}")
+    torch.cuda.empty_cache()
+    emit(name, **fields)
     return launches, times
 
 
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
+    import shutil
+
     import torch
 
     from pagnerf_tpu_torch.entry import entry
@@ -2113,7 +2437,13 @@ def main() -> None:
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
     paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
     paths["cli"], cli_times = phase_cli(dev, flush_buf.zero_)
-    paths["bup20"], bup20_times = phase_bup20(dev, flush_buf.zero_, smi_line)
+    paths["bup20"], bup20_times, tree = phase_bup20(dev, flush_buf.zero_, smi_line)
+    seen = {(k, int(n)) for k, by_n in bup20_times.items() for n in by_n}
+    variant_times = {}
+    for name in BUP20_VARIANTS:
+        paths[name], variant_times[name] = phase_bup20_variant(
+            dev, flush_buf.zero_, smi_line, tree, name, seen)
+    shutil.rmtree(os.path.dirname(os.path.dirname(tree)))
     del flush_buf
 
     # ---------------------------------------------------------------- report
@@ -2151,6 +2481,10 @@ def main() -> None:
         row["bup20"] = bup20_times[key]
         if key + NO_IDX_BARY in bup20_times:
             row["bup20_validation"] = bup20_times[key + NO_IDX_BARY]
+        for name, times_ in variant_times.items():
+            for k in (key, key + NO_IDX_BARY):
+                if k in times_:
+                    row[name + ("_validation" if k != key else "")] = times_[k]
         rows.append(row)
     for name, key, replaces in (("single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
                                 ("dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119")):
@@ -2191,6 +2525,9 @@ def main() -> None:
             row["cli"] = cli_times[key]
         if key in bup20_times:
             row["bup20"] = bup20_times[key]
+        for name_, times_ in variant_times.items():
+            if key in times_:
+                row[name_] = times_[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -18,9 +18,11 @@ grad. The datasets are the JAX factory's: the synthetic scene, a BUP20 tree
 (``data/formats/bup20.py``) and a NeRF-standard tree
 (``data/formats/nerf_standard.py``); another format raises
 ``NotImplementedError``, as it does there. What the port does not have yet
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: NeF types
-other than ``PanopticNeF`` / ``PanopticDeltaNeF`` (Queue 1 items 3-5), grid
-types other than ``PermutoGrid`` (item 5).
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: the
+``SemanticNeF`` and ``PanopticLiftingNeF`` models and grid types other than
+``PermutoGrid`` (Queue 1 item 5). As in the JAX factory, the NeF gets no
+``separate_sem_grid`` or ``delta_num_layers`` / ``delta_hidden_dim`` from a
+config: those keep their module defaults.
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ from ..data.formats.nerf_standard import load_nerf_standard
 from ..data.multiview import MultiviewDataset
 from ..data.synthetic import add_synthetic_predictions, make_dataset
 from ..device import resolve_device
-from ..models.nefs import GridConfig, PanopticDeltaNeF, PanopticNeF
+from ..models.clustering_nef import (MeanShiftPanopticDDensityNeF,
+                                     MeanShiftPanopticDeltaNeF, MeanShiftPanopticNeF)
+from ..models.nefs import GridConfig, PanopticDDensityNeF, PanopticDeltaNeF, PanopticNeF
 from ..models.pipeline import BAPipeline, Pipeline
 from ..models.tracer import TracerConfig
 from ..train.optimizer import OptimizerConfig
@@ -45,11 +49,8 @@ from .config import register_class, str2mod
 log = logging.getLogger(__name__)
 
 # NeF types the JAX package registers and the port does not have yet, with
-# the ROADMAP.md item that ports each: the DD tracer (3), the mean-shift
-# NeFs (4), the other models (5)
-UNPORTED_NEFS = {"PanopticDDensityNeF": 3, "MeanShiftPanopticNeF": 4,
-                 "MeanShiftPanopticDeltaNeF": 4, "MeanShiftPanopticDDensityNeF": 4,
-                 "SemanticNeF": 5, "PanopticLiftingNeF": 5}
+# the ROADMAP.md item that ports each
+UNPORTED_NEFS = {"SemanticNeF": 5, "PanopticLiftingNeF": 5}
 
 
 def roadmap_item(n: int) -> str:
@@ -57,7 +58,8 @@ def roadmap_item(n: int) -> str:
 
 
 def register_default_classes() -> None:
-    for cls in (PanopticNeF, PanopticDeltaNeF):
+    for cls in (PanopticNeF, PanopticDeltaNeF, PanopticDDensityNeF, MeanShiftPanopticNeF,
+                MeanShiftPanopticDeltaNeF, MeanShiftPanopticDDensityNeF):
         register_class(cls, cls.__name__)
 
 

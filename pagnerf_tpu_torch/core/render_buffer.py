@@ -3,7 +3,8 @@
 Per-ray output channels, ``None`` where not rendered. Shapes follow the JAX
 package: ``rgb [R, 3]``, ``depth [R, 1]``, ``alpha [R, 1]``, ``hit [R]``,
 ``semantics [R, num_classes]``, ``inst_embedding [R, num_instances]``,
-``panoptic_alpha [R, 1]``.
+``panoptic_alpha [R, 1]``; ``ray_sparsity_loss`` is per ray [R] inside a
+trace and a scalar (the mean over the real rays) when ``trace`` returns.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ class RenderBuffer:
     semantics: Optional[torch.Tensor] = None
     inst_embedding: Optional[torch.Tensor] = None
     panoptic_alpha: Optional[torch.Tensor] = None
+    ray_sparsity_loss: Optional[torch.Tensor] = None
 
     @staticmethod
     def concatenate(buffers) -> "RenderBuffer":

@@ -1,12 +1,13 @@
-"""Linear-assignment instance loss, 'things' variant (counterpart of
+"""Linear-assignment instance losses (counterpart of
 ``pagnerf_tpu/losses/lin_assignment.py``).
 
 Per image: a (label x slot) cost from the mean rendered slot probability
 under each ground-truth label, a minimum-cost matching of labels to slots
 (``ops/assignment.lap_assign``, on the host), and an NLL toward the matched
-"virtual" labels wherever a pixel disagrees. Slot 0 is reserved for stuff;
-the optional repeated-ID rejection penalises slots outside a band that each
-instance's world-x position allows. Ported: the 'things' loss and its parts.
+"virtual" labels wherever a pixel disagrees. In the 'things' variant slot 0
+is reserved for stuff and the optional repeated-ID rejection penalises
+slots outside a band that each instance's world-x position allows; the
+plain variant matches every label over all pixels.
 """
 from __future__ import annotations
 
@@ -107,3 +108,28 @@ def lin_assignment_things_loss(probs: torch.Tensor, labels: torch.Tensor,
         nll = -torch.gather(safe_prob_log(p), 1, virt[:, None])[:, 0]
         out.append(torch.where(valid & any_wrong, nll, 0.0))
     return torch.stack(out)
+
+
+def lin_assignment_loss(probs: torch.Tensor, labels: torch.Tensor,
+                        num_labels: int) -> torch.Tensor:
+    """The plain linear-assignment loss: per image, labels matched to slots
+    over all pixels, an NLL toward the virtual labels if any pixel
+    disagrees, averaged over the images. probs [B, R, M] softmaxed, labels
+    [B, R]. Labels at or past ``num_labels`` add nothing. The reference
+    builds the cost from a second softmax of the probabilities (the NLL
+    reads them as they are), which can move the optimum in near ties; it is
+    kept."""
+    out = []
+    for p, gt in zip(probs, labels.to(torch.int64)):
+        in_range = gt < num_labels
+        with torch.no_grad():
+            cost, present = _label_slot_cost(torch.softmax(p, dim=-1), gt,
+                                             in_range.to(p.dtype), num_labels)
+            assign = hungarian_assign(cost, present)                    # [K]
+            virt = assign[torch.clamp(gt, 0, num_labels - 1)].to(torch.int64)
+            any_wrong = torch.any((virt != torch.argmax(p, dim=-1)) & in_range)
+        nll = -torch.gather(safe_prob_log(p), 1, virt[:, None])[:, 0]
+        nll = torch.where(in_range, nll, 0.0)
+        denom = torch.clamp(in_range.sum(), min=1)
+        out.append(torch.where(any_wrong, nll.sum() / denom, 0.0))
+    return torch.stack(out).mean()

@@ -6,7 +6,9 @@ semantic and instance heads. ``PanopticDeltaNeF`` is the flagship PAg-NeRF
 model: the panoptic heads read stop-gradient colour features plus a delta
 grid queried at stop-gradient coordinates. When the delta grid has the main
 grid's spec, both grids are read at one shared lattice through the dual
-table-gather kernel (``_dual_feats``).
+table-gather kernel (``_dual_feats``). ``PanopticDDensityNeF`` adds a
+``delta_density`` head, so the DD tracer integrates the panoptic channels
+under their own transmittance.
 
 Layout: coordinates and ray directions enter feature-major ``[3, N]``;
 every channel comes out ``[C, N]``. ``.detach()`` stands where the JAX package
@@ -230,11 +232,19 @@ class PanopticDeltaNeF(PanopticNeF):
             return 3
         return feat_dim
 
-    def _can_fuse_dual(self) -> bool:
+    def _can_fuse_dual(self, check_pft: bool = True) -> bool:
+        """``check_pft=False`` is the DD NeF's predicate: its delta grid
+        always exists and fuses whatever ``panoptic_features_type`` says."""
         return (self.fuse_dual_grid
-                and self.panoptic_features_type in ("delta", None)
+                and (not check_pft or self.panoptic_features_type in ("delta", None))
                 and (self.delta_grid_cfg is None
                      or self.delta_grid_cfg == self.grid_cfg))
+
+    def _delta_fused_feats(self, coordsT, feats, lod_weights, separate: bool = False):
+        """Unfused delta fusion: the delta grid at detached coordinates, added
+        to the detached main features (``separate``: the delta features alone)."""
+        delta_feats = self._grid_feats(self.delta_grid, coordsT.detach(), lod_weights)
+        return delta_feats if separate else feats.detach() + delta_feats
 
     def _dual_feats(self, coordsT, lod_weights):
         """Shared-lattice read of the main and delta tables (one dual kernel
@@ -249,9 +259,8 @@ class PanopticDeltaNeF(PanopticNeF):
     def _panoptic_feats(self, coordsT, feats, lod_weights):
         pft = self.panoptic_features_type
         if pft in ("delta", "separate", None):
-            delta_feats = self._grid_feats(self.delta_grid, coordsT.detach(),
-                                           lod_weights)
-            return delta_feats if pft == "separate" else feats.detach() + delta_feats
+            return self._delta_fused_feats(coordsT, feats, lod_weights,
+                                           separate=pft == "separate")
         if pft == "appearance":
             return feats.detach()
         if pft == "pos_encoding":
@@ -285,3 +294,68 @@ class PanopticDeltaNeF(PanopticNeF):
             if "inst_embedding" in channels:
                 out["inst_embedding"] = self._inst(panop_feats)
         return out
+
+
+class PanopticDDensityNeF(PanopticDeltaNeF):
+    """Delta-density panoptic NeF: a ``delta_density`` head over the panoptic
+    features gives ``panoptic_density = relu(detach(raw density logit) +
+    delta_density)``, the transmittance the DD tracer integrates the panoptic
+    channels under. It always has a delta grid; ``separate_sem_grid`` reads
+    the delta features alone (and the density base is 0)."""
+
+    def __init__(self, *args, separate_sem_grid: bool = False,
+                 delta_num_layers: int = 1, delta_hidden_dim: int = 64, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.separate_sem_grid = separate_sem_grid
+        if not hasattr(self, "delta_grid"):
+            self.delta_grid = (self.delta_grid_cfg or self.grid_cfg).build()
+        feat_dim = (self.grid_cfg.feature_dim if self.multiscale_type == "sum"
+                    else self.grid_cfg.output_dim)
+        self.decoder_delta_density = BasicDecoder(
+            feat_dim, 1, delta_hidden_dim if delta_num_layers > 0 else feat_dim,
+            delta_num_layers, "none", compute_dtype=self.compute_dtype)
+
+    def _panoptic_input_dim(self, feat_dim: int) -> int:
+        return feat_dim                 # the heads always read grid features
+
+    def forward(self, coordsT, ray_dT, channels, lod_weights=None):
+        out: Dict[str, torch.Tensor] = {}
+        if not channels:
+            return out
+        panop_needed = channels & {"delta_density", "panoptic_density", "semantics",
+                                   "inst_embedding"}
+        panop_feats = None
+        if (panop_needed and not self.separate_sem_grid
+                and self._can_fuse_dual(check_pft=False)):
+            feats, panop_feats = self._dual_feats(coordsT, lod_weights)
+        else:
+            feats = self._grid_feats(self.grid, coordsT, lod_weights)
+
+        if channels & {"density", "rgb"} or (
+                "panoptic_density" in channels and not self.separate_sem_grid):
+            density_feats, density = self._density(feats)
+            if "density" in channels:
+                out["density"] = density
+        if "rgb" in channels:
+            out["rgb"] = self._rgb(density_feats, ray_dT)
+
+        if panop_needed and panop_feats is None:
+            panop_feats = self._delta_fused_feats(coordsT, feats, lod_weights,
+                                                  separate=self.separate_sem_grid)
+        if channels & {"delta_density", "panoptic_density"}:
+            delta_density = self.decoder_delta_density(panop_feats)     # [1, N]
+            if "delta_density" in channels:
+                out["delta_density"] = delta_density
+        if "panoptic_density" in channels:
+            # the raw density logit (before its relu), detached
+            base = 0.0 if self.separate_sem_grid else density_feats[0:1, :].detach()
+            out["panoptic_density"] = torch.relu(base + delta_density)
+        if "semantics" in channels:
+            out["semantics"] = self._semantics(panop_feats)
+        if "inst_embedding" in channels:
+            out["inst_embedding"] = self._inst(panop_feats)
+        return out
+
+    def supported_channels(self) -> Channels:
+        return frozenset({"density", "rgb", "delta_density", "panoptic_density",
+                          "semantics", "inst_embedding"})

@@ -8,12 +8,20 @@ detached transmittance; white background composites as
 ``panoptic_alpha * integrated features``, with the optional background
 residual in slot 0.
 
-Ported: the single-block trace in 'ray' and 'voxel' mode, with midpoint
-samples or, for training, stratified ``jitter`` (``ops/raymarch.py``), over
-the dense layout, the per-ray compacted one (``compact_steps``) or the
-cross-ray packed one (``pack_steps``, ``ops/packed.py``). Ray and sample
-chunking, the delta-density (DD) tracer and the ray-sparsity loss are not
-ported yet; a config that asks for them raises.
+With the DD tracer (``PanopticDDensityPackedRFTracer``) the panoptic
+channels integrate under the NeF's own ``panoptic_density`` with detached
+deltas instead; a NeF without that channel raises ``KeyError`` at the first
+trace that asks for a panoptic channel, as in the JAX package.
+
+The trace runs in 'ray' and 'voxel' mode, with midpoint samples or, for
+training, stratified ``jitter`` (``ops/raymarch.py``), over the dense
+layout, the per-ray compacted one (``compact_steps``) or the cross-ray
+packed one (``pack_steps``, ``ops/packed.py``). ``ray_chunk`` traces the
+rays in blocks and ``sample_chunk`` evaluates the NeF in chunks of samples,
+each block or chunk under ``torch.utils.checkpoint`` when gradients are on
+(the JAX package's ``jax.checkpoint``), so its activations are recomputed in
+the backward. ``ray_sparsity_reg`` adds the Cauchy sparsity of the
+densities, summed per ray and averaged over the real rays, in training.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import dataclasses
 from typing import Callable, Dict, FrozenSet, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.rays import Rays
 from ..core.render_buffer import RenderBuffer
@@ -28,7 +37,8 @@ from ..ops.composite import (composite_channel_T, composite_scalar,
                              exponential_integration_weights)
 from ..ops.occupancy import OccupancyGrid
 from ..ops.packed import (pack_samples, packed_composite,
-                          packed_integration_weights, segment_broadcast)
+                          packed_integration_weights, segment_broadcast,
+                          segment_sum)
 from ..ops.raymarch import Jitter, compact_samples, raymarch
 
 RENDER_CHANNELS = frozenset({"depth", "alpha", "hit"})
@@ -65,34 +75,83 @@ class TracerConfig:
                 else self.bg_residual_sem)
         return self.panoptic_bg_residual and gate
 
-    def check_ported(self, stage: str) -> None:
-        """Raise for settings whose code paths are not ported yet."""
-        # each with the ROADMAP.md Queue 1 item that ports it
-        unported = {"ray_chunk": (self.ray_chunk, 6),
-                    "sample_chunk": (self.sample_chunk, 6),
-                    "DD tracer": (self.is_dd, 3),
-                    "ray_sparsity_reg (train)": (self.ray_sparsity_reg > 0.0
-                                                 and stage == "train", 6)}
-        asked = [f"{k} (ROADMAP.md Queue 1 item {n})" for k, (on, n) in unported.items()
-                 if on]
-        if asked:
-            raise NotImplementedError(f"tracer settings not ported yet: {'; '.join(asked)}")
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    gradients are on."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunked_nef_eval(nef_fn: NefFn, coordsT: torch.Tensor, ray_dT: torch.Tensor,
+                      channels: FrozenSet[str], chunk: int) -> Dict[str, torch.Tensor]:
+    """The NeF over [3, N] samples in chunks of ``chunk`` (0: one call). The
+    JAX package pads N to a multiple of the chunk for its scan; each sample's
+    channels do not depend on its chunk, so the port's last chunk is short."""
+    n = coordsT.shape[1]
+    if chunk <= 0 or n <= chunk:
+        return nef_fn(coordsT, ray_dT, channels)
+    outs = [_checkpointed(lambda c, d: nef_fn(c, d, channels),
+                          coordsT[:, i:i + chunk], ray_dT[:, i:i + chunk])
+            for i in range(0, n, chunk)]
+    return {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
 
 
 def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
           channels: FrozenSet[str], stage: str = "val",
           jitter: Jitter = None) -> RenderBuffer:
     """Trace rays [R] against the neural field; midpoint samples unless
-    ``jitter`` (a [R, S] tensor or a generator) stratifies them."""
-    cfg.check_ported(stage)
-    if cfg.pack_steps:
-        return _trace_block_packed(nef_fn, rays, occ, cfg, channels, jitter)
-    return _trace_block(nef_fn, rays, occ, cfg, channels, jitter)
+    ``jitter`` (a [R, S] tensor or a generator) stratifies them.
+
+    With ``ray_chunk`` the rays are padded, as in the JAX package, to whole
+    blocks (origin 0, direction +z: a packed block's water-filling sees its
+    padding rays) and traced block by block; a generator draws each block's
+    [ray_chunk, S] uniforms in turn, and a jitter tensor has the padded rays'
+    rows too, or midpoints stand there. Outputs keep the real rays."""
+    n, blk = rays.origins.shape[0], cfg.ray_chunk
+    if blk <= 0 or n <= blk:
+        rb = _trace_block(nef_fn, rays, occ, cfg, channels, stage, jitter)
+    else:
+        pad = (-n) % blk
+        o = torch.cat([rays.origins, rays.origins.new_zeros((pad, 3))])
+        d = torch.cat([rays.dirs, rays.dirs.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)])
+        if isinstance(jitter, torch.Tensor) and jitter.shape[0] == n:
+            jitter = torch.cat([jitter, jitter.new_full((pad, jitter.shape[1]), 0.5)])
+        blocks = []
+        for i in range(0, n + pad, blk):
+            jb = jitter[i:i + blk] if isinstance(jitter, torch.Tensor) else (
+                None if jitter is None else torch.rand(
+                    (blk, cfg.num_steps), generator=jitter, device=o.device))
+
+            def block(ob, db, jb=jb):
+                return _trace_block(nef_fn, Rays(origins=ob, dirs=db, dist_min=rays.dist_min,
+                                                 dist_max=rays.dist_max),
+                                    occ, cfg, channels, stage, jb)
+            blocks.append(_checkpointed(block, o[i:i + blk], d[i:i + blk]))
+        rb = RenderBuffer.concatenate(blocks)
+        rb = RenderBuffer(**{f.name: None if getattr(rb, f.name) is None
+                             else getattr(rb, f.name)[:n]
+                             for f in dataclasses.fields(rb)})
+    if rb.ray_sparsity_loss is not None:
+        rb.ray_sparsity_loss = rb.ray_sparsity_loss.mean()
+    return rb
+
+
+def _sample_channels(cfg: TracerConfig, channels: FrozenSet[str]) -> FrozenSet[str]:
+    """What the NeF evaluates per sample: the asked channels and the density,
+    and the DD tracer's ``panoptic_density`` when a panoptic channel is asked."""
+    out = frozenset(channels - RENDER_CHANNELS) | {"density"}
+    if cfg.is_dd and channels & PANOPTIC_CHANNELS:
+        out = out | {"panoptic_density"}
+    return out
 
 
 def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
-                 cfg: TracerConfig, channels: FrozenSet[str],
+                 cfg: TracerConfig, channels: FrozenSet[str], stage: str = "val",
                  jitter: Jitter = None) -> RenderBuffer:
+    if cfg.pack_steps:
+        return _trace_block_packed(nef_fn, rays, occ, cfg, channels, stage, jitter)
     rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type, jitter,
                   cfg.ray_max_travel)
     if cfg.compact_steps:
@@ -103,8 +162,8 @@ def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
     coordsT = rm.positionsT.reshape(3, r * s)
     ray_dT = rays.dirs.T[:, :, None].expand(3, r, s).reshape(3, r * s)
 
-    sample_channels = frozenset(channels - RENDER_CHANNELS) | {"density"}
-    feats = nef_fn(coordsT, ray_dT, sample_channels)             # {ch: [C, N]}
+    feats = _chunked_nef_eval(nef_fn, coordsT, ray_dT, _sample_channels(cfg, channels),
+                              cfg.sample_chunk)                  # {ch: [C, N]}
     out: Dict[str, torch.Tensor] = {}
 
     density = feats["density"].reshape(r, s)
@@ -113,9 +172,17 @@ def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
     out["alpha"] = alpha
     out["hit"] = alpha[..., 0] > 0.0
 
+    if cfg.ray_sparsity_reg > 0.0 and stage == "train":
+        # per ray; ``trace`` averages over the real rays
+        spars = torch.log(1.0 + 2.0 * density ** 2) * rm.mask
+        out["ray_sparsity_loss"] = spars.sum(dim=-1) * cfg.ray_sparsity_reg
+
     if channels & PANOPTIC_CHANNELS:
-        panop_weights, panop_alpha = exponential_integration_weights(
-            tau.detach(), rm.mask)
+        if cfg.is_dd:
+            panop_tau = feats["panoptic_density"].reshape(r, s) * rm.deltas.detach()
+        else:
+            panop_tau = tau.detach()
+        panop_weights, panop_alpha = exponential_integration_weights(panop_tau, rm.mask)
         out["panoptic_alpha"] = panop_alpha
 
     if "rgb" in channels:
@@ -141,7 +208,7 @@ def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
 
 def _trace_block_packed(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
                         cfg: TracerConfig, channels: FrozenSet[str],
-                        jitter: Jitter = None) -> RenderBuffer:
+                        stage: str = "val", jitter: Jitter = None) -> RenderBuffer:
     """``_trace_block``'s contracts (channels, stop-gradients, background)
     over one cross-ray [3, B] buffer of the march's valid samples, B =
     ``pack_steps`` x rays (``ops/packed.py``)."""
@@ -151,17 +218,27 @@ def _trace_block_packed(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
     ps = pack_samples(rm, rays.origins.T, rays.dirs.T, budget=cfg.pack_steps * num_rays)
     ray_dT = segment_broadcast(rays.dirs.T, ps.ray_id, ps.offsets)   # [3, B]
 
-    sample_channels = frozenset(channels - RENDER_CHANNELS) | {"density"}
-    feats = nef_fn(ps.positionsT, ray_dT, sample_channels)           # {ch: [C, B]}
-    out: Dict[str, torch.Tensor] = {}
+    feats = _chunked_nef_eval(nef_fn, ps.positionsT, ray_dT,
+                              _sample_channels(cfg, channels), cfg.sample_chunk)
+    out: Dict[str, torch.Tensor] = {}                                # {ch: [C, B]}
 
-    tau = feats["density"].reshape(-1) * ps.deltas
+    density = feats["density"].reshape(-1)
+    tau = density * ps.deltas
     weights, alpha = packed_integration_weights(tau, ps)
     out["alpha"] = alpha
     out["hit"] = alpha[..., 0] > 0.0
 
+    if cfg.ray_sparsity_reg > 0.0 and stage == "train":
+        spars = torch.log(1.0 + 2.0 * density ** 2) * ps.valid
+        out["ray_sparsity_loss"] = segment_sum(spars[None, :], ps.offsets)[0] \
+            * cfg.ray_sparsity_reg
+
     if channels & PANOPTIC_CHANNELS:
-        panop_weights, panop_alpha = packed_integration_weights(tau.detach(), ps)
+        if cfg.is_dd:
+            panop_tau = feats["panoptic_density"].reshape(-1) * ps.deltas.detach()
+        else:
+            panop_tau = tau.detach()
+        panop_weights, panop_alpha = packed_integration_weights(panop_tau, ps)
         out["panoptic_alpha"] = panop_alpha
 
     if "rgb" in channels:

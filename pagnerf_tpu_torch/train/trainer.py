@@ -17,10 +17,14 @@ density pass runs the single encode without a gradient.
 
 Ported: ``TrainerConfig``, ``StageConfig`` and ``snap_microbatch`` with the
 JAX package's names and defaults; ``stage_for_epoch`` with the voxel march,
-the packed and compacted layouts after a prune and the val-pose epochs; the
-losses of the RGB, semantic and ``linear_assignment_things`` heads (with the
-repeated-ID rejection and the segment-consistency regulariser);
-``train_step``; ``prune`` (real and seed), ``should_prune``,
+the packed and compacted layouts after a prune and the val-pose epochs;
+every loss of the JAX trainer: RGB, semantic (with the segment-consistency
+regulariser and the ``contrast_sem_weight`` contrastive term), the instance
+losses ``linear_assignment_things`` (with the repeated-ID rejection and
+the segment regulariser), ``linear_assignment`` and ``sup_contrastive``, the
+tracer's ray sparsity, and the TV of the main grid's features and of the
+instance embeddings over a random window (its vertex from
+``draw_normal``); ``train_step``; ``prune`` (real and seed), ``should_prune``,
 ``maybe_seed_prune``, ``run_epoch`` and ``train``, with LoD annealing (the
 weights set once per epoch from the global step) and random LoD (a cut drawn
 from the numpy generator before each step's batch, so the sampled rays stay
@@ -28,9 +32,8 @@ the JAX trainer's). ``run_epoch`` reads each step's losses back before the
 next step (the JAX package's ``dispatch_ahead`` is not ported) and times
 its phases, each prune and each epoch on ``timer`` (``--perf``).
 ``batch_render`` is the chunked full-image render that validation and the
-point-cloud map call. Not ported yet, and refused by ``stage_for_epoch``:
-the TV regularisers, ``sup_contrastive`` and the plain linear-assignment
-loss, the fused micro-step; TensoRF upsampling is not ported either.
+point-cloud map call. Not ported yet: the fused micro-step, which
+``stage_for_epoch`` refuses, and TensoRF upsampling.
 """
 from __future__ import annotations
 
@@ -45,9 +48,11 @@ from ..core.camera import rays_to_3d_points
 from ..core.rays import Rays
 from ..core.render_buffer import RenderBuffer
 from ..data.multiview import MultiviewDataset
-from ..losses.lin_assignment import lin_assignment_things_loss
+from ..losses.lin_assignment import lin_assignment_loss, lin_assignment_things_loss
 from ..losses.photometric import rgb_l1_loss, semantic_loss
-from ..losses.regularizers import segment_consistency_regularizer
+from ..losses.regularizers import (grid_tv_l1_loss, grid_tv_l2_loss,
+                                   segment_consistency_regularizer)
+from ..losses.sup_contrastive import sup_contrastive_loss
 from ..models.pipeline import BAPipeline, Pipeline
 from ..ops.occupancy import OccupancyGrid
 from ..ops.raymarch import raymarch
@@ -183,7 +188,8 @@ class PanopticTrainer:
     parameters must require grad and live on the trainer's device.
     ``draw(shape)`` returns float32 uniforms in [0, 1) on that device for
     every random draw of training and pruning (default: the trainer's
-    generator)."""
+    generator); ``draw_normal(shape)`` standard normals for the TV
+    windows' vertices (the trainer's generator; a test may replace it)."""
 
     def __init__(self, pipeline: Pipeline, dataset: MultiviewDataset,
                  cfg: TrainerConfig = TrainerConfig(),
@@ -202,6 +208,8 @@ class PanopticTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.draw = draw or (lambda shape: torch.rand(
             tuple(shape), generator=self.generator, device=self.device))
+        self.draw_normal = lambda shape: torch.randn(
+            tuple(shape), generator=self.generator, device=self.device)
         self.params = dict(pipeline.named_parameters())
         self.opt = MaskedAdam(self.opt_cfg, self.params)
         self.occ = OccupancyGrid.create(level=occ_level, device=self.device)
@@ -234,7 +242,7 @@ class PanopticTrainer:
     # ------------------------------------------------------------- stages
     def stage_for_epoch(self, epoch: int) -> StageConfig:
         """The JAX package's stage at ``epoch``; raises NotImplementedError
-        for a stage that needs a part not ported yet."""
+        for ``fused_micro_step``, which is not ported yet."""
         cfg = self.cfg
         training_val_poses = (cfg.optimize_val_extrinsics
                               and isinstance(self.pipeline, BAPipeline)
@@ -252,23 +260,10 @@ class PanopticTrainer:
             channels.add("inst_embedding")
         if cfg.inst_outlier_rejection and use_inst:
             channels.add("depth")
-        # each with the ROADMAP.md Queue 1 item that ports it
-        unported = {
-            "grid TV regularisers": (cfg.grid_tvl1_reg > 0 or cfg.grid_tvl2_reg > 0
-                                     or cfg.delta_grid_tvl1_reg > 0
-                                     or cfg.delta_grid_tvl2_reg > 0, 6),
-            f"inst_loss={cfg.inst_loss!r}": (use_inst and cfg.inst_loss
-                                             != "linear_assignment_things", 4),
-            "contrast_sem_weight (sup_contrastive)": (use_sem and cfg.contrast_sem_weight > 0,
-                                                      4),
-            "fused_micro_step": (cfg.fused_micro_step, 8),
-        }
-        asked = [f"{k} (ROADMAP.md Queue 1 item {n})" for k, (on, n) in unported.items()
-                 if on]
-        if asked:
+        if cfg.fused_micro_step:
             raise NotImplementedError(
                 f"the training stage at epoch {epoch} needs parts not ported yet: "
-                f"{'; '.join(asked)}")
+                "fused_micro_step (ROADMAP.md Queue 1 item 8)")
         voxel = epoch > cfg.voxel_raymarch_epoch_start
         base = self.pipeline.tracer_cfg
         if voxel:
@@ -338,6 +333,10 @@ class PanopticTrainer:
 
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
+        if rb.ray_sparsity_loss is not None:
+            total = total + rb.ray_sparsity_loss
+            losses["ray_sparsity_loss"] = rb.ray_sparsity_loss
+
         if cfg.rgb_weight > 0.0:
             rloss = rgb_l1_loss(rb.rgb, batch["imgs"].reshape(-1, 3))
             total = total + cfg.rgb_weight * rloss
@@ -356,6 +355,13 @@ class PanopticTrainer:
                         sem_gts.reshape(b, r), self.num_classes)
             total = total + cfg.sem_weight * sloss
             losses["sem_loss"] = sloss
+            if cfg.contrast_sem_weight > 0.0:
+                closs = sup_contrastive_loss(
+                    (rb.semantics + 1e-27).reshape(b, r, -1), sem_gts.reshape(b, r),
+                    temperature=cfg.inst_temperature,
+                    base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio)
+                total = total + cfg.contrast_sem_weight * closs
+                losses["contrast_sem_loss"] = closs
 
         if stage.use_inst:
             inst_gts = batch.get("instance_pred", batch["instance"]).reshape(b, r)
@@ -363,23 +369,52 @@ class PanopticTrainer:
             inst_embed = rb.inst_embedding.reshape(b, r, -1)
             stuff = torch.isin(sem_gts, torch.tensor(
                 self.stuff_ids, dtype=sem_gts.dtype, device=sem_gts.device))
-            points_3d = None
-            if cfg.inst_outlier_rejection:
-                with torch.no_grad():
-                    world = self.pipeline.transform_rays(base_rays, cam_idx)
-                    points_3d = rays_to_3d_points(world, rb.depth).reshape(b, r, 3)
-            lmap = lin_assignment_things_loss(
-                inst_embed, inst_gts, stuff, self.num_instances,
-                points_3d=points_3d, outlier_rejection=cfg.inst_outlier_rejection)
-            if stage.use_inst_segment_reg:
-                lmap = lmap + cfg.inst_segment_reg_weight * \
-                    segment_consistency_regularizer(
-                        inst_embed + 1e-27, inst_gts, self.num_instances)
-            if cfg.inst_conf_enable and "inst_conf" in batch:
-                lmap = lmap * batch["inst_conf"].reshape(b, r)
-            iloss = lmap.mean()
+            if cfg.inst_loss == "sup_contrastive":
+                undetected = ~stuff & (inst_gts == 0)
+                iloss = sup_contrastive_loss(
+                    inst_embed, inst_gts, anchor_mask=~undetected,
+                    temperature=cfg.inst_temperature,
+                    base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio)
+            elif cfg.inst_loss == "linear_assignment":
+                iloss = lin_assignment_loss(inst_embed, inst_gts, self.num_instances)
+            elif cfg.inst_loss == "linear_assignment_things":
+                points_3d = None
+                if cfg.inst_outlier_rejection:
+                    with torch.no_grad():
+                        world = self.pipeline.transform_rays(base_rays, cam_idx)
+                        points_3d = rays_to_3d_points(world, rb.depth).reshape(b, r, 3)
+                lmap = lin_assignment_things_loss(
+                    inst_embed, inst_gts, stuff, self.num_instances,
+                    points_3d=points_3d, outlier_rejection=cfg.inst_outlier_rejection)
+                if stage.use_inst_segment_reg:
+                    lmap = lmap + cfg.inst_segment_reg_weight * \
+                        segment_consistency_regularizer(
+                            inst_embed + 1e-27, inst_gts, self.num_instances)
+                if cfg.inst_conf_enable and "inst_conf" in batch:
+                    lmap = lmap * batch["inst_conf"].reshape(b, r)
+                iloss = lmap.mean()
+            else:
+                raise ValueError(f"instance loss '{cfg.inst_loss}' not supported")
             total = total + cfg.inst_weight * iloss
             losses["inst_loss"] = iloss
+
+        nef = self.pipeline.nef
+        tv = dict(sample_size=cfg.tv_window_size, num_dim_samples=cfg.tv_edge_num_samples)
+        if cfg.grid_tvl1_reg > 0.0 or cfg.grid_tvl2_reg > 0.0:
+            def grid_enc(c):
+                return nef._grid_feats(nef.grid, c, None)
+            normal = self.draw_normal((3,))
+            if cfg.grid_tvl1_reg > 0.0:
+                total = total + cfg.grid_tvl1_reg * grid_tv_l1_loss(grid_enc, normal, **tv)
+            if cfg.grid_tvl2_reg > 0.0:
+                total = total + cfg.grid_tvl2_reg * grid_tv_l2_loss(grid_enc, normal, **tv)
+        if cfg.delta_grid_tvl1_reg > 0.0 or cfg.delta_grid_tvl2_reg > 0.0:
+            def inst_enc(c):
+                return nef(c, None, frozenset({"inst_embedding"}))["inst_embedding"]
+            # the reference's delta-grid L2 branch calls its L1 loss too, so
+            # both weights feed one L1 term
+            total = total + (cfg.delta_grid_tvl1_reg + cfg.delta_grid_tvl2_reg) * \
+                grid_tv_l1_loss(inst_enc, self.draw_normal((3,)), **tv)
 
         losses["total_loss"] = total
         return total, losses

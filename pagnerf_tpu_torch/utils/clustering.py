@@ -6,7 +6,10 @@ rendered embeddings to cluster ids. The JAX package fits sklearn's
 ``MeanShift`` where sklearn is installed and falls back to
 ``_SimpleMeanShift``, a flat-kernel mean shift. The card's machine has no
 sklearn, so the port always fits ``_SimpleMeanShift``. Only a NeF with
-``use_clustering`` (not the flagship's) reaches this module.
+``use_clustering`` (not the flagship's) reaches this module. Its distances
+are computed over chunks of rows, bit-equal to the JAX package's one
+broadcast, so that a 320x180 image's [pixels, centres, D] float64
+differences are never held at once.
 """
 from __future__ import annotations
 
@@ -50,8 +53,25 @@ class MeanShift:
         return self.ms.predict(flat).astype(np.int64).reshape(shape)
 
 
+# float64 entries of one chunk's [rows, K, D] difference array (64 MiB)
+CHUNK_ELEMS = 1 << 23
+
+
+def pair_dists(a: np.ndarray, b: np.ndarray, max_elems: Optional[int] = None) -> np.ndarray:
+    """``np.linalg.norm(a[:, None] - b[None], axis=-1)`` [Na, Nb], computed
+    over chunks of a's rows so that no difference array holds more than
+    ``max_elems`` (default ``CHUNK_ELEMS``) entries. Each entry is computed
+    as in the one broadcast, so the result is bit-equal to it."""
+    rows = max(1, (max_elems or CHUNK_ELEMS) // max(1, b.shape[0] * b.shape[1]))
+    if a.shape[0] <= rows:
+        return np.linalg.norm(a[:, None] - b[None], axis=-1)
+    return np.concatenate([np.linalg.norm(a[i:i + rows, None] - b[None], axis=-1)
+                           for i in range(0, a.shape[0], rows)])
+
+
 class _SimpleMeanShift:
-    """Flat-kernel mean shift on the (few) centres."""
+    """Flat-kernel mean shift on the (few) centres; distances in chunks
+    (``pair_dists``)."""
 
     def __init__(self, bandwidth: Optional[float] = None, iters: int = 30):
         self.bandwidth = bandwidth
@@ -60,12 +80,12 @@ class _SimpleMeanShift:
 
     def fit(self, x: np.ndarray) -> "_SimpleMeanShift":
         if self.bandwidth is None:
-            d = np.linalg.norm(x[:, None] - x[None, :], axis=-1)
+            d = pair_dists(x, x)
             vals = d[d > 0]
             self.bandwidth = float(np.quantile(vals, 0.3)) if vals.size else 1.0
         pts = x.copy()
         for _ in range(self.iters):
-            d = np.linalg.norm(pts[:, None] - x[None, :], axis=-1)
+            d = pair_dists(pts, x)
             w = (d < self.bandwidth).astype(np.float64)
             pts = (w @ x) / np.maximum(w.sum(1, keepdims=True), 1)
         # merge modes
@@ -77,5 +97,4 @@ class _SimpleMeanShift:
         return self
 
     def predict(self, x: np.ndarray) -> np.ndarray:
-        d = np.linalg.norm(x[:, None] - self.cluster_centers_[None], axis=-1)
-        return np.argmin(d, axis=-1)
+        return np.argmin(pair_dists(x, self.cluster_centers_), axis=-1)

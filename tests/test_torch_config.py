@@ -210,9 +210,9 @@ def _args(*extra):
 
 
 # the ROADMAP.md Queue 1 item that ports each; a format neither package
-# reads names none
-_ITEM = {"replica": None, "PanopticDDensityNeF": 3, "MeanShiftPanopticDeltaNeF": 4,
-         "SemanticNeF": 5, "HashGrid": 5}
+# reads names none; "ported": the factory builds it since
+_ITEM = {"replica": None, "PanopticDDensityNeF": "ported",
+         "MeanShiftPanopticDeltaNeF": "ported", "SemanticNeF": 5, "HashGrid": 5}
 
 
 @pytest.mark.parametrize("extra, what", [
@@ -223,7 +223,13 @@ _ITEM = {"replica": None, "PanopticDDensityNeF": 3, "MeanShiftPanopticDeltaNeF":
     (("--grid-type", "HashGrid"), "grid_type"),
 ])
 def test_factory_refuses_what_is_not_ported(extra, what):
+    """The factory refuses what the port does not have, naming its item,
+    and builds what it has (the DD and mean-shift NeFs: this slice)."""
     item = _ITEM[extra[1]]
+    if item == "ported":
+        pipe, _, _ = factory_t.get_modules_from_config(_args(*extra), "cpu")
+        assert type(pipe.nef).__name__ == extra[1]
+        return
     match = (f"{what}.*ROADMAP.md Queue 1 item {item}\\b" if item
              else f"{what} .* is not supported")
     with pytest.raises(NotImplementedError, match=match):
@@ -233,9 +239,16 @@ def test_factory_refuses_what_is_not_ported(extra, what):
 @pytest.mark.parametrize("extra", [("--grid-tvl1-reg", "0.1"), ("--fused-micro-step",),
                                    ("--inst-loss", "sup_contrastive")])
 def test_trainer_still_refuses_unported_stages(extra):
+    """Only the fused micro-step is refused; the TV regularisers and the
+    contrastive loss are ported (this slice) and their stage builds."""
     _, _, trainer = factory_t.get_modules_from_config(_args(*extra), "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.stage_for_epoch(trainer.cfg.inst_epoch_start)
+    epoch = trainer.cfg.inst_epoch_start
+    if extra[0] == "--fused-micro-step":
+        with pytest.raises(NotImplementedError, match="fused_micro_step.*not ported|"
+                                                      "not ported.*fused_micro_step"):
+            trainer.stage_for_epoch(epoch)
+    else:
+        assert trainer.stage_for_epoch(epoch).use_inst
 
 
 @pytest.mark.parametrize("extra", [("--optimizer-type", "sgd"), ("--weight-decay", "0.1")])
@@ -250,22 +263,11 @@ def test_argparse_namespace_type():
 
 # ------------------------------------------------------------------ every config
 # What each config is refused at, first, with the ROADMAP.md Queue 1 item
-# that ports it (None: it builds and every epoch's stage passes)
+# that ports it; every other config builds and every epoch's stage passes
 FIRST_REFUSAL = {
-    "configs/bup20/best_contrast_delta.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
-    "configs/bup20/config_hp_base.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
-    # a NeRF-standard tree has no labels, so no sup_contrastive stage runs
-    "configs/bup20/contrastive_delta_app.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
-    "configs/bup20/lin_assign_app.yaml": "epoch 101 .*linear_assignment'.*item 4",
-    "configs/bup20/lin_assign_delta_app.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
-    "configs/bup20/lin_assign_direct_app.yaml": "DD tracer .ROADMAP.md Queue 1 item 3",
-    "configs/bup20/mean_shift_contrastive.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
-    "configs/bup20/mean_shift_contrastive_app.yaml": "MeanShiftPanopticNeF.*item 4",
-    "configs/bup20/mean_shift_panoptic_delta.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
-    "configs/bup20/mean_shift_panoptic_delta_app.yaml": "MeanShiftPanopticDeltaNeF.*item 4",
-    "configs/bup20/panoptic_dd.yaml": "PanopticDDensityNeF.*item 3",
+    "configs/bup20/mean_shift_contrastive_app.yaml": "grid_type 'TriplanarGrid'.*item 5",
     "configs/bup20/panoptic_lifting_app.yaml": "PanopticLiftingNeF.*item 5",
-    "configs/bup20/panoptic_nerf.yaml": "MeanShiftPanopticNeF.*item 4",
+    "configs/bup20/panoptic_nerf.yaml": "grid_type 'HashGrid'.*item 5",
     "configs/bup20/semantic_nerf_app.yaml": "SemanticNeF.*item 5",
 }
 # the model's width cut for the CPU (which parts are ported does not depend on it)
@@ -309,17 +311,16 @@ def test_every_config_builds_or_names_its_first_unported_part(path, tiny_trees,
                                                              monkeypatch):
     """The factory with the dataset swapped for a tiny one of the config's
     format (the config's own dataset settings otherwise), then
-    ``stage_for_epoch`` and ``check_ported`` at every epoch of the config."""
+    ``stage_for_epoch`` at every epoch of the config."""
     args = config_t.parse_options(["--config", os.path.join(ROOT, path)] + SHRINK)
     tiny = factory_t.load_dataset(config_t.parse_options(
         ["--config", os.path.join(ROOT, path)] + _tiny_argv(path, tiny_trees)))
     monkeypatch.setattr(factory_t, "load_dataset", lambda a: tiny)
 
     def run():
-        pipe, _, trainer = factory_t.get_modules_from_config(args, "cpu")
+        _, _, trainer = factory_t.get_modules_from_config(args, "cpu")
         for epoch in range(args.epochs):
             trainer.stage_for_epoch(epoch)
-            pipe.tracer_cfg.check_ported("train")
 
     if path in FIRST_REFUSAL:
         with pytest.raises(NotImplementedError, match=FIRST_REFUSAL[path]):
@@ -336,3 +337,19 @@ def test_no_config_is_refused_at_its_dataset_format(path, tiny_trees):
     assert ds.num_train > 0 and ds.data["imgs"].shape[1:3] in ((9, 16), (12, 16))
     if args.multiview_dataset_format == "bup20":
         assert "semantics_pred" in ds.data and len(ds.val_idxs) == 40
+
+
+def test_config_hp_base_first_panoptic_step_raises_as_jax(tiny_trees):
+    """``config_hp_base.yaml`` puts the DD tracer over a ``PanopticDeltaNeF``,
+    which has no ``panoptic_density``: with labels, the first panoptic step
+    (epoch 0) raises ``KeyError`` in the JAX package, and in the port at
+    the same call."""
+    argv = ["--config", os.path.join(ROOT, "configs/bup20/config_hp_base.yaml")] + SHRINK \
+        + _tiny_argv("configs/bup20/config_hp_base.yaml", tiny_trees) \
+        + ["--num-rays-sampled-per-img", "8", "--num-steps", "8", "--batch-size", "2"]
+    _, _, trainer_j = factory_j.get_modules_from_config(config_j.parse_options(argv))
+    _, _, trainer_t = factory_t.get_modules_from_config(config_t.parse_options(argv), "cpu")
+    for trainer in (trainer_j, trainer_t):
+        assert trainer.stage_for_epoch(0).use_inst
+        with pytest.raises(KeyError, match="panoptic_density"):
+            trainer.run_epoch(0)

@@ -641,3 +641,54 @@ def test_validate_kernels_match_plain_encodes(dev, when):
                            != b.inst_embedding[:, 1:].argmax(-1))).sum())
     assert abs(m_k["val/psnr"] - m_p["val/psnr"]) <= 0.05, (m_k, m_p, flips)
     assert sorted(m_k) == sorted(m_p)
+
+
+def test_dd_nef_through_the_kernels_matches_plain(dev):
+    """A ``PanopticDDensityNeF`` at the flagship's width on the card: every
+    channel through the fused dual encode against the same NeF with the
+    plain encodes patched in (1e-4 of each channel's largest value), one
+    dual encode and, in the backward of the panoptic channels, one dual
+    scatter; ``panoptic_density`` sends no gradient to the coordinates."""
+    from unittest import mock
+
+    from pagnerf_tpu_torch.models.nefs import GridConfig, PanopticDDensityNeF
+
+    nef = PanopticDDensityNeF(grid=GridConfig(), num_classes=8, num_instances=200,
+                              panoptic_features_type="delta")
+    nef.reset_parameters(torch.Generator().manual_seed(0))
+    nef = nef.to(dev).requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.rand((3, 65536), generator=g, device=dev) * 2 - 1).requires_grad_(True)
+    d = torch.nn.functional.normalize(torch.randn((3, 65536), generator=g, device=dev), dim=0)
+    chans = frozenset({"density", "rgb", "panoptic_density", "semantics", "inst_embedding"})
+    tg.reset_launches()
+    out = nef(x, d, chans)
+    out["panoptic_density"].sum().backward()
+    torch.cuda.synchronize()
+    assert tg.KERNELS["dual_encode"].launches == 1
+    assert tg.KERNELS["dual_table_grad"].launches == 1
+    assert x.grad is None or not x.grad.any()
+    with torch.no_grad(), mock.patch.object(pe, "fused_encode_dual", pe.dual_encode_plain):
+        plain = nef(x, d, chans)
+    for ch in chans:
+        tol = 1e-4 * max(1.0, float(plain[ch].abs().max()))
+        assert float((out[ch].detach() - plain[ch]).abs().max()) <= tol, ch
+
+
+def test_sup_contrastive_on_card_matches_cpu(dev):
+    """The contrastive loss of a full-width batch (6 images x 4096 rays x
+    200 embedding dims, an image with every pixel masked) on the card
+    against the CPU's, within 1e-4 relative; finite gradients."""
+    from pagnerf_tpu_torch.losses.sup_contrastive import sup_contrastive_loss
+
+    g = torch.Generator().manual_seed(2)
+    feats = torch.randn((6, 4096, 200), generator=g)
+    labels = torch.randint(0, 30, (6, 4096), generator=g)
+    mask = torch.rand((6, 4096), generator=g) < 0.8
+    mask[3] = False
+    want = sup_contrastive_loss(feats, labels, mask)
+    x = feats.to(dev).requires_grad_(True)
+    got = sup_contrastive_loss(x, labels.to(dev), mask.to(dev))
+    got.backward()
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+    assert bool(torch.isfinite(x.grad).all()) and not x.grad[3].any()
