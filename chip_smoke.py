@@ -7,9 +7,10 @@ Phases, each printing one JSON line as it ends:
 
 1. device  -- refuse to run without CUDA; name the card and its power limit.
 2. build   -- compile ``ops/csrc/permuto_encode.cu`` (the fused encode),
-   ``ops/csrc/permuto_gather.cu`` and ``ops/csrc/permuto_scatter.cu``
-   (backward kernels and the row scatter-add) with nvcc (ctypes route), one
-   nvcc each, all started together.
+   ``ops/csrc/permuto_gather.cu`` (the gathers, V = 4 and 8) and
+   ``ops/csrc/permuto_scatter.cu`` (backward kernels, V = 4 and 8, and the
+   row scatter-add) with nvcc (ctypes route), one nvcc each, all started
+   together.
 3. encode  -- the fused encode kernels (lattice, index, gather and weighted
    sum in one launch; single and dual, the dual from packed rows and from
    two tables) against their plain versions (the port's lattice on the card,
@@ -183,8 +184,34 @@ Phases, each printing one JSON line as it ends:
    image's chunked predict against the one broadcast of the JAX package
    (walls, its bytes, equal ids); finite PQ and mAP.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+14-17. panoptic_nerf, mean_shift_app, semantic_nerf_app,
+   panoptic_lifting_app -- main paths 10-13: ``configs/bup20/
+   panoptic_nerf.yaml`` (``MeanShiftPanopticNeF`` over the hash grid: 14
+   LoDs x 2^19 x F=2, resolutions 16 -> 512, 200-wide embeddings, 2048 rays
+   x batch 25, 512 steps, N = 1,048,576 a microbatch, no extrinsics),
+   ``mean_shift_contrastive_app.yaml`` (the triplanar grid),
+   ``semantic_nerf_app.yaml`` (``SemanticNeF``: no grid, an 8-layer
+   256-wide trunk) and ``panoptic_lifting_app.yaml``
+   (``PanopticLiftingNeF``: a 128^3 TensoRF grid) through ``cli.main`` over
+   the bup20 phase's tree at their own widths with ``SLICE_FLAGS``: an RGB
+   epoch, a panoptic epoch, a validation at mip 2 and the final one at mip
+   0 (the ``_app`` configs centred on the tree's frame 47). Launch counts
+   set to 0 before and read after: on the hash grid one gather and one
+   scatter (V = 8) per microbatch and one gather per rendered chunk, on the
+   plain-PyTorch grids none. On the hash grid then: one panoptic
+   microbatch with the train extrinsics optimised (gather, scatter and
+   dbary at V = 8 once each; another microbatch's gradients through the
+   kernels against the plain backward), and each V = 8 kernel on the
+   path's own idx, bary, cotangents and tables at each N the path gave it
+   (the gathers single and dual, also at the validation chunks' N without
+   a gradient; the scatters single and dual with the path's per-level
+   modes, and each level's scatter under each mode; dbary) against its
+   plain version, with times, bounds and ``embedding_bag`` /
+   ``index_add_`` beside them.
+
+Then the ``{"kernels": [...]}`` line (the V = 4 kernels, then the V = 8
+rows ``hash_*``), the ``nvidia-smi`` name/power line, and last ``{"ok":
+true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -250,12 +277,11 @@ def table_bytes(rows_used, c, f, itemsize):
     return sum(min(r or c, c) for r in rows_used) * f * itemsize
 
 
-def gather_bound(l, c, f, n, num_tables, itemsize, rows_used):
+def gather_bound(l, c, f, n, num_tables, itemsize, rows_used, v=4):
     """Least time for the gather at these shapes: bytes (idx read once, bary
     and each table's reachable rows read once, each output written once)
     over the memory rate, against flops (V products and sums per output)
     over the float32 rate."""
-    v = 4
     nbytes = l * v * n * 4 + l * v * n * itemsize \
         + num_tables * (table_bytes(rows_used, c, f, itemsize) + l * f * n * itemsize)
     return _bound(nbytes, num_tables * l * f * n * v * 2)
@@ -280,20 +306,18 @@ def encode_bound(l, c, f, n, num_tables, itemsize, with_lattice, rows_used):
     return _bound(nbytes, l * n * (LATTICE_FLOPS + num_tables * f * v * 2))
 
 
-def scatter_bound(l, c, f, n, num_tables):
+def scatter_bound(l, c, f, n, num_tables, v=4):
     """Least time for the table-gradient scatter: idx and bary read once,
     each table's cotangent g [L, F, N] read once and gradient [L, C, F]
     written once in full, unreachable rows being zeros of the output too
     (float32); one product and one sum per event and feature."""
-    v = 4
     nbytes = 2 * l * v * n * 4 + num_tables * (l * f * n * 4 + l * c * f * 4)
     return _bound(nbytes, num_tables * l * v * n * f * 2)
 
 
-def dbary_bound(l, c, f, n, rows_used):
+def dbary_bound(l, c, f, n, rows_used, v=4):
     """Least time for dbary: idx, g and the table's reachable rows read
     once, dbary written once (float32); F products and sums per output."""
-    v = 4
     nbytes = l * v * n * 4 + l * f * n * 4 + table_bytes(rows_used, c, f, 4) \
         + l * v * n * 4
     return _bound(nbytes, l * v * n * f * 2)
@@ -1912,7 +1936,8 @@ def bup20_loader_at_full_size(root, size=(1280, 720)):
     shutil.rmtree(root, ignore_errors=True)
     tree = os.path.join(root, "BUP_20")
     t = time.perf_counter()
-    stamps = write_bup20_tree(tree, *size, supersample=1, paeth=True)
+    stamps = write_bup20_tree(tree, *size, supersample=1, paeth=True,
+                              predictions=("mask2former",))
     out = {"size": list(size), "write_s": time.perf_counter() - t}
     frame = os.path.join(tree, SEQUENCE, f"{stamps[47]}.png")
     t = time.perf_counter()
@@ -2107,9 +2132,15 @@ def phase_bup20(dev, flush, card):
     return launches, times, tree
 
 
-# the configs this slice unlocks, over the bup20 phase's tree with its flags
+# the other BUP20 configs, over the bup20 phase's tree: panoptic_dd and
+# mean_shift with BUP20_FLAGS (phase_bup20_variant), the rest with
+# SLICE_FLAGS (phase_bup20_slice)
 BUP20_VARIANTS = {"panoptic_dd": "configs/bup20/panoptic_dd.yaml",
-                  "mean_shift": "configs/bup20/mean_shift_contrastive.yaml"}
+                  "mean_shift": "configs/bup20/mean_shift_contrastive.yaml",
+                  "panoptic_nerf": "configs/bup20/panoptic_nerf.yaml",
+                  "mean_shift_app": "configs/bup20/mean_shift_contrastive_app.yaml",
+                  "semantic_nerf_app": "configs/bup20/semantic_nerf_app.yaml",
+                  "panoptic_lifting_app": "configs/bup20/panoptic_lifting_app.yaml"}
 TRAIN_KINDS = ("encode", "dual_encode", "table_grad", "dual_table_grad", "dbary")
 
 
@@ -2388,6 +2419,520 @@ def phase_bup20_variant(dev, flush, card, tree, name, seen):
     return launches, times
 
 
+# the configs of the hash, triplanar and TensoRF grids and the baselines, over
+# the bup20 phase's tree: 2 epochs (RGB, then the panoptic heads), a
+# validation at val_mip 2 and the final one at mip 0. The `_app` configs'
+# window centre (index 10) lies beyond the tree's 6 labelled frames, so
+# they are centred on its index 5, best.yaml's (frame 47)
+SLICE_FLAGS = ["--epochs", "2", "--sem-epoch-start", "1", "--valid-every", "2"]
+SLICE_VARIANTS = {
+    "panoptic_nerf": dict(nef="MeanShiftPanopticNeF", grid="HashGrid", clustering=True,
+                          flags=["--inst-epoch-start", "1"]),
+    "mean_shift_app": dict(nef="MeanShiftPanopticNeF", grid="TriplanarGrid", clustering=True,
+                           flags=["--inst-epoch-start", "1", "--dataset-center-idx", "5"]),
+    # its instance stage starts at 900: SemanticNeF has no instance head
+    "semantic_nerf_app": dict(nef="SemanticNeF", grid=None,
+                              flags=["--dataset-center-idx", "5"]),
+    "panoptic_lifting_app": dict(nef="PanopticLiftingNeF", grid="TensoRFGrid",
+                                 flags=["--inst-epoch-start", "1", "--dataset-center-idx", "5"]),
+}
+# the kernels the hash path must launch (recorded_gathers keeps a gather
+# under no_grad, a validation chunk's, as "gather_val")
+HASH_KINDS = ("gather", "table_grad")
+
+
+def hash_launches(steps, renders, keys):
+    """The launches a hash-grid ``cli.main`` run of a non-delta NeF without
+    extrinsics implies: per training microbatch (one image) one gather and
+    one table-gradient scatter, per rendered chunk (validation and
+    clustering) one gather; nothing else."""
+    expected = {k: 0 for k in keys}
+    for s_ in steps:
+        expected["gather"] += len(s_["cam_idx"])
+        expected["table_grad"] += len(s_["cam_idx"])
+    expected["gather"] += sum(chunks for _, chunks in renders)
+    return expected
+
+
+@contextlib.contextmanager
+def recorded_gathers(calls):
+    """While a run goes: the first call of the V = 8 gather, its scatter and
+    dbary at each N, keyed (kind, N) with the tensors the path gave them
+    (the gather's tables, idx and bary; the scatter's cotangents and
+    modes). The wrappers are replaced in ``table_gather``'s namespace, where
+    the hash encode and the gather's backward find them; they call the
+    originals, whose launch counts the run reads."""
+    from unittest import mock
+
+    import torch
+
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    from pagnerf_tpu_torch.ops import table_gather as tg
+
+    gather, table_grad, dbary = (tg.multilevel_table_gather, tg.multilevel_table_grad,
+                                 tg.multilevel_gather_dbary)
+
+    def keep(kind, n, make):
+        if (kind, n) not in calls:
+            calls[(kind, n)] = make()
+
+    def gather_spy(tables, idx, bary, rows_used=None, modes=None):
+        if idx.shape[1] == 8:
+            keep("gather" if torch.is_grad_enabled() else "gather_val", idx.shape[2],
+                 lambda: dict(tables=tables.detach().clone(), idx=idx.clone(),
+                              bary=bary.detach().clone(), modes=modes))
+        return gather(tables, idx, bary, rows_used, modes)
+
+    def table_grad_spy(idx, bary, g, capacity, rows_used=None, modes=None):
+        if idx.shape[1] == 8:
+            keep("table_grad", idx.shape[2], lambda: dict(
+                idx=idx.clone(), bary=bary.clone(), g=g.clone(), c=capacity, modes=modes))
+        return table_grad(idx, bary, g, capacity, rows_used, modes)
+
+    def dbary_spy(tables, idx, g):
+        if idx.shape[1] == 8:
+            keep("dbary", idx.shape[2], lambda: dict(tables=tables.clone(), idx=idx.clone(),
+                                                     g=g.clone()))
+        return dbary(tables, idx, g)
+
+    def encode_spy(self, tables, coordsT, *args, **kwargs):
+        if torch.is_grad_enabled():
+            keep("coords", coordsT.shape[1], lambda: coordsT.detach().float().clone())
+        return encode_t(self, tables, coordsT, *args, **kwargs)
+
+    encode_t = he.HashEncodingSpec.encode_T
+    with mock.patch.object(tg, "multilevel_table_gather", gather_spy), \
+         mock.patch.object(tg, "multilevel_table_grad", table_grad_spy), \
+         mock.patch.object(tg, "multilevel_gather_dbary", dbary_spy), \
+         mock.patch.object(he.HashEncodingSpec, "encode_T", encode_spy):
+        yield
+
+
+def hash_rows(resolutions, c):
+    """Rows of a hash level's table the corners can reach: min((r+1)^3, C)."""
+    return [min((int(r) + 1) ** 3, c) for r in resolutions]
+
+
+def hash_kernel_checks(calls, resolutions, dev, flush):
+    """The V = 8 kernels on the hash path's own tensors (``recorded_gathers``)
+    against their plain versions, with times, bounds and the library call's
+    time: the gather single and dual (the second table random; tolerance
+    16 eps_f32 of the largest table entry: 8 fused multiply-adds), at each
+    recorded N with and without a gradient; the scatter single and dual (the
+    path's cotangents and, same-signed, their magnitudes; the dual's second
+    cotangent random; 64 eps_f32 of each entry's sum of |bary * g|) with the
+    path's modes; dbary (4 eps_f32 of sum_f |g * T|); and each level's
+    scatter under each accumulation mode (CUDA events).
+    ``embedding_bag`` is the gather's library call, ``index_add_`` the
+    scatter's. Returns (checks, times) keyed by kernel name and then N."""
+    import torch
+    import torch.nn.functional as F
+
+    from pagnerf_tpu_torch.ops import table_gather as tg
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    checks, times = {}, {}
+
+    def put(name, n, ch, tm):
+        checks.setdefault(name, {})[str(n)] = ch
+        times.setdefault(name, {})[str(n)] = dict(N=n, **tm)
+
+    for (kind, n), rec in sorted(calls.items()):
+        if not kind.startswith("gather"):
+            continue
+        ta, idx, bary = rec["tables"], rec["idx"], rec["bary"]
+        tb = torch.randn(ta.shape, generator=gen, device=dev)
+        l, c, f = ta.shape
+        rows = hash_rows(resolutions, c)
+        offs = torch.arange(l, device=dev, dtype=torch.int64)[:, None, None] * c
+        bag_idx = (idx.to(torch.int64) + offs).permute(0, 2, 1).reshape(l * n, 8)
+        bag_w = bary.permute(0, 2, 1).reshape(l * n, 8)
+        tol = 16 * F32_EPS * max(ta.abs().max().item(), tb.abs().max().item())
+        for name, num in (("hash_gather_single", 1), ("hash_gather_dual", 2)):
+            if num == 1:
+                kern = lambda: (tg.multilevel_table_gather(ta, idx, bary),)
+                plain = lambda: (tg.multilevel_gather_plain(ta, idx, bary),)
+                bag_table = ta.reshape(l * c, f)
+            else:
+                kern = lambda: tg.dual_multilevel_table_gather(ta, tb, idx, bary)
+                plain = lambda: tg.dual_gather_plain(ta, tb, idx, bary)
+                bag_table = torch.cat([ta, tb], dim=2).reshape(l * c, 2 * f)
+            with torch.no_grad():
+                got, ref = kern(), plain()
+                err = max((g_ - r_).abs().max().item() for g_, r_ in zip(got, ref))
+                same = num == 1 or torch.equal(got[0], tg.multilevel_table_gather(ta, idx, bary))
+                del got, ref
+                lib = lambda: F.embedding_bag(bag_idx, bag_table, mode="sum",
+                                              per_sample_weights=bag_w)
+                bound_ms, bound_by, _, _ = gather_bound(l, c, f, n, num, 4, rows, v=8)
+                tm = dict(with_grad=kind == "gather", max_abs_err=err,
+                          ms=cuda_ms(kern, flush=flush),
+                          plain_ms=cuda_ms(plain, reps=5, flush=flush),
+                          library_ms=cuda_ms(lib, reps=5, flush=flush),
+                          bound_ms=bound_ms, bound_by=bound_by)
+            put(name + ("" if kind == "gather" else "_val"), n,
+                dict(N=n, max_abs_err=err, tol="16 eps_f32 * max|table|", tol_value=tol,
+                     dual_a_equals_single=bool(same), ok=err <= tol and bool(same)), tm)
+        del tb, bag_idx, bag_w
+
+    for (kind, n), rec in sorted(calls.items()):
+        if kind != "table_grad":
+            continue
+        idx, bary, g, c, modes = rec["idx"], rec["bary"], rec["g"], rec["c"], rec["modes"]
+        l, f = idx.shape[0], g.shape[1]
+        g_b = torch.randn(g.shape, generator=gen, device=dev)
+        worst, errs = {}, {}
+        for label, gs in (("path", (g,)), ("same_signed", (g.abs(),)),
+                          ("dual", (g, g_b))):
+            got = (tg.multilevel_table_grad(idx, bary, gs[0], c, modes=modes),) \
+                if len(gs) == 1 else tg.dual_multilevel_table_grad(idx, bary, *gs, c,
+                                                                      modes=modes)
+            w_, e_ = 0.0, 0.0
+            for d_, g_ in zip(got, gs):
+                diff = (d_ - tg.table_grad_plain(idx, bary, g_, c)).abs()
+                tol_ = 64 * F32_EPS * tg.table_grad_plain(idx, bary.abs(), g_.abs(), c)
+                w_ = max(w_, (diff / tol_.clamp(min=1e-30)).max().item())
+                e_ = max(e_, diff.max().item())
+                del diff, tol_
+            worst[label], errs[label] = w_, e_
+            del got
+        rows = tg._flat_rows(idx, c)
+        for name, gs in (("hash_table_grad_single", (g,)), ("hash_table_grad_dual", (g, g_b))):
+            vals = torch.cat([(bary[..., None] * g_.permute(0, 2, 1)[:, None]).reshape(-1, f)
+                              for g_ in gs], dim=1)
+            if len(gs) == 1:
+                kern = lambda: tg.multilevel_table_grad(idx, bary, g, c, modes=modes)
+                plain = lambda: tg.table_grad_plain(idx, bary, g, c)
+            else:
+                kern = lambda: tg.dual_multilevel_table_grad(idx, bary, g, g_b, c, modes=modes)
+                plain = lambda: tg.dual_table_grad_plain(idx, bary, g, g_b, c)
+            lib = lambda: torch.zeros((l * c, vals.shape[1]), device=dev).index_add_(0, rows, vals)
+            bound_ms, bound_by, _, _ = scatter_bound(l, c, f, n, len(gs), v=8)
+            w_ = max(worst["path"], worst["same_signed"]) if len(gs) == 1 else worst["dual"]
+            e_ = errs["path"] if len(gs) == 1 else errs["dual"]
+            put(name, n, dict(N=n, worst_err_over_tol=w_, worst_by_cotangent=dict(worst),
+                              tol="64 eps_f32 * sum|bary*g| per entry", modes=list(modes),
+                              ok=w_ <= 1.0),
+                dict(max_abs_err=e_, worst_err_over_tol=w_, ms=cuda_ms(kern, flush=flush),
+                     plain_ms=cuda_ms(plain, reps=5, flush=flush),
+                     library_ms=cuda_ms(lib, reps=5, flush=flush),
+                     bound_ms=bound_ms, bound_by=bound_by))
+            del vals
+        del rows
+        # each level alone under each accumulation mode (CUDA events around
+        # the call: its memset, event and finishing kernels)
+        per_level = {}
+        for mode_name, mode in (("shared", tg.SHARED), ("global", tg.GLOBAL),
+                                ("float", tg.FLOAT)):
+            per_level[mode_name] = [cuda_ms(lambda lv=lv: tg.multilevel_table_grad(
+                idx[lv:lv + 1], bary[lv:lv + 1], g[lv:lv + 1], c, modes=(mode,)))
+                for lv in range(l)]
+        per_level["path_modes"] = list(modes)
+        per_level["corners"] = [(int(r) + 1) ** 3 for r in resolutions]
+        times["hash_table_grad_single"][str(n)]["per_level_ms"] = per_level
+        del g_b
+
+    for (kind, n), rec in sorted(calls.items()):
+        if kind != "dbary":
+            continue
+        tables, idx, g = rec["tables"], rec["idx"], rec["g"]
+        l, c, f = tables.shape
+        got = tg.multilevel_gather_dbary(tables, idx, g)
+        diff = (got - tg.gather_dbary_plain(tables, idx, g)).abs()
+        mag = tg.gather_dbary_plain(tables.abs(), idx, g.abs())
+        w_ = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+        err = diff.max().item()
+        del got, diff, mag
+        bound_ms, bound_by, _, _ = dbary_bound(l, c, f, n, hash_rows(resolutions, c), v=8)
+        put("hash_gather_dbary", n,
+            dict(N=n, max_abs_err=err, worst_err_over_tol=w_, ok=w_ <= 1.0,
+                 tol="4 eps_f32 * sum_f |g*T| per entry"),
+            dict(max_abs_err=err, ms=cuda_ms(lambda: tg.multilevel_gather_dbary(tables, idx, g),
+                                            flush=flush),
+                 plain_ms=cuda_ms(lambda: tg.gather_dbary_plain(tables, idx, g), reps=5,
+                                  flush=flush),
+                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    return checks, times
+
+
+def hash_encode_parts(spec, x, dev, flush):
+    """Device ms of the hash encode's parts at the path's coordinates ``x``
+    [3, N] (random tables): the plain-PyTorch index math (hashes and
+    weights) without and with the coordinates' gradient (forward and
+    backward of the weights), the gather kernel, and the whole encode
+    forward and forward + backward (the table-gradient scatter; dbary and
+    the weights' backward when x needs a gradient)."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    from pagnerf_tpu_torch.ops import table_gather as tg
+
+    l, log2 = spec.num_levels, spec.log2_table_size
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tables = torch.randn((l, spec.capacity, spec.feature_dim), generator=gen, device=dev)
+    g = torch.randn((l * spec.feature_dim, x.shape[1]), generator=gen, device=dev)
+    with torch.no_grad():
+        idx, w = he.hash_indices(x, spec.resolutions, log2)
+
+    def index_grad():
+        xx = x.clone().requires_grad_()
+        _, ww = he.hash_indices(xx, spec.resolutions, log2)
+        ww.sum().backward()
+
+    def encode_bwd(with_x):
+        t = tables.clone().requires_grad_()
+        xx = x.clone().requires_grad_(with_x)
+        (he.hash_encode_T(t, xx, spec.resolutions) * g).sum().backward()
+    with torch.no_grad():
+        parts = dict(
+            N=int(x.shape[1]),
+            index_math_ms=cuda_ms(lambda: he.hash_indices(x, spec.resolutions, log2), reps=5,
+                                  flush=flush),
+            gather_ms=cuda_ms(lambda: tg.multilevel_table_gather(tables, idx, w), flush=flush),
+            encode_fwd_ms=cuda_ms(lambda: he.hash_encode_T(tables, x, spec.resolutions),
+                                  reps=5, flush=flush))
+    parts.update(
+        index_math_fwd_bwd_ms=cuda_ms(index_grad, reps=5, flush=flush),
+        encode_fwd_bwd_ms=cuda_ms(lambda: encode_bwd(False), reps=5, flush=flush),
+        encode_fwd_bwd_with_x_ms=cuda_ms(lambda: encode_bwd(True), reps=5, flush=flush))
+    return parts
+
+
+def extrinsics_microbatch(config, flags, tree, trainer, dev):
+    """One panoptic microbatch of ``config`` with the train extrinsics
+    optimised (a BAPipeline, so the coordinates need a gradient and dbary
+    runs at V = 8), the NeF's trained parameters from ``trainer``: its
+    launches and calls (``recorded_gathers``); then another microbatch's
+    gradients through the kernels against the plain backward
+    (``kernel_vs_plain_grads``)."""
+    import torch
+
+    from pagnerf_tpu_torch.cli import split_device
+    from pagnerf_tpu_torch.config import factory
+    from pagnerf_tpu_torch.config.config import parse_options
+
+    argv = ["--config", os.path.join(ROOT, config), "--dataset-path", tree] + flags + [
+        "--optimize-extrinsics"]
+    pipe, _, ba = factory.get_modules_from_config(parse_options(split_device(argv)[1]), dev)
+    with torch.no_grad():
+        own = dict(pipe.nef.named_parameters())
+        for name, p in trainer.pipeline.nef.named_parameters():
+            own[name].copy_(p)
+    import numpy as np
+
+    stage = ba.stage_for_epoch(ba.cfg.epochs - 1)
+    cfg, anchor = ba.cfg, ba.pipeline.anchor_mask.cpu().numpy()
+    batch = ba.dataset.sample_batch(np.random.default_rng(4), cfg.batch_size,
+                                    cfg.num_rays_sampled_per_img)
+    m = int(np.nonzero(~anchor[batch["cam_idx"]])[0][0])
+    sub = {k: v[m:m + 1] if getattr(v, "ndim", 0) >= 1
+           and v.shape[0] == batch["imgs"].shape[0] else v for k, v in batch.items()}
+    calls = {}
+    _reset_launches()
+    with recorded_gathers(calls):
+        ba.grad_step(stage, sub)
+    torch.cuda.synchronize()
+    launches = _launches()
+    # one microbatch of a camera that is not an anchor frame: the gather, its
+    # scatter and dbary once each
+    want = {k: 0 for k in launches}
+    want.update(gather=1, table_grad=1, dbary=1)
+    check, ok = kernel_vs_plain_grads(ba, stage, dev)
+    check.update(launches=launches, expected_launches=want)
+    return check, ok and launches == want, calls
+
+
+def phase_bup20_slice(dev, flush, card, tree, name):
+    """Main paths 10-13: ``BUP20_VARIANTS[name]`` (``SLICE_VARIANTS``) through ``cli.main`` over
+    the bup20 phase's tree at its config's full width with ``SLICE_FLAGS``:
+    an RGB epoch, a panoptic epoch, a validation at mip 2 and the final one
+    at mip 0. Launch counts set to 0 before and read after: on the hash
+    grid (``panoptic_nerf``) the gathers and scatters the steps' cameras
+    and the render chunks imply (``hash_launches``), on the others none.
+    ``panoptic_nerf`` then: one panoptic microbatch with the train
+    extrinsics optimised (``extrinsics_microbatch``: dbary at V = 8,
+    gradients through the kernels vs the plain backward), and each V = 8
+    kernel on the path's own tensors at each N it ran at against its plain
+    version (``hash_kernel_checks``). Finite losses and metrics; the
+    stages, the validated sizes and the render chunks as configured."""
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.data.multiview import MultiviewDataset
+    from pagnerf_tpu_torch.quality_run import read_perf, summary
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec_ = SLICE_VARIANTS[name]
+    config, flags = BUP20_VARIANTS[name], SLICE_FLAGS + spec_["flags"]
+    log_root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", name)
+    shutil.rmtree(log_root, ignore_errors=True)
+    argv = ["--config", os.path.join(ROOT, config), "--dataset-path", tree, "--device",
+            "cuda", "--log-dir", log_root, "--perf", "--exp-name", "train"] + flags
+    trainers, renders, pack_totals, images, calls = [], [], {}, [], {}
+    get_images = MultiviewDataset.get_images
+
+    def images_spy(self, split="val", mip=0):
+        out = get_images(self, split, mip)
+        images.append((split, mip, tuple(out["imgs"].shape[:3])))
+        return out
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with recorded_run({}, trainers, renders, pack_totals), recorded_gathers(calls), \
+            mock.patch.object(MultiviewDataset, "get_images", images_spy):
+        final = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    trainer = trainers[0]
+    _, records = read_perf(log_root, "train")
+    summ = summary(records, pack_totals)
+    steps = [r for r in records if r["name"] == "train_step"]
+    hashed = spec_["grid"] == "HashGrid"
+    expected = (hash_launches(steps, renders, launches) if hashed
+                else {k: 0 for k in launches})
+    cfg = trainer.cfg
+    # per stage: the median over its steps (the first apart: it pays for
+    # its allocations) of a step's ms per image, i.e. per microbatch; an
+    # epoch's last step may hold fewer images than batch_size
+    per_image = {}
+    for i, s_ in enumerate(steps):
+        if i and steps[i - 1]["stage"] == s_["stage"]:
+            per_image.setdefault(s_["stage"], []).append(s_["ms"] / len(s_["cam_idx"]))
+    stages = {k: dict(v, microbatch_ms=(statistics.median(per_image[k])
+                                        if k in per_image else None))
+              for k, v in summ["stages"].items()}
+    for v in stages.values():
+        v["rays_per_s"] = (cfg.num_rays_sampled_per_img / (v["microbatch_ms"] / 1e3)
+                           if v["microbatch_ms"] else None)
+    epochs = [{"epoch": r["epoch"], "s": r["ms"] / 1e3, "losses": r["losses"],
+               "stages": sorted({s_["stage"] for s_ in steps if s_["epoch"] == r["epoch"]})}
+              for r in records if r["name"] == "epoch"]
+    nef = trainer.pipeline.nef
+    grid = getattr(nef, "grid", None)
+    fields = dict(config=config, flags=" ".join(flags), card=card,
+                  nef_type=type(nef).__name__, grid_type=type(grid).__name__,
+                  pipeline=type(trainer.pipeline).__name__,
+                  parameters=sum(p.numel() for p in trainer.pipeline.parameters()),
+                  tracer_type=trainer.pipeline.tracer_cfg.tracer_type,
+                  inst_loss=cfg.inst_loss, wall_s=wall, epochs=epochs, stages=stages,
+                  validations=summ["validations"], validated_images=images,
+                  launches=launches, expected_launches=expected,
+                  peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  final_metrics=final, recorded_calls=sorted(f"{k}@{n}" for k, n in calls))
+
+    def fail(msg):
+        emit(name, ok=False, **fields)
+        raise AssertionError(msg)
+
+    if fields["nef_type"] != spec_["nef"] or (spec_["grid"] or "NoneType") != fields["grid_type"]:
+        fail(f"the config built a {fields['nef_type']} over a {fields['grid_type']}")
+    if [e["stages"] for e in epochs] != [["ray_dense_rgb"], ["ray_dense_panoptic"]]:
+        fail(f"the 2 epochs ran the stages {[e['stages'] for e in epochs]}")
+    if launches != expected:
+        fail(f"cli.main launched {launches}, expected {expected}")
+    if hashed and not all(launches[k] for k in HASH_KINDS):
+        fail("a kernel of the path was not launched")
+    if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
+        fail("a loss is not finite")
+    if not (all(np.isfinite(v) for v in final.values())
+            and {"val/psnr", "val/iou"} <= set(final)):
+        fail("final metrics not finite or incomplete")
+    w, h = BUP20_SIZE
+    n_val = len(trainer.dataset.val_idxs)
+    want_images = [("val", 2, (n_val, h // 4, w // 4)), ("val", 0, (n_val, h, w))]
+    if images != want_images:
+        fail(f"validated {images}, expected {want_images}")
+    # each validation: the mean shift's clustering renders first (its
+    # samples over the training images, at the dataset's size), then each
+    # image in chunks of render_batch rays
+    rbatch, n_train = cfg.render_batch, len(trainer.dataset.train_idxs)
+    clus_rays = min(max(1, cfg.num_clustering_samples // n_train), w * h)
+    clus_chunks = [-(-clus_rays // rbatch)] * n_train if spec_.get("clustering") else []
+    chunks = [c for _, _, (nn, hh, ww) in images
+              for c in clus_chunks + [-(-hh * ww // rbatch)] * nn]
+    if [r[1] for r in renders] != chunks:
+        fail(f"renders {[r[1] for r in renders]}, expected chunks {chunks}")
+    if not hashed:
+        del trainer, trainers
+        torch.cuda.empty_cache()
+        emit(name, **fields)
+        return launches, {}
+
+    # dbary at V = 8 on a microbatch with the train extrinsics optimised
+    check, ok, ba_calls = extrinsics_microbatch(config, flags, tree, trainer, dev)
+    fields["extrinsics_microbatch"] = check
+    if not ok:
+        fail(f"the extrinsics microbatch: {check}")
+    calls.update({k: v for k, v in ba_calls.items() if k[0] == "dbary"})
+    dense_n = cfg.num_rays_sampled_per_img * trainer.pipeline.tracer_cfg.num_steps
+    fields["dense_N"] = dense_n
+    if {("gather", dense_n), ("table_grad", dense_n), ("dbary", dense_n)} - set(calls):
+        fail(f"the path's calls at N = {dense_n} were not all recorded: {sorted(calls)}")
+    resolutions = grid.spec.resolutions
+    fields["resolutions"] = [int(r) for r in resolutions]
+    x = calls.pop(("coords", dense_n))
+    calls = {k: v for k, v in calls.items() if k[0] != "coords"}
+    spec = grid.spec
+    del trainer, trainers, ba_calls
+    torch.cuda.empty_cache()
+    # the encode's parts at the path's coordinates, beside the step's
+    # microbatch (the median step over its images)
+    fields["encode_parts"] = hash_encode_parts(spec, x, dev, flush)
+    fields["encode_parts"]["microbatch_ms"] = {k: v["microbatch_ms"] for k, v in stages.items()}
+    del x
+    checks, times = hash_kernel_checks(calls, resolutions, dev, flush)
+    calls.clear()
+    fields.update(kernel_checks=checks, kernel_times=times)
+    fields["launches_extrinsics_microbatch"] = check["launches"]
+    if not all(ch["ok"] for by_n in checks.values() for ch in by_n.values()):
+        fail(f"a V = 8 kernel outside its tolerance: {checks}")
+    torch.cuda.empty_cache()
+    emit(name, **fields)
+    return dict(launches, extrinsics_microbatch=check["launches"]), times
+
+
+def hash_kernel_rows(slice_paths, hash_times, sources):
+    """The ``kernels`` line's rows of the V = 8 kernels (the hash grid of
+    panoptic_nerf.yaml): times on its path's tensors at its microbatch's N
+    (the validation chunks' N beside the gathers), launches by path."""
+    by_path = {p: {k: v for k, v in c.items() if not isinstance(v, dict)}
+               for p, c in slice_paths.items()}
+    by_path["panoptic_nerf_extrinsics"] = slice_paths["panoptic_nerf"]["extrinsics_microbatch"]
+    train_n = max(int(n) for n in hash_times["hash_table_grad_single"])
+    rows = []
+    for name, key, replaces in (
+            ("hash_gather_single", "gather", "pagnerf_tpu/ops/pallas_gather.py:101"),
+            ("hash_gather_dual", "dual_gather", "pagnerf_tpu/ops/pallas_gather.py:119"),
+            ("hash_table_grad_single", "table_grad", "pagnerf_tpu/ops/pallas_scatter.py:339"),
+            ("hash_table_grad_dual", "dual_table_grad", "pagnerf_tpu/ops/pallas_scatter.py:243"),
+            ("hash_gather_dbary", "dbary", "pagnerf_tpu/ops/pallas_gather.py:110")):
+        r = hash_times[name][str(train_n)]
+        row = {
+            "name": name, "route": "cuda",
+            "source": sources["fwd" if name.startswith("hash_gather_") and "dbary" not in name
+                              else "bwd"],
+            "replaces": replaces, "verts": 8,
+            "launches": sum(c[key] for c in by_path.values()),
+            "launches_by_path": {p: c[key] for p, c in by_path.items()},
+            "dtype": "float32",
+            "shapes": f"hash grid 14 x 2^19 x F=2, V=8, panoptic_nerf microbatch N={train_n:,}",
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        }
+        if name + "_val" in hash_times:
+            row["validation"] = hash_times[name + "_val"]
+        if "per_level_ms" in r:
+            row["per_level_ms"] = r["per_level_ms"]
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
     import shutil
@@ -2440,9 +2985,14 @@ def main() -> None:
     paths["bup20"], bup20_times, tree = phase_bup20(dev, flush_buf.zero_, smi_line)
     seen = {(k, int(n)) for k, by_n in bup20_times.items() for n in by_n}
     variant_times = {}
+    slice_paths, slice_times = {}, {}
     for name in BUP20_VARIANTS:
-        paths[name], variant_times[name] = phase_bup20_variant(
-            dev, flush_buf.zero_, smi_line, tree, name, seen)
+        if name in SLICE_VARIANTS:
+            slice_paths[name], slice_times[name] = phase_bup20_slice(
+                dev, flush_buf.zero_, smi_line, tree, name)
+        else:
+            paths[name], variant_times[name] = phase_bup20_variant(
+                dev, flush_buf.zero_, smi_line, tree, name, seen)
     shutil.rmtree(os.path.dirname(os.path.dirname(tree)))
     del flush_buf
 
@@ -2529,6 +3079,7 @@ def main() -> None:
             if key in times_:
                 row[name_] = times_[key]
         rows.append(row)
+    rows += hash_kernel_rows(slice_paths, slice_times["panoptic_nerf"], sources)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,16 +17,20 @@ The parameters come from a seeded init (``TrainerConfig.seed``) and require
 grad. The datasets are the JAX factory's: the synthetic scene, a BUP20 tree
 (``data/formats/bup20.py``) and a NeRF-standard tree
 (``data/formats/nerf_standard.py``); another format raises
-``NotImplementedError``, as it does there. What the port does not have yet
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: the
-``SemanticNeF`` and ``PanopticLiftingNeF`` models and grid types other than
-``PermutoGrid`` (Queue 1 item 5). As in the JAX factory, the NeF gets no
-``separate_sem_grid`` or ``delta_num_layers`` / ``delta_hidden_dim`` from a
-config: those keep their module defaults.
+``NotImplementedError``, as it does there. The grid settings follow the JAX
+``grid_config_from_args``: ``log2_table_size`` is ``max(codebook_bitwidth,
+4)``, ``base_lod`` comes from the config, and ``feature_std``,
+``base_resolution`` and ``finest_resolution`` are not read (the grids keep
+their defaults). As in the JAX factory, a NeF gets only the settings its
+class takes (the baselines ``SemanticNeF`` and ``PanopticLiftingNeF`` fewer
+than the panoptic NeFs), and no ``separate_sem_grid`` or
+``delta_num_layers`` / ``delta_hidden_dim`` from a config: those keep their
+module defaults.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import logging
 from typing import Tuple
 
@@ -40,6 +44,8 @@ from ..device import resolve_device
 from ..models.clustering_nef import (MeanShiftPanopticDDensityNeF,
                                      MeanShiftPanopticDeltaNeF, MeanShiftPanopticNeF)
 from ..models.nefs import GridConfig, PanopticDDensityNeF, PanopticDeltaNeF, PanopticNeF
+from ..models.panoptic_lifting import PanopticLiftingNeF
+from ..models.semantic_nerf import SemanticNeF
 from ..models.pipeline import BAPipeline, Pipeline
 from ..models.tracer import TracerConfig
 from ..train.optimizer import OptimizerConfig
@@ -48,18 +54,14 @@ from .config import register_class, str2mod
 
 log = logging.getLogger(__name__)
 
-# NeF types the JAX package registers and the port does not have yet, with
-# the ROADMAP.md item that ports each
-UNPORTED_NEFS = {"SemanticNeF": 5, "PanopticLiftingNeF": 5}
-
-
 def roadmap_item(n: int) -> str:
     return f"ROADMAP.md Queue 1 item {n}"
 
 
 def register_default_classes() -> None:
     for cls in (PanopticNeF, PanopticDeltaNeF, PanopticDDensityNeF, MeanShiftPanopticNeF,
-                MeanShiftPanopticDeltaNeF, MeanShiftPanopticDDensityNeF):
+                MeanShiftPanopticDeltaNeF, MeanShiftPanopticDDensityNeF, SemanticNeF,
+                PanopticLiftingNeF):
         register_class(cls, cls.__name__)
 
 
@@ -68,15 +70,12 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def grid_config_from_args(args, delta: bool = False) -> GridConfig:
-    if args.grid_type != "PermutoGrid":
-        raise NotImplementedError(
-            f"grid_type {args.grid_type!r} is not ported yet ({roadmap_item(5)}); "
-            "the port has PermutoGrid")
     return GridConfig(
         grid_type=args.grid_type, num_lods=args.num_lods,
         feature_dim=args.feature_dim,
         capacity_log2=(args.delta_capacity_log_2 if delta else args.capacity_log_2),
         coarsest_scale=args.coarsest_scale, finest_scale=args.finest_scale,
+        log2_table_size=max(args.codebook_bitwidth, 4), base_lod=args.base_lod,
         compute_dtype=_dtype(args.compute_dtype))
 
 
@@ -111,9 +110,6 @@ def load_dataset(args) -> MultiviewDataset:
 
 def nef_from_args(args, semantic_info) -> torch.nn.Module:
     register_default_classes()
-    if args.nef_type in UNPORTED_NEFS:
-        raise NotImplementedError(f"nef_type {args.nef_type!r} is not ported yet "
-                                  f"({roadmap_item(UNPORTED_NEFS[args.nef_type])})")
     nef_cls = str2mod.get(args.nef_type, PanopticDeltaNeF)
     kwargs = dict(
         grid=grid_config_from_args(args),
@@ -140,7 +136,9 @@ def nef_from_args(args, semantic_info) -> torch.nn.Module:
         compute_dtype=_dtype(args.compute_dtype))
     if issubclass(nef_cls, PanopticDeltaNeF):
         kwargs["delta_grid"] = grid_config_from_args(args, delta=True)
-    return nef_cls(**kwargs)
+        return nef_cls(**kwargs)
+    valid = set(inspect.signature(nef_cls.__init__).parameters)
+    return nef_cls(**{k: v for k, v in kwargs.items() if k in valid})
 
 
 def tracer_config_from_args(args) -> TracerConfig:

@@ -5,7 +5,12 @@
 arrays, and returns a state dict for the port's pipeline. The port's
 modules use the same names and layouts as the flax tree (``DenseT`` kernels
 ``[Cin, Cout]``, grid tables ``[L, C, F]`` under ``grid/tables`` and
-``delta_grid/tables``, extrinsics as R6 + t), so the conversion is a flatten.
+``delta_grid/tables`` for the permutohedral and hash grids, the triplanar
+grid's ``planes_{lod}`` and the dense grid's ``table_{lod}``, the TensoRF
+grid's ``density_plane`` / ``density_line`` / ``app_plane`` / ``app_line``
+and its bias-free ``basis_mat``, the baselines' ``DenseT`` and
+``BasicDecoder`` names down to ``decoder_color/DenseT_<i>``, extrinsics as
+R6 + t), so the conversion is a flatten.
 
 ``state_from_jax`` takes a whole checkpoint of the JAX package (parameters,
 optimizer state, occupancy, flags), so a run checkpointed there continues

@@ -11,6 +11,8 @@ The tree is the format ``data/formats/bup20.py`` reads::
     <root>/row_1/<ts>.png         8-bit RGB frames
     <root>/row_1/depth/<ts>.png   16-bit depth in mm (0 where a ray misses)
     <root>/row_1/preds_mask2former/<ts>.pkl   (sem, imap, conf logits)
+    <root>/row_1/preds_maskrcnn/<ts>.pkl      {"masks": [K, 1, H, W] scores}
+    <root>/row_1/preds_deeplab/<ts>.pkl       {"panoptic": [1, 2, H, W] sem, imap}
     <root>/row_1/params.yaml      3x3 intrinsics, 4x4 camera extrinsics
     <root>/row_1/odometry.csv     robot poses: ts, translation, quaternion
     <root>/row_1/metashape_cameras.npz   the same poses, translations / 0.03
@@ -23,7 +25,8 @@ BUP20 loader makes of the odometry (its window is centred on frame
 ``center``, which sits in front of the scene; the default offset places
 that camera at z = -1.4), spheres on white, sphere classes 1 and 2 as two
 COCO categories of the supercategory ``pepper``, and the noisy per-frame
-2-D predictions of ``add_synthetic_predictions``. Everything else is the
+2-D predictions of ``add_synthetic_predictions`` in the three layouts the
+loader reads (``data/formats/agrobot_base.py``'s ``load_preds``). Everything else is the
 format as the reader expects it; the size is the caller's (BUP20's frames
 are 1280x720).
 """
@@ -45,6 +48,7 @@ SEQUENCE = "row_1"
 # BUP20's default pose offset puts the window's centre camera at z = -1.4
 CAMERA_Z = -1.4
 STEP_M = 0.01
+PREDICTIONS = ("mask2former", "maskrcnn", "deeplab")
 
 
 def _mount() -> np.ndarray:
@@ -66,6 +70,16 @@ def _polygon(mask: np.ndarray) -> list:
     return [v for p in left + right for v in p]
 
 
+def _maskrcnn_masks(imap: np.ndarray, conf: np.ndarray, k: int) -> np.ndarray:
+    """Mask R-CNN-like scores [k, 1, H, W] float32 of instance ids 1..k
+    (k >= 2, so the loader's squeeze keeps the instance axis): mask i holds
+    the confidence, above 0.5, where the prediction is instance i + 1,
+    else 0."""
+    score = (0.5 + 0.5 * conf).astype(np.float32)
+    masks = [np.where(imap == i + 1, score, 0.0) for i in range(k)]
+    return np.stack(masks)[:, None].astype(np.float32)
+
+
 def _rays(width: int, height: int, fx: float, fy: float, cx: float, cy: float,
           ss: int):
     """World directions [H*ss*W*ss, 3] of the loader's cameras (rotation
@@ -82,13 +96,15 @@ def write_bup20_tree(root: str, width: int = 320, height: int = 180,
                      num_frames: int = 90, center: int = 47,
                      eval_frames: Sequence[int] = (42, 43, 44, 45, 46, 47),
                      train_frames: Sequence[int] = (0, 1, 2), num_spheres: int = 4,
-                     supersample: int = 2, seed: int = 0, paeth: bool = False) -> list:
+                     supersample: int = 2, seed: int = 0, paeth: bool = False,
+                     predictions: Sequence[str] = PREDICTIONS) -> list:
     """Write the tree under ``root`` (a directory named ``BUP_20``) and
     return the frames' timestamps (frame f is ``<ts>.png``). ``paeth``
     filters every PNG row with the Paeth predictor (the slowest to decode);
-    else rows are unfiltered."""
+    else rows are unfiltered. ``predictions`` names the prediction folders
+    written (``preds_<name>``; Mask R-CNN's masks are the largest)."""
     seq = os.path.join(root, SEQUENCE)
-    for d in ("depth", "preds_mask2former"):
+    for d in ("depth", *(f"preds_{p}" for p in predictions)):
         os.makedirs(os.path.join(seq, d), exist_ok=True)
     scene = default_scene(num_spheres, seed)
     fx = fy = 0.9 * width
@@ -126,14 +142,21 @@ def write_bup20_tree(root: str, width: int = 320, height: int = 180,
     preds = add_synthetic_predictions(
         {"semantics": np.stack(sems), "instance": np.stack(insts),
          "semantic_info": {"num_instances": num_spheres + 2}}, seed=seed)
+    num_masks = max(int(preds["instance_pred"].max()), 2)
     for f in range(num_frames):
         imap = preds["instance_pred"][f]
         sem = (preds["semantics_pred"][f] > 0).astype(np.uint8)
         conf = np.clip(preds["sem_conf"][f], 1e-4, 1 - 1e-4)
         logit = np.log(conf / (1.0 - conf))
         logit = np.where(imap == 0, -logit, logit).astype(np.float32)
-        with open(os.path.join(seq, "preds_mask2former", f"{stamps[f]}.pkl"), "wb") as fh:
-            pickle.dump((sem, imap.astype(np.uint8), logit), fh)
+        payloads = {
+            "mask2former": lambda: (sem, imap.astype(np.uint8), logit),
+            "maskrcnn": lambda: {"masks": _maskrcnn_masks(imap, conf, num_masks)},
+            "deeplab": lambda: {"panoptic": np.stack([preds["semantics_pred"][f],
+                                                      imap])[None].astype(np.int32)}}
+        for p in predictions:
+            with open(os.path.join(seq, f"preds_{p}", f"{stamps[f]}.pkl"), "wb") as fh:
+                pickle.dump(payloads[p](), fh)
 
     # odometry: robot poses B_f = T(x_f e_x) mount^-1, so that the camera
     # K_f = B_f mount moves along x and inv(K_f) K_c is a pure translation

@@ -19,13 +19,13 @@ _ACTIVATIONS = {"relu": torch.relu, "none": lambda x: x, None: lambda x: x}
 
 
 class DenseT(nn.Module):
-    """x [Cin, N] -> [Cout, N]."""
+    """x [Cin, N] -> [Cout, N]; without ``use_bias`` it has no ``bias``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator, zero_kernel: bool = False,
@@ -41,25 +41,27 @@ class DenseT(nn.Module):
                 std = math.sqrt(1.0 / self.kernel.shape[0]) / 0.87962566103423978
                 nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
-            self.bias.zero_()
-            for i, v in enumerate(bias_init or ()):
-                self.bias[i] = v
+            if self.bias is not None:
+                self.bias.zero_()
+                for i, v in enumerate(bias_init or ()):
+                    self.bias[i] = v
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.kernel.to(self.dtype).t() @ x.to(self.dtype)        # [Cout, N]
-        return y + self.bias.to(self.dtype)[:, None]
+        return y if self.bias is None else y + self.bias.to(self.dtype)[:, None]
 
 
 class BasicDecoder(nn.Module):
     """``num_layers`` hidden layers with an activation, then the linear output
     layer ``lout``; submodules are named ``hidden_<i>`` and ``lout`` like the
-    JAX package's parameters."""
+    JAX package's parameters. Hidden layer ``i`` in ``skip`` reads the
+    previous activations with the decoder's input appended."""
 
     def __init__(self, input_dim: int, output_dim: int, hidden_dim: int = 64,
                  num_layers: int = 1, activation: str = "relu",
                  output_bias_init: Optional[Sequence[float]] = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 zero_init_output: bool = False):
+                 zero_init_output: bool = False, skip: Sequence[int] = ()):
         super().__init__()
         if activation not in _ACTIVATIONS:
             raise NotImplementedError(f"activation {activation!r} is not ported yet")
@@ -68,8 +70,11 @@ class BasicDecoder(nn.Module):
         self.num_layers = num_layers
         self.output_bias_init = output_bias_init
         self.zero_init_output = zero_init_output
+        self.skip = tuple(skip)
         cin = input_dim
         for i in range(num_layers):
+            if i in self.skip:
+                cin += input_dim
             self.add_module(f"hidden_{i}", DenseT(cin, hidden_dim, compute_dtype))
             cin = hidden_dim
         self.lout = DenseT(cin, output_dim, compute_dtype)
@@ -81,7 +86,9 @@ class BasicDecoder(nn.Module):
                                    bias_init=self.output_bias_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.to(self.compute_dtype)
+        x = h = x.to(self.compute_dtype)
         for i in range(self.num_layers):
+            if i in self.skip:
+                h = torch.cat([h, x], dim=0)
             h = self.act(getattr(self, f"hidden_{i}")(h))
         return self.lout(h).float()

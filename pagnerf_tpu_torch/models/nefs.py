@@ -6,7 +6,8 @@ semantic and instance heads. ``PanopticDeltaNeF`` is the flagship PAg-NeRF
 model: the panoptic heads read stop-gradient colour features plus a delta
 grid queried at stop-gradient coordinates. When the delta grid has the main
 grid's spec, both grids are read at one shared lattice through the dual
-table-gather kernel (``_dual_feats``). ``PanopticDDensityNeF`` adds a
+table-gather kernel (``_dual_feats``; the grids of ``_DUAL_FUSABLE``: the
+permutohedral and hash grids). ``PanopticDDensityNeF`` adds a
 ``delta_density`` head, so the DD tracer integrates the panoptic channels
 under their own transmittance.
 
@@ -24,14 +25,16 @@ from torch import nn
 
 from .decoder import BasicDecoder
 from .embedders import positional_embed_dim, positional_embed_T
-from .grids import PermutoGrid
+from .grids import build_grid
 
 Channels = FrozenSet[str]
 
 
 @dataclasses.dataclass(frozen=True)
 class GridConfig:
-    """Grid settings (the JAX package's ``GridConfig``, PermutoGrid fields)."""
+    """Grid settings (the JAX package's ``GridConfig``, same fields and
+    defaults; ``compute_dtype`` is a torch dtype). ``build`` gives each grid
+    type the fields it takes (``models/grids.build_grid``)."""
 
     grid_type: str = "PermutoGrid"
     num_lods: int = 24
@@ -39,18 +42,25 @@ class GridConfig:
     capacity_log2: int = 18
     coarsest_scale: float = 1.0
     finest_scale: float = 0.0001
+    log2_table_size: int = 19
+    base_resolution: int = 16
+    finest_resolution: int = 512
+    base_lod: int = 5
+    density_n_comp: int = 16
+    app_n_comp: int = 48
+    resolution: int = 128
+    max_resolution: int = 192
+    num_resolutions: int = 5
     compute_dtype: torch.dtype = torch.float32
 
-    def build(self) -> PermutoGrid:
-        if self.grid_type != "PermutoGrid":
-            raise NotImplementedError(
-                f"grid_type {self.grid_type!r} is not ported yet (only PermutoGrid)")
-        return PermutoGrid(self.num_lods, self.feature_dim, self.capacity_log2,
-                           self.coarsest_scale, self.finest_scale,
-                           self.compute_dtype)
+    def build(self) -> nn.Module:
+        kw = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        return build_grid(kw.pop("grid_type"), **kw)
 
     @property
     def output_dim(self) -> int:
+        if self.grid_type == "TensoRF":
+            return 28
         return self.num_lods * self.feature_dim
 
 
@@ -99,6 +109,12 @@ class PanopticNeF(nn.Module):
         self.embedder_type = embedder_type
         self.compute_dtype = compute_dtype
 
+        if grid.grid_type == "TensoRF":
+            # the reference's panoptic NeFs refuse TensoRF: its (sigma, app)
+            # output does not fit the feature pipeline (PanopticLiftingNeF has it)
+            raise NotImplementedError(
+                "TensoRF grids are not supported by the panoptic NeFs "
+                "(reference parity); use PanopticLiftingNeF")
         self.grid = grid.build()
         feat_dim = (grid.feature_dim if multiscale_type == "sum"
                     else grid.output_dim)
@@ -213,6 +229,12 @@ class PanopticNeF(nn.Module):
         return frozenset({"density", "rgb", "semantics", "inst_embedding"})
 
 
+# grid types whose modules have ``.spec`` / ``.tables`` for the shared-lattice
+# dual encode
+_DUAL_FUSABLE = frozenset({"PermutoGrid", "HashGrid", "HashGridTorch",
+                           "HashGridTinyCudaNN", "CodebookOctreeGrid"})
+
+
 class PanopticDeltaNeF(PanopticNeF):
     """Delta-grid panoptic NeF, the flagship model: panoptic features are
     ``detach(colour feats) + delta_grid(detach(coords))``."""
@@ -238,7 +260,8 @@ class PanopticDeltaNeF(PanopticNeF):
         return (self.fuse_dual_grid
                 and (not check_pft or self.panoptic_features_type in ("delta", None))
                 and (self.delta_grid_cfg is None
-                     or self.delta_grid_cfg == self.grid_cfg))
+                     or self.delta_grid_cfg == self.grid_cfg)
+                and self.grid_cfg.grid_type in _DUAL_FUSABLE)
 
     def _delta_fused_feats(self, coordsT, feats, lod_weights, separate: bool = False):
         """Unfused delta fusion: the delta grid at detached coordinates, added

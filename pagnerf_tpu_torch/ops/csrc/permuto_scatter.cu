@@ -7,9 +7,12 @@
 //   out[row[m], :] += vals[m, :]                                    (rows)
 //
 // for t in {a} (single) or {a, b} (dual: the main grid and the delta grid
-// share one event stream). idx and bary are [L, V=4, N], g [L, F, N], tables
-// and table gradients [L, C, F]; inputs and outputs are float32 (the wrapper
-// widens bfloat16 operands first).
+// share one event stream). idx and bary are [L, V, N] with V = 4 (the
+// permutohedral lattice's simplex vertices) or 8 (the hash grid's voxel
+// corners), g [L, F, N], tables and table gradients [L, C, F]; inputs and
+// outputs are float32 (the wrapper widens bfloat16 operands first). The
+// TPU kernels read V from their index blocks' shapes; here it is a template
+// argument, so a sample's V events stay unrolled in registers.
 //
 // Replaces the TPU kernels pagnerf_tpu/ops/pallas_scatter.py
 // table_grad_matmul_T (_table_grad_kernel_T), table_grad_matmul_dual_T
@@ -89,7 +92,6 @@
 
 namespace {
 
-constexpr int kVerts = 4;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxLevels = 64;
@@ -129,30 +131,30 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, float (&
 }
 
 // One sample's events at one level: its cotangents g[t][f] for both tables,
-// and the row and weight of each of its 4 vertices.
-template <int F, int NT>
+// and the row and weight of each of its V vertices.
+template <int F, int NT, int V>
 struct Tile {
   float g[NT][F];
-  int key[kVerts];
-  float w[kVerts];
+  int key[V];
+  float w[V];
 };
 
 // Load sample s of level l (all of its loads issued together); an inactive
 // sample has rows -1 and zero weights.
-template <int F, int NT>
+template <int F, int NT, int V>
 __device__ __forceinline__ void load_tile(const int32_t* __restrict__ idx,
                                           const float* __restrict__ bary,
                                           const float* __restrict__ g_a,
                                           const float* __restrict__ g_b, int64_t l, int64_t n,
-                                          int64_t s, bool active, Tile<F, NT>& t) {
+                                          int64_t s, bool active, Tile<F, NT, V>& t) {
 #pragma unroll
   for (int f = 0; f < F; ++f) {
     t.g[0][f] = active ? __ldg(g_a + (l * F + f) * n + s) : 0.0f;
     if constexpr (NT == 2) t.g[1][f] = active ? __ldg(g_b + (l * F + f) * n + s) : 0.0f;
   }
 #pragma unroll
-  for (int v = 0; v < kVerts; ++v) {
-    const int64_t e = (l * kVerts + v) * n + s;
+  for (int v = 0; v < V; ++v) {
+    const int64_t e = (l * V + v) * n + s;
     t.key[v] = active ? __ldg(idx + e) : -1;
     t.w[v] = active ? __ldg(bary + e) : 0.0f;
   }
@@ -161,8 +163,8 @@ __device__ __forceinline__ void load_tile(const int32_t* __restrict__ idx,
 // Vertex v of a loaded sample: its row (-1 when inactive or beyond the live
 // rows) and its float32 products p[t * F + f] = bary * g_t[f], as the plain
 // version forms them.
-template <int F, int NT>
-__device__ __forceinline__ int tile_event(const Tile<F, NT>& t, int v, int rows,
+template <int F, int NT, int V>
+__device__ __forceinline__ int tile_event(const Tile<F, NT, V>& t, int v, int rows,
                                           float (&p)[NT * F]) {
 #pragma unroll
   for (int k = 0; k < NT; ++k)
@@ -174,19 +176,19 @@ __device__ __forceinline__ int tile_event(const Tile<F, NT>& t, int v, int rows,
 // Run fn(tile) over samples begin + threadIdx.x, + stride, ... below end
 // (the trip count is the same for every thread of a block), loading the
 // next sample while the current one is processed.
-template <int F, int NT, typename Fn>
+template <int F, int NT, int V, typename Fn>
 __device__ __forceinline__ void for_each_sample(const int32_t* __restrict__ idx,
                                                 const float* __restrict__ bary,
                                                 const float* __restrict__ g_a,
                                                 const float* __restrict__ g_b, int64_t l,
                                                 int64_t n, int64_t begin, int64_t end,
                                                 int64_t stride, Fn&& fn) {
-  Tile<F, NT> cur, nxt;
+  Tile<F, NT, V> cur, nxt;
   int64_t s = begin + threadIdx.x;
-  load_tile<F, NT>(idx, bary, g_a, g_b, l, n, s, s < end, cur);
+  load_tile<F, NT, V>(idx, bary, g_a, g_b, l, n, s, s < end, cur);
   for (int64_t t0 = begin; t0 < end; t0 += stride) {
     const int64_t s1 = t0 + stride + threadIdx.x;
-    if (t0 + stride < end) load_tile<F, NT>(idx, bary, g_a, g_b, l, n, s1, s1 < end, nxt);
+    if (t0 + stride < end) load_tile<F, NT, V>(idx, bary, g_a, g_b, l, n, s1, s1 < end, nxt);
     fn(cur);
     cur = nxt;
   }
@@ -228,7 +230,7 @@ __device__ __forceinline__ bool any_nonzero(const T (&val)[K]) {
 // holds the block's hash table: 2^slots_log2 rows of NT*F doubles, then
 // their keys. Rows that find no slot within kMaxProbes go straight to
 // device memory (still float64).
-template <int F, int NT>
+template <int F, int NT, int V>
 __global__ void __launch_bounds__(kThreads)
     shared_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
                        const float* __restrict__ g_a, const float* __restrict__ g_b,
@@ -250,12 +252,12 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int64_t begin = static_cast<int64_t>(blockIdx.x) * kChunk;
   const int64_t end = begin + kChunk < n ? begin + kChunk : n;
-  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
-                         [&](const Tile<F, NT>& tile) {
+  for_each_sample<F, NT, V>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
+                         [&](const Tile<F, NT, V>& tile) {
 #pragma unroll
-    for (int v = 0; v < kVerts; ++v) {
+    for (int v = 0; v < V; ++v) {
       float part[W];
-      const int key = tile_event<F, NT>(tile, v, rows, part);
+      const int key = tile_event<F, NT, V>(tile, v, rows, part);
       if (!merge_runs<float, W>(key, part, lane) || key < 0 || !any_nonzero(part)) continue;
       double val[W];
 #pragma unroll
@@ -296,7 +298,7 @@ __global__ void __launch_bounds__(kThreads)
 // grid = (ceil(N / kChunk), levels in kGlobal mode): each warp run's float32
 // sum goes straight to the float64 accumulator in device memory, NT*F
 // atomics per run (the kShared bound without the shared-memory table).
-template <int F, int NT>
+template <int F, int NT, int V>
 __global__ void __launch_bounds__(kThreads)
     global_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
                        const float* __restrict__ g_a, const float* __restrict__ g_b,
@@ -308,12 +310,12 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int64_t begin = static_cast<int64_t>(blockIdx.x) * kChunk;
   const int64_t end = begin + kChunk < n ? begin + kChunk : n;
-  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
-                         [&](const Tile<F, NT>& tile) {
+  for_each_sample<F, NT, V>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
+                         [&](const Tile<F, NT, V>& tile) {
 #pragma unroll
-    for (int v = 0; v < kVerts; ++v) {
+    for (int v = 0; v < V; ++v) {
       float part[W];
-      const int key = tile_event<F, NT>(tile, v, rows, part);
+      const int key = tile_event<F, NT, V>(tile, v, rows, part);
       if (merge_runs<float, W>(key, part, lane) && key >= 0) {
 #pragma unroll
         for (int k = 0; k < W; ++k)
@@ -357,7 +359,7 @@ struct FloatRow {
 };
 
 // grid = (ceil(N / kChunk), levels in kFloat mode).
-template <int F, int NT>
+template <int F, int NT, int V>
 __global__ void __launch_bounds__(kThreads)
     float_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
                       const float* __restrict__ g_a, const float* __restrict__ g_b,
@@ -371,12 +373,12 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int64_t begin = static_cast<int64_t>(blockIdx.x) * kChunk;
   const int64_t end = begin + kChunk < n ? begin + kChunk : n;
-  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
-                         [&](const Tile<F, NT>& tile) {
+  for_each_sample<F, NT, V>(idx, bary, g_a, g_b, l, n, begin, end, kThreads,
+                         [&](const Tile<F, NT, V>& tile) {
 #pragma unroll
-    for (int v = 0; v < kVerts; ++v) {
+    for (int v = 0; v < V; ++v) {
       float p[W];
-      const int key = tile_event<F, NT>(tile, v, rows, p);
+      const int key = tile_event<F, NT, V>(tile, v, rows, p);
       float val[W + 1];
 #pragma unroll
       for (int k = 0; k < W; ++k) val[k] = p[k];
@@ -435,7 +437,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // grid = (blocks, levels in kFloat mode): the events of a flagged level's
 // overflowing rows again, summed in float64 into the zeroed redo rows.
-template <int F, int NT>
+template <int F, int NT, int V>
 __global__ void __launch_bounds__(kThreads)
     redo_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
                 const float* __restrict__ g_a, const float* __restrict__ g_b,
@@ -449,13 +451,13 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = plan.rows[l];
   const int64_t off = plan.offset[l];
   const int lane = threadIdx.x & 31;
-  for_each_sample<F, NT>(idx, bary, g_a, g_b, l, n, static_cast<int64_t>(blockIdx.x) * kThreads,
+  for_each_sample<F, NT, V>(idx, bary, g_a, g_b, l, n, static_cast<int64_t>(blockIdx.x) * kThreads,
                          n, static_cast<int64_t>(gridDim.x) * kThreads,
-                         [&](const Tile<F, NT>& tile) {
+                         [&](const Tile<F, NT, V>& tile) {
 #pragma unroll
-    for (int v = 0; v < kVerts; ++v) {
+    for (int v = 0; v < V; ++v) {
       float part[W];
-      int key = tile_event<F, NT>(tile, v, rows, part);
+      int key = tile_event<F, NT, V>(tile, v, rows, part);
       if (key >= 0 && Row::count(acc32, counts, off + key) <= kMaxAddends) key = -1;
       if (merge_runs<float, W>(key, part, lane) && key >= 0) {
 #pragma unroll
@@ -493,7 +495,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // -------------------------------------------------------------------- dbary
 // grid = (ceil(N / kThreads), L); one thread per (level, sample).
-template <int F>
+template <int F, int V>
 __global__ void __launch_bounds__(kThreads)
     dbary_kernel(const float* __restrict__ table, const int32_t* __restrict__ idx,
                  const float* __restrict__ g, float* __restrict__ dbary, int64_t capacity,
@@ -506,8 +508,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int f = 0; f < F; ++f) gs[f] = __ldg(g + (l * F + f) * n + s);
   const float* table_l = table + l * capacity * F;
 #pragma unroll
-  for (int v = 0; v < kVerts; ++v) {
-    const int64_t e = (l * kVerts + v) * n + s;
+  for (int v = 0; v < V; ++v) {
+    const int64_t e = (l * V + v) * n + s;
     float row[F];
     load_row<F>(table_l + static_cast<int64_t>(__ldg(idx + e)) * F, row);
     float acc = 0.0f;
@@ -699,7 +701,7 @@ bool make_plan(const int32_t* modes, const int32_t* rows, int64_t levels, int64_
 // many for the widest rows).
 int slots_log2_for(int64_t w) { return w <= 4 ? 9 : 8; }
 
-template <int F, int NT>
+template <int F, int NT, int V>
 cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
                         const float* gb, float* da, float* db, unsigned char* scratch,
                         const LevelPlan& plan, int64_t levels, int64_t capacity, int64_t n,
@@ -721,21 +723,21 @@ cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
   if (num_shared > 0) {
     const int lg = slots_log2_for(W);
     const size_t bytes = (size_t{1} << lg) * (W * 8 + 4);
-    err = cudaFuncSetAttribute(shared_grad_kernel<F, NT>,
+    err = cudaFuncSetAttribute(shared_grad_kernel<F, NT, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    shared_grad_kernel<F, NT><<<dim3(chunks, num_shared), kThreads, bytes, stream>>>(
+    shared_grad_kernel<F, NT, V><<<dim3(chunks, num_shared), kThreads, bytes, stream>>>(
         idx, bary, ga, gb, acc64, plan, n, lg);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (num_global > 0) {
-    global_grad_kernel<F, NT><<<dim3(chunks, num_global), kThreads, 0, stream>>>(
+    global_grad_kernel<F, NT, V><<<dim3(chunks, num_global), kThreads, 0, stream>>>(
         idx, bary, ga, gb, acc64, plan, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (num_float > 0) {
-    float_grad_kernel<F, NT><<<dim3(chunks, num_float), kThreads, 0, stream>>>(
+    float_grad_kernel<F, NT, V><<<dim3(chunks, num_float), kThreads, 0, stream>>>(
         idx, bary, ga, gb, acc32, counts, plan, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -747,7 +749,7 @@ cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
   if (num_float > 0) {
     const unsigned redo_blocks =
         static_cast<unsigned>(std::min<int64_t>((n + kThreads - 1) / kThreads, 1024));
-    redo_kernel<F, NT><<<dim3(redo_blocks, num_float), kThreads, 0, stream>>>(
+    redo_kernel<F, NT, V><<<dim3(redo_blocks, num_float), kThreads, 0, stream>>>(
         idx, bary, ga, gb, acc32, counts, redo, flags, plan, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     fix_kernel<F, NT><<<dim3(row_blocks, num_float), kThreads, 0, stream>>>(
@@ -757,24 +759,61 @@ cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
   return err;
 }
 
-template <int F>
+template <int F, int V>
 cudaError_t launch_grad_tables(const int32_t* idx, const float* bary, const float* ga,
                                const float* gb, float* da, float* db, unsigned char* scratch,
                                const LevelPlan& plan, int64_t levels, int64_t capacity,
                                int64_t n, int64_t num_tables, cudaStream_t stream) {
   if (num_tables == 2)
-    return launch_grad<F, 2>(idx, bary, ga, gb, da, db, scratch, plan, levels, capacity, n,
-                             stream);
-  return launch_grad<F, 1>(idx, bary, ga, nullptr, da, nullptr, scratch, plan, levels,
-                           capacity, n, stream);
+    return launch_grad<F, 2, V>(idx, bary, ga, gb, da, db, scratch, plan, levels, capacity, n,
+                                stream);
+  return launch_grad<F, 1, V>(idx, bary, ga, nullptr, da, nullptr, scratch, plan, levels,
+                              capacity, n, stream);
 }
 
-template <int F>
+template <int V>
+cudaError_t launch_grad_feat(const int32_t* idx, const float* bary, const float* ga,
+                             const float* gb, float* da, float* db, unsigned char* scratch,
+                             const LevelPlan& plan, int64_t levels, int64_t capacity, int64_t n,
+                             int64_t feat, int64_t num_tables, cudaStream_t stream) {
+  switch (feat) {
+    case 1:
+      return launch_grad_tables<1, V>(idx, bary, ga, gb, da, db, scratch, plan, levels, capacity,
+                                      n, num_tables, stream);
+    case 2:
+      return launch_grad_tables<2, V>(idx, bary, ga, gb, da, db, scratch, plan, levels, capacity,
+                                      n, num_tables, stream);
+    default:
+      return launch_grad_tables<4, V>(idx, bary, ga, gb, da, db, scratch, plan, levels, capacity,
+                                      n, num_tables, stream);
+  }
+}
+
+template <int F, int V>
 cudaError_t launch_dbary(const float* table, const int32_t* idx, const float* g, float* out,
                          int64_t levels, int64_t capacity, int64_t n, cudaStream_t stream) {
-  dbary_kernel<F><<<grid_of(levels, n), kThreads, 0, stream>>>(table, idx, g, out, capacity, n);
+  dbary_kernel<F, V><<<grid_of(levels, n), kThreads, 0, stream>>>(table, idx, g, out, capacity,
+                                                                  n);
   return cudaGetLastError();
 }
+
+template <int V>
+cudaError_t launch_dbary_feat(const float* table, const int32_t* idx, const float* g,
+                              float* out, int64_t levels, int64_t capacity, int64_t n,
+                              int64_t feat, cudaStream_t stream) {
+  switch (feat) {
+    case 1:
+      return launch_dbary<1, V>(table, idx, g, out, levels, capacity, n, stream);
+    case 2:
+      return launch_dbary<2, V>(table, idx, g, out, levels, capacity, n, stream);
+    case 4:
+      return launch_dbary<4, V>(table, idx, g, out, levels, capacity, n, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+bool bad_verts(int64_t verts) { return verts != 4 && verts != 8; }
 
 bool bad_grad_args(const int32_t* modes, const int32_t* rows, int64_t levels, int64_t capacity,
                    int64_t n, int64_t feat, int64_t num_tables, LevelPlan* plan) {
@@ -795,9 +834,9 @@ extern "C" int64_t pagnerf_table_grad_scratch(const int32_t* modes, const int32_
 }
 
 // Table gradients of one (num_tables = 1) or two tables from one event
-// stream; the _b pointers are unused for one. modes[l] is 0 (kShared), 1
-// (kFloat) or 2 (kGlobal) and rows[l] the live rows of level l (host arrays
-// [levels]);
+// stream; the _b pointers are unused for one. verts is 4 or 8, the V of idx
+// and bary. modes[l] is 0 (kShared), 1 (kFloat) or 2 (kGlobal) and rows[l]
+// the live rows of level l (host arrays [levels]);
 // scratch is device memory of pagnerf_table_grad_scratch bytes, in any state.
 // d_a / d_b receive the float32 gradients [L, C, F], every entry written.
 // Returns the launches' cudaError_t (0 on success); nothing is launched for
@@ -806,9 +845,9 @@ extern "C" int pagnerf_table_grad(const void* idx, const void* bary, const void*
                                   const void* g_b, void* d_a, void* d_b, void* scratch,
                                   const int32_t* modes, const int32_t* rows, int64_t levels,
                                   int64_t capacity, int64_t n, int64_t feat, int64_t num_tables,
-                                  void* stream) {
+                                  int64_t verts, void* stream) {
   LevelPlan plan;
-  if (bad_grad_args(modes, rows, levels, capacity, n, feat, num_tables, &plan))
+  if (bad_verts(verts) || bad_grad_args(modes, rows, levels, capacity, n, feat, num_tables, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* w = static_cast<const float*>(bary);
@@ -818,40 +857,31 @@ extern "C" int pagnerf_table_grad(const void* idx, const void* bary, const void*
   auto* db = static_cast<float*>(d_b);
   auto* sc = static_cast<unsigned char*>(scratch);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (feat) {
-    case 1:
-      return static_cast<int>(
-          launch_grad_tables<1>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, num_tables, s));
-    case 2:
-      return static_cast<int>(
-          launch_grad_tables<2>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, num_tables, s));
-    default:
-      return static_cast<int>(
-          launch_grad_tables<4>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, num_tables, s));
-  }
+  const cudaError_t err =
+      verts == 8
+          ? launch_grad_feat<8>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, feat,
+                                num_tables, s)
+          : launch_grad_feat<4>(i, w, ga, gb, da, db, sc, plan, levels, capacity, n, feat,
+                                num_tables, s);
+  return static_cast<int>(err);
 }
 
-// Weight gradient dbary [L, 4, N] of one table. Returns the launch's
-// cudaError_t (0 on success).
+// Weight gradient dbary [L, V, N] of one table, V = verts (4 or 8). Returns
+// the launch's cudaError_t (0 on success).
 extern "C" int pagnerf_gather_dbary(const void* table, const void* idx, const void* g,
                                     void* dbary, int64_t levels, int64_t capacity, int64_t n,
-                                    int64_t feat, void* stream) {
-  if (bad_shape(levels, capacity, n)) return static_cast<int>(cudaErrorInvalidValue);
+                                    int64_t feat, int64_t verts, void* stream) {
+  if (bad_shape(levels, capacity, n) || bad_verts(verts))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* t = static_cast<const float*>(table);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* gg = static_cast<const float*>(g);
   auto* out = static_cast<float*>(dbary);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (feat) {
-    case 1:
-      return static_cast<int>(launch_dbary<1>(t, i, gg, out, levels, capacity, n, s));
-    case 2:
-      return static_cast<int>(launch_dbary<2>(t, i, gg, out, levels, capacity, n, s));
-    case 4:
-      return static_cast<int>(launch_dbary<4>(t, i, gg, out, levels, capacity, n, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err =
+      verts == 8 ? launch_dbary_feat<8>(t, i, gg, out, levels, capacity, n, feat, s)
+                 : launch_dbary_feat<4>(t, i, gg, out, levels, capacity, n, feat, s);
+  return static_cast<int>(err);
 }
 
 // Row scatter-add: out [num_rows, 128] float32 = the sum of vals [m, 128]

@@ -22,31 +22,37 @@ only when autograd asks for it, i.e. when the coordinates need a gradient.
 Each of the five functions -- gather, dual gather, table-gradient scatter,
 dual scatter, dbary -- has a hand-written CUDA kernel (``csrc/permuto_gather.cu``
 for the forward, ``csrc/permuto_scatter.cu`` for the backward) and a plain
-PyTorch version beside it here. The encodes of ``ops/permuto_encoding.py`` no
-longer call the gathers: their fused kernel (``csrc/permuto_encode.cu``)
-computes the lattice and gathers in one launch, and its backward calls the
-scatters and dbary here. The gathers serve callers that bring their own
-indices and weights. A wrapper launches the kernel for CUDA
-tensors (and counts the launch in its ``.launches``) and takes the plain
-version for CPU tensors; a CUDA tensor the kernel does not take raises.
+PyTorch version beside it here, at V = 4 vertices (the permutohedral
+lattice's simplices) and V = 8 (the hash grid's voxel corners). The encodes
+of ``ops/permuto_encoding.py`` do not call the gathers: their fused kernel
+(``csrc/permuto_encode.cu``) computes the lattice and gathers in one launch,
+and its backward calls the scatters and dbary here. The hash encodes of
+``ops/hash_encoding.py`` compute their indices and weights in PyTorch and
+call the gathers at V = 8, whose backward is the scatters and dbary. A
+wrapper launches the kernel for CUDA tensors (and counts the launch in its
+``.launches``) and takes the plain version for CPU tensors; a CUDA tensor
+the kernel does not take raises.
 
 The scatter kernel holds each entry within 64 eps_f32 of its sum of
 |bary * g| to its plain version (a float64 sum rounded once), however many
 events share a table row: per level it sums in float64, or in float32 on rows
 of at most 120 addends and in float64 again beyond (``level_modes``,
 ``csrc/permuto_scatter.cu`` "Accuracy"). ``rows_used`` bounds a level to its
-live rows (a direct-indexed level's index range); the encodes pass it with
-the modes from ``permuto_encoding.scatter_plan``.
+live rows (a direct-indexed level's index range); the permutohedral encodes
+pass it with the modes from ``permuto_encoding.scatter_plan``, the hash
+encodes their modes from ``hash_encoding.scatter_modes``.
 
 Contract of the gathers: tables ``[L, C, F]`` with F in (1, 2, 4), ``idx
-[L, 4, N]`` int32 with entries in ``[0, C)``, ``bary [L, 4, N]``; tables and
-bary in one dtype, float32 or bfloat16; all contiguous, on one device.
+[L, V, N]`` int32 with V in (4, 8) and entries in ``[0, C)``, ``bary
+[L, V, N]``; tables and bary in one dtype, float32 or bfloat16; all
+contiguous, on one device.
 Outputs ``[L, F, N]`` in that dtype; products and sums run in float32 and
 round once. The backward kernels take float32 only: for bfloat16 tables the
 backward widens g, bary and the tables to float32 first, and casts the
 float32 table gradient to the table dtype, as the JAX package's ``_ml_bwd``
 does. The kernels do not check that idx lies in ``[0, C)``; the lattice
-(``ops/permuto_encoding.py``) guarantees it.
+(``ops/permuto_encoding.py``) and the hash (``ops/hash_encoding.py``)
+guarantee it.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from typing import Tuple
 
 import torch
 
-VERTS = 4
+VERTS = (4, 8)     # the vertex counts V the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FEATS = (1, 2, 4)
 
@@ -162,8 +168,9 @@ def _check_tables(t0: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"feature width {f} not supported; use one of {_FEATS}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if idx.dim() != 3 or idx.shape[:2] != (l, VERTS):
-        raise ValueError(f"idx must be [L={l}, {VERTS}, N], got {tuple(idx.shape)}")
+    if idx.dim() != 3 or idx.shape[0] != l or idx.shape[1] not in VERTS:
+        raise ValueError(f"idx must be [L={l}, V, N] with V in {VERTS}, got "
+                         f"{tuple(idx.shape)}")
 
 
 def _check(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
@@ -179,22 +186,22 @@ def _check(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
     if bary.dtype != t0.dtype:
         raise TypeError(f"bary dtype {bary.dtype} != tables dtype {t0.dtype}")
     if bary.shape != idx.shape:
-        raise ValueError(f"idx and bary must both be [L, {VERTS}, N], got "
+        raise ValueError(f"idx and bary must both be [L, V, N], got "
                          f"{tuple(idx.shape)} and {tuple(bary.shape)}")
     _check_device((*tables, idx, bary))
 
 
 def _check_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int) -> None:
-    """Contract of the table-gradient scatters: idx [L, 4, N] int32, float32
-    bary [L, 4, N] and cotangents [L, F, N]."""
+    """Contract of the table-gradient scatters: idx [L, V, N] int32 (V in
+    ``VERTS``), float32 bary [L, V, N] and cotangents [L, F, N]."""
     g0 = gs[0]
     if g0.dim() != 3 or g0.shape[1] not in _FEATS:
         raise ValueError(f"g must be [L, F, N] with F in {_FEATS}, got "
                          f"{tuple(g0.shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if idx.dim() != 3 or idx.shape[1] != VERTS or bary.shape != idx.shape:
-        raise ValueError(f"idx and bary must both be [L, {VERTS}, N], got "
+    if idx.dim() != 3 or idx.shape[1] not in VERTS or bary.shape != idx.shape:
+        raise ValueError(f"idx and bary must both be [L, V, N] with V in {VERTS}, got "
                          f"{tuple(idx.shape)} and {tuple(bary.shape)}")
     l, _, n = idx.shape
     for g in gs:
@@ -226,7 +233,7 @@ def _check_dbary(tables: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> No
 def _kernel():
     from . import _build
     fn = _build.load("permuto_gather").pagnerf_permuto_gather
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -239,13 +246,13 @@ def _scatter_kernels():
     lib = _build.load("permuto_scatter")
     i32p = ctypes.POINTER(ctypes.c_int32)
     grad = lib.pagnerf_table_grad
-    grad.argtypes = [ctypes.c_void_p] * 7 + [i32p] * 2 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    grad.argtypes = [ctypes.c_void_p] * 7 + [i32p] * 2 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
     grad.restype = ctypes.c_int
     scratch = lib.pagnerf_table_grad_scratch
     scratch.argtypes = [i32p] * 2 + [ctypes.c_int64] * 5
     scratch.restype = ctypes.c_int64
     dbary = lib.pagnerf_gather_dbary
-    dbary.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    dbary.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     dbary.restype = ctypes.c_int
     rows = lib.pagnerf_scatter_rows
     rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
@@ -274,7 +281,7 @@ def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
     with torch.cuda.device(idx.device):
         err = fn(tables[0].data_ptr(), tables[-1].data_ptr(), idx.data_ptr(),
                  bary.data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
-                 l, c, n, f, len(tables), _DTYPE_CODE[tables[0].dtype],
+                 l, c, n, f, len(tables), _DTYPE_CODE[tables[0].dtype], idx.shape[1],
                  _stream(idx.device))
     _raise_on(err, "permuto_gather")
     return outs
@@ -311,7 +318,7 @@ def _launch_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int,
                  rows_used=None, modes=None):
     """One scatter over all levels into float32 outputs that the kernels
     write whole; ``modes`` as in ``level_modes``."""
-    l, _, n = idx.shape
+    l, v, n = idx.shape
     f = gs[0].shape[1]
     if l > MAX_LEVELS:
         raise ValueError(f"the scatter kernel takes at most {MAX_LEVELS} levels, got {l}")
@@ -332,7 +339,7 @@ def _launch_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int,
     with torch.cuda.device(idx.device):
         err = grad(idx.data_ptr(), bary.data_ptr(), gs[0].data_ptr(),
                    gs[-1].data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
-                   scratch.data_ptr(), c_modes, c_rows, l, capacity, n, f, len(gs),
+                   scratch.data_ptr(), c_modes, c_rows, l, capacity, n, f, len(gs), v,
                    _stream(idx.device))
     _raise_on(err, "permuto_scatter table_grad")
     return outs
@@ -341,7 +348,7 @@ def _launch_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int,
 # ------------------------------------------------------------ kernel wrappers
 def multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor,
                           capacity: int, rows_used=None, modes=None) -> torch.Tensor:
-    """Table gradient [L, C, F] float32 from idx [L, 4, N] int32, bary [L, 4, N]
+    """Table gradient [L, C, F] float32 from idx [L, V, N] int32, bary [L, V, N]
     and g [L, F, N] (both float32); ``rows_used`` as in ``live_rows``,
     ``modes`` as in ``level_modes``. CUDA tensors launch the scatter kernel
     (counted in ``.launches``); CPU tensors take ``table_grad_plain``."""
@@ -350,7 +357,7 @@ def multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor
         level_modes(live_rows(rows_used, idx.shape[0], capacity), capacity, modes)
         return table_grad_plain(idx, bary, g, capacity, rows_used)
     (out,) = _launch_grad(idx, bary, (g,), capacity, rows_used, modes)
-    multilevel_table_grad.launches += 1
+    KERNELS["table_grad"].launches += 1
     return out
 
 
@@ -365,29 +372,29 @@ def dual_multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor,
         level_modes(live_rows(rows_used, idx.shape[0], capacity), capacity, modes)
         return dual_table_grad_plain(idx, bary, g_a, g_b, capacity, rows_used)
     out = _launch_grad(idx, bary, (g_a, g_b), capacity, rows_used, modes)
-    dual_multilevel_table_grad.launches += 1
+    KERNELS["dual_table_grad"].launches += 1
     return out
 
 
 def multilevel_gather_dbary(tables: torch.Tensor, idx: torch.Tensor,
                             g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient [L, 4, N] float32 from float32 tables [L, C, F], idx
-    [L, 4, N] int32 and g [L, F, N]. CUDA tensors launch the dbary kernel
+    """Weight gradient [L, V, N] float32 from float32 tables [L, C, F], idx
+    [L, V, N] int32 and g [L, F, N]. CUDA tensors launch the dbary kernel
     (counted in ``.launches``); CPU tensors take ``gather_dbary_plain``."""
     _check_dbary(tables, idx, g)
     if idx.device.type == "cpu":
         return gather_dbary_plain(tables, idx, g)
     l, c, f = tables.shape
-    n = idx.shape[2]
-    out = torch.empty((l, VERTS, n), dtype=torch.float32, device=idx.device)
+    v, n = idx.shape[1:]
+    out = torch.empty((l, v, n), dtype=torch.float32, device=idx.device)
     if n == 0:
         return out
     _, _, dbary, _ = _scatter_kernels()
     with torch.cuda.device(idx.device):
         err = dbary(tables.data_ptr(), idx.data_ptr(), g.data_ptr(),
-                    out.data_ptr(), l, c, n, f, _stream(idx.device))
+                    out.data_ptr(), l, c, n, f, v, _stream(idx.device))
     _raise_on(err, "permuto_scatter dbary")
-    multilevel_gather_dbary.launches += 1
+    KERNELS["dbary"].launches += 1
     return out
 
 
@@ -402,7 +409,7 @@ class _Gather(torch.autograd.Function):
         if tables.device.type == "cpu":
             return multilevel_gather_plain(tables, idx, bary)
         (out,) = _launch((tables,), idx, bary)
-        multilevel_table_gather.launches += 1
+        KERNELS["gather"].launches += 1
         return out
 
     @staticmethod
@@ -432,7 +439,7 @@ class _DualGather(torch.autograd.Function):
         if tables_a.device.type == "cpu":
             return dual_gather_plain(tables_a, tables_b, idx, bary)
         out = _launch((tables_a, tables_b), idx, bary)
-        dual_multilevel_table_gather.launches += 1
+        KERNELS["dual_gather"].launches += 1
         return out
 
     @staticmethod
@@ -457,7 +464,7 @@ class _DualGather(torch.autograd.Function):
 def multilevel_table_gather(tables: torch.Tensor, idx: torch.Tensor,
                             bary: torch.Tensor, rows_used=None,
                             modes=None) -> torch.Tensor:
-    """tables [L, C, F], idx [L, 4, N] int32, bary [L, 4, N] -> [L, F, N],
+    """tables [L, C, F], idx [L, V, N] int32, bary [L, V, N] -> [L, F, N],
     differentiable in tables and bary. CUDA tensors launch the kernel
     (counted in ``.launches``); CPU tensors take ``multilevel_gather_plain``.
     ``rows_used`` (per level, see ``live_rows``; it must cover every index of
@@ -487,7 +494,9 @@ dual_multilevel_table_grad.launches = 0
 multilevel_gather_dbary.launches = 0
 
 # ops/permuto_encoding.py adds its fused encodes ("encode", "dual_encode")
-# when it is imported.
+# when it is imported. The wrappers count their launches through this table,
+# so a caller that replaces one of the module's names (a spy that records
+# calls) leaves the counts on the wrapper objects here.
 KERNELS = {"gather": multilevel_table_gather,
            "dual_gather": dual_multilevel_table_gather,
            "table_grad": multilevel_table_grad,

@@ -136,11 +136,28 @@ def _restore_optimizer(trainer, opt_state: Mapping) -> None:
     opt.count = {g: int(count[g]) for g in opt.count}
 
 
+def _match_tensorf_resolution(trainer, params: Mapping[str, torch.Tensor]) -> None:
+    """A TensoRF grid saved after ``maybe_upsample_tensorf`` has finer
+    factors than a freshly built one: resize the trainer's grid to the
+    saved resolution first (the JAX trainer reads it from the parameters'
+    shapes)."""
+    nef = trainer.pipeline.nef
+    saved = params.get("nef.grid.density_plane")
+    if saved is None or not hasattr(nef.grid, "upsample"):
+        return
+    if saved.shape[-1] != nef.grid.resolution:
+        nef.grid.upsample(int(saved.shape[-1]))
+        trainer.params = dict(trainer.pipeline.named_parameters())
+        trainer.opt.params = dict(trainer.params)
+        trainer.opt.reset_moments()
+
+
 def load_state(trainer, state: Mapping, model_format: str = "full") -> None:
     """Restore ``state`` (``trainer_state``'s layout) into ``trainer`` in one
     of the ``FORMATS``."""
     if model_format not in FORMATS:
         raise ValueError(f"model_format must be one of {FORMATS}, got {model_format!r}")
+    _match_tensorf_resolution(trainer, state["params"])
     ignore = model_format == "params_only_ignore_missmatch"
     merged = _partial_merge(trainer.params, state["params"], ignore)
     with torch.no_grad():

@@ -231,10 +231,12 @@ class MaskedAdam:
     def reset_moments(self) -> None:
         """Zero every Adam moment and keep each group's count, as the JAX
         trainer's ``_reinit_opt_state`` does after a prune: a fresh optimizer
-        would restart the counts, and with them any schedule read from them."""
-        for n in self.params:
-            self.mu[n] = torch.zeros_like(self.mu[n])
-            self.nu[n] = torch.zeros_like(self.nu[n])
+        would restart the counts, and with them any schedule read from them.
+        The moments take the parameters' current shapes (the TensoRF
+        upsampling replaces its factors)."""
+        for n, p in self.params.items():
+            self.mu[n] = torch.zeros_like(p)
+            self.nu[n] = torch.zeros_like(p)
 
     def state(self) -> Dict:
         """Counts and moments (for tests and checkpoints)."""

@@ -32,8 +32,10 @@ the JAX trainer's). ``run_epoch`` reads each step's losses back before the
 next step (the JAX package's ``dispatch_ahead`` is not ported) and times
 its phases, each prune and each epoch on ``timer`` (``--perf``).
 ``batch_render`` is the chunked full-image render that validation and the
-point-cloud map call. Not ported yet: the fused micro-step, which
-``stage_for_epoch`` refuses, and TensoRF upsampling.
+point-cloud map call; ``maybe_upsample_tensorf`` the TensoRF grid's
+progressive resolution steps at the end of an epoch. A pipeline without
+extrinsics trains on the batch's world rays. Not ported yet: the fused
+micro-step, which ``stage_for_epoch`` refuses.
 """
 from __future__ import annotations
 
@@ -325,11 +327,18 @@ class PanopticTrainer:
         base_rays = Rays(origins=batch["base_rays_origins"],
                          dirs=batch["base_rays_dirs"], dist_min=0.0, dist_max=6.0)
         cam_idx = batch["cam_idx"].to(torch.int64)
-        if not isinstance(self.pipeline, BAPipeline):
-            raise NotImplementedError("only the BAPipeline is ported for training")
-        rb = self.pipeline(base_rays, stage.channels, self.occ, self.lod_w,
-                           stage="train", cam_idx=cam_idx, jitter=jitter,
-                           tracer_cfg=tracer_cfg)
+        is_ba = isinstance(self.pipeline, BAPipeline)
+        if is_ba:
+            rb = self.pipeline(base_rays, stage.channels, self.occ, self.lod_w,
+                               stage="train", cam_idx=cam_idx, jitter=jitter,
+                               tracer_cfg=tracer_cfg)
+        else:
+            # a pipeline without extrinsics traces the batch's world rays
+            rays_in = Rays(origins=batch["rays_origins"].reshape(-1, 3),
+                           dirs=batch["rays_dirs"].reshape(-1, 3), dist_min=0.0,
+                           dist_max=6.0)
+            rb = self.pipeline(rays_in, stage.channels, self.occ, self.lod_w,
+                               stage="train", jitter=jitter, tracer_cfg=tracer_cfg)
 
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -381,7 +390,8 @@ class PanopticTrainer:
                 points_3d = None
                 if cfg.inst_outlier_rejection:
                     with torch.no_grad():
-                        world = self.pipeline.transform_rays(base_rays, cam_idx)
+                        world = (self.pipeline.transform_rays(base_rays, cam_idx)
+                                 if is_ba else rays_in)
                         points_3d = rays_to_3d_points(world, rb.depth).reshape(b, r, 3)
                 lmap = lin_assignment_things_loss(
                     inst_embed, inst_gts, stuff, self.num_instances,
@@ -590,10 +600,39 @@ class PanopticTrainer:
         totals = {k: v / self.steps_per_epoch for k, v in totals.items()}
         if self.should_prune(epoch):
             self.prune()
+        self.maybe_upsample_tensorf(epoch)
         self.epoch = epoch + 1
         self.log_dict = totals
         self.timer.record("epoch", time.perf_counter() - t0, epoch=epoch, losses=totals)
         return totals
+
+    def maybe_upsample_tensorf(self, epoch: int) -> None:
+        """The JAX trainer's progressive TensoRF resolution steps: when the
+        NeF's grid config says ``TensoRF`` (only then: a PanopticLiftingNeF
+        whose config names another grid type builds a TensoRF grid that never
+        upsamples, as in the JAX package), every ``epochs //
+        num_resolutions`` epochs (from epoch 1) the VM factors are resized
+        to the next resolution of ``resolution_schedule`` above the current
+        one, and the optimizer's moments restart at zero with each group's
+        count kept (its ``_reinit_opt_state``)."""
+        nef = self.pipeline.nef
+        gc = nef.grid_cfg
+        if gc.grid_type != "TensoRF" or gc.num_resolutions <= 1:
+            return
+        every = max(self.cfg.epochs // gc.num_resolutions, 1)
+        if epoch <= 0 or epoch % every != 0:
+            return
+        from ..models.tensorf import resolution_schedule
+        bigger = [r for r in resolution_schedule(gc.resolution, gc.max_resolution,
+                                                 gc.num_resolutions)
+                  if r > nef.grid.resolution]
+        if not bigger:
+            return
+        nef.grid.upsample(bigger[0])
+        nef.grid_cfg = dataclasses.replace(gc, resolution=bigger[0])
+        self.params = dict(self.pipeline.named_parameters())
+        self.opt.params = dict(self.params)
+        self.opt.reset_moments()
 
     def train(self, on_epoch_end=None) -> None:
         """``run_epoch`` from the current epoch to ``cfg.epochs``;

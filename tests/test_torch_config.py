@@ -9,7 +9,8 @@
   tracer and grid configs equal the JAX factory's field for field (the JAX
   factory is run with its dataset and trainer stubbed, so nothing is built),
   and the dataset arrays are bit-identical.
-- What the port does not have raises ``NotImplementedError``.
+- What the port does not have raises ``NotImplementedError``; every YAML
+  under ``configs/`` builds and passes ``stage_for_epoch`` at every epoch.
 """
 import argparse
 import dataclasses
@@ -212,7 +213,8 @@ def _args(*extra):
 # the ROADMAP.md Queue 1 item that ports each; a format neither package
 # reads names none; "ported": the factory builds it since
 _ITEM = {"replica": None, "PanopticDDensityNeF": "ported",
-         "MeanShiftPanopticDeltaNeF": "ported", "SemanticNeF": 5, "HashGrid": 5}
+         "MeanShiftPanopticDeltaNeF": "ported", "SemanticNeF": "ported",
+         "HashGrid": "ported"}
 
 
 @pytest.mark.parametrize("extra, what", [
@@ -224,11 +226,13 @@ _ITEM = {"replica": None, "PanopticDDensityNeF": "ported",
 ])
 def test_factory_refuses_what_is_not_ported(extra, what):
     """The factory refuses what the port does not have, naming its item,
-    and builds what it has (the DD and mean-shift NeFs: this slice)."""
+    and builds what it has (the DD and mean-shift NeFs since their slice,
+    the baselines and the hash grid since the next)."""
     item = _ITEM[extra[1]]
     if item == "ported":
         pipe, _, _ = factory_t.get_modules_from_config(_args(*extra), "cpu")
-        assert type(pipe.nef).__name__ == extra[1]
+        built = pipe.nef.grid if what == "grid_type" else pipe.nef
+        assert type(built).__name__ == extra[1]
         return
     match = (f"{what}.*ROADMAP.md Queue 1 item {item}\\b" if item
              else f"{what} .* is not supported")
@@ -263,15 +267,13 @@ def test_argparse_namespace_type():
 
 # ------------------------------------------------------------------ every config
 # What each config is refused at, first, with the ROADMAP.md Queue 1 item
-# that ports it; every other config builds and every epoch's stage passes
-FIRST_REFUSAL = {
-    "configs/bup20/mean_shift_contrastive_app.yaml": "grid_type 'TriplanarGrid'.*item 5",
-    "configs/bup20/panoptic_lifting_app.yaml": "PanopticLiftingNeF.*item 5",
-    "configs/bup20/panoptic_nerf.yaml": "grid_type 'HashGrid'.*item 5",
-    "configs/bup20/semantic_nerf_app.yaml": "SemanticNeF.*item 5",
-}
+# that ports it; every other config builds and every epoch's stage passes.
+# Since the hash, triplanar and TensoRF grids and the baseline NeFs are
+# ported, none is refused.
+FIRST_REFUSAL = {}
 # the model's width cut for the CPU (which parts are ported does not depend on it)
-SHRINK = ["--num-lods", "4", "--capacity-log-2", "8", "--delta-capacity-log-2", "8"]
+SHRINK = ["--num-lods", "4", "--capacity-log-2", "8", "--delta-capacity-log-2", "8",
+          "--codebook-bitwidth", "8"]
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,16 @@ fused encode against the plain lattice and gathers: idx equal on all but
 1e-6 of the entries (at least one allowed), features per level within
 (4 ulp_f32(max|el|) + 8 eps_f32) max|table| (one ulp of el moves each weight
 by at most ulp/4), plus one bf16 ulp of the largest output in bfloat16; the
-single encode bit-equal to the dual's A side."""
+single encode bit-equal to the dual's A side.
+
+At V = 8 (the hash grid's voxel corners) the same contracts hold, the
+gathers' bound doubled for their 8 multiply-adds, at small shapes, at the
+hash path's N = 2^20 with 14 levels of 2^19 rows, and through
+``hash_encode_dual_T`` with gradients against the plain versions on the
+card (table gradients and coordinate gradients within 1e-5 of their largest
+entry)."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -692,3 +701,151 @@ def test_sup_contrastive_on_card_matches_cpu(dev):
     got.backward()
     assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
     assert bool(torch.isfinite(x.grad).all()) and not x.grad[3].any()
+
+
+# ------------------------------------------------------------ V = 8 (hash grid)
+def _hash_case(dev, n, levels=14, log2_c=19, seed=0):
+    """The hash grid's idx/bary at n random coordinates, random tables."""
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    spec = he.HashEncodingSpec(levels, 2, log2_c, 16, 512)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((3, n), generator=g, device=dev) * 2 - 1
+    idx, w = he.hash_indices(x, spec.resolutions, log2_c)
+    ta = torch.randn((levels, spec.capacity, 2), generator=g, device=dev)
+    tb = torch.randn((levels, spec.capacity, 2), generator=g, device=dev)
+    return spec, x, idx.contiguous(), w.contiguous(), ta, tb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 255, 4097])
+def test_v8_gather_kernels_match_plain(dev, dtype, f, n):
+    l, c = 5, 1 << 12
+    g = torch.Generator(device=dev).manual_seed(n)
+    ta = torch.randn((l, c, f), generator=g, device=dev).to(dtype)
+    tb = torch.randn((l, c, f), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, c, (l, 8, n), generator=g, device=dev, dtype=torch.int32)
+    bary = torch.rand((l, 8, n), generator=g, device=dev).to(dtype)
+    tg.reset_launches()
+    out = tg.multilevel_table_gather(ta, idx, bary)
+    oa, ob = tg.dual_multilevel_table_gather(ta, tb, idx, bary)
+    torch.cuda.synchronize()
+    assert tg.multilevel_table_gather.launches == 1
+    assert tg.dual_multilevel_table_gather.launches == 1
+    ref = tg.multilevel_gather_plain(ta, idx, bary)
+    ref_b = tg.multilevel_gather_plain(tb, idx, bary)
+    assert out.dtype == dtype and out.shape == (l, f, n)
+    for got, want in ((out, ref), (oa, ref), (ob, ref_b)):
+        # 8 fused multiply-adds: twice the V = 4 bound
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2 * _tol((ta, tb), want, dtype)
+    assert torch.equal(oa, out)
+
+
+@pytest.mark.parametrize("modes", ["shared", "float", "global", "hash"])
+@pytest.mark.parametrize("pattern", ["random", "hot"])
+def test_v8_scatter_and_dbary_match_plain(dev, modes, pattern):
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    spec, _, idx, bary, ta, _ = _hash_case(dev, 1 << 15, levels=4, log2_c=12)
+    l, c = spec.num_levels, spec.capacity
+    g = torch.Generator(device=dev).manual_seed(7)
+    g_a = torch.randn((l, 2, idx.shape[2]), generator=g, device=dev)
+    g_b = torch.randn((l, 2, idx.shape[2]), generator=g, device=dev)
+    if pattern == "hot":
+        idx, g_a, g_b = (idx % 7).contiguous(), g_a.abs(), g_b.abs()
+    mode = {"shared": (tg.SHARED,) * l, "float": (tg.FLOAT,) * l,
+            "global": (tg.GLOBAL,) * l,
+            "hash": he.scatter_modes(spec.resolutions, c)}[modes]
+    tg.reset_launches()
+    single = tg.multilevel_table_grad(idx, bary, g_a, c, modes=mode)
+    da, db = tg.dual_multilevel_table_grad(idx, bary, g_a, g_b, c, modes=mode)
+    dbary = tg.multilevel_gather_dbary(ta, idx, g_a)
+    torch.cuda.synchronize()
+    assert (tg.multilevel_table_grad.launches, tg.dual_multilevel_table_grad.launches,
+            tg.multilevel_gather_dbary.launches) == (1, 1, 1)
+    _assert_scatter_close(single, idx, bary, g_a, c)
+    _assert_scatter_close(da, idx, bary, g_a, c)
+    _assert_scatter_close(db, idx, bary, g_b, c)
+    want = tg.gather_dbary_plain(ta, idx, g_a)
+    mag = tg.gather_dbary_plain(ta.abs(), idx, g_a.abs())
+    assert dbary.shape == (l, 8, idx.shape[2])
+    assert bool(((dbary - want).abs() <= 4 * F32_EPS * mag).all())
+
+
+def test_v8_kernels_match_plain_at_the_hash_path_n(dev):
+    """The hash grid's shapes on panoptic_nerf.yaml's microbatch (14 levels x
+    2^19 x F=2, N = 2048 rays x 512 steps): gather single and dual, scatter
+    with the grid's modes, dbary."""
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    spec, _, idx, bary, ta, tb = _hash_case(dev, 1 << 20)
+    l, c = spec.num_levels, spec.capacity
+    out = tg.multilevel_table_gather(ta, idx, bary)
+    oa, ob = tg.dual_multilevel_table_gather(ta, tb, idx, bary)
+    for got, want in ((out, tg.multilevel_gather_plain(ta, idx, bary)),
+                      (ob, tg.multilevel_gather_plain(tb, idx, bary))):
+        assert float((got - want).abs().max()) <= 2 * _tol((ta, tb), want, torch.float32)
+    assert torch.equal(oa, out)
+    del oa, ob, out
+    g = torch.Generator(device=dev).manual_seed(9)
+    g_a = torch.randn((l, 2, idx.shape[2]), generator=g, device=dev).abs()
+    got = tg.multilevel_table_grad(idx, bary, g_a, c,
+                                   modes=he.scatter_modes(spec.resolutions, c))
+    _assert_scatter_close(got, idx, bary, g_a, c)
+    del got
+    dbary = tg.multilevel_gather_dbary(ta, idx, g_a)
+    want = tg.gather_dbary_plain(ta, idx, g_a)
+    mag = tg.gather_dbary_plain(ta.abs(), idx, g_a.abs())
+    assert bool(((dbary - want).abs() <= 4 * F32_EPS * mag).all())
+
+
+def test_hash_encode_on_card_matches_plain_with_gradients(dev):
+    """``hash_encode_dual_T`` through the kernels against the same encode
+    with the plain gathers on the card: features within the gather bound,
+    table gradients within the scatter contract, coordinate gradients within
+    1e-5 of their largest entry; the launches of one forward and backward."""
+    from unittest import mock
+
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    spec, x, _, _, ta, tb = _hash_case(dev, 50000, levels=6, log2_c=14)
+    g = torch.Generator(device=dev).manual_seed(4)
+    w = torch.randn((6 * 2, x.shape[1]), generator=g, device=dev)
+    runs = []
+    for plain in (False, True):
+        a, b, xx = (t.clone().requires_grad_() for t in (ta, tb, x))
+        tg.reset_launches()
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(
+                    tg, "dual_multilevel_table_gather",
+                    lambda *args, **kw: _PlainDual.apply(*args[:4])))
+            fa, fb = he.hash_encode_dual_T(a, b, xx, spec.resolutions)
+            ((fa * w).sum() + (fb * w.flip(0)).sum()).backward()
+        torch.cuda.synchronize()
+        runs.append((fa.detach(), fb.detach(), a.grad, b.grad, xx.grad,
+                     {k: f.launches for k, f in tg.KERNELS.items()}))
+    (ka, kb, kda, kdb, kdx, launches), (pa, pb, pda, pdb, pdx, _) = runs
+    assert launches["dual_gather"] == 1 and launches["dual_table_grad"] == 1
+    assert launches["dbary"] == 1 and launches["gather"] == 0
+    for got, want in ((ka, pa), (kb, pb)):
+        assert float((got - want).abs().max()) <= 2 * _tol((ta, tb), want, torch.float32)
+    for got, want in ((kda, pda), (kdb, pdb)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert float((kdx - pdx).abs().max()) <= 1e-5 * float(pdx.abs().max())
+
+
+class _PlainDual(torch.autograd.Function):
+    """The dual gather with the plain versions forward and backward (on
+    CUDA tensors, where the wrappers launch the kernels)."""
+
+    @staticmethod
+    def forward(ctx, ta, tb, idx, bary):
+        ctx.save_for_backward(ta, idx, bary)
+        ctx.capacity = tb.shape[1]
+        return tg.dual_gather_plain(ta, tb, idx, bary)
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        ta, idx, bary = ctx.saved_tensors
+        da, db = tg.dual_table_grad_plain(idx, bary.float(), ga.float().contiguous(),
+                                          gb.float().contiguous(), ctx.capacity)
+        return da, db, None, tg.gather_dbary_plain(ta, idx, ga.float())

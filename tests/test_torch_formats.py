@@ -27,8 +27,8 @@ package, on the CPU.
   ``tests/test_nerf_standard_format.py``, mip 0 and 1, black and white
   backgrounds, and with an explicit val split.
 - ``write_bup20_tree`` at 80x45: both packages load the tree to the same
-  arrays, both validators report nothing, and the loader's rays re-render
-  the depth the tree holds.
+  arrays (its Mask R-CNN and DeepLab predictions too), both validators
+  report nothing, and the loader's rays re-render the depth the tree holds.
 """
 import json
 import struct
@@ -486,6 +486,27 @@ def test_written_tree_loads_and_validates_as_jax(written_tree):
     # the depth filter dropped the spheres beyond max_depth from the predictions
     assert 0 < len(np.unique(dt["instance_pred"][c])) < len(np.unique(
         bup20_t.load_data(root, dataset_center_idx=5)["instance_pred"][c]))
+
+
+@pytest.mark.parametrize("preds", ["preds_maskrcnn", "preds_deeplab"])
+def test_written_tree_predictions_load_as_jax(written_tree, preds):
+    """The Mask R-CNN and DeepLab predictions the tree also holds (the
+    ``_app`` configs' load modes): both packages load them to the same
+    arrays, with and without the depth filter, and they carry the
+    Mask2Former predictions' instance map."""
+    root, stamps = written_tree
+    modes = ["imgs", "semantics", "instance", preds]
+    for kw in (dict(dataset_center_idx=5), dict(dataset_center_idx=5, max_depth=1.4)):
+        dt = bup20_t.load_data(root, load_modes=modes, **kw)
+        dj = bup20_j.load_data(root, load_modes=modes, **kw)
+        for k in ("semantics_pred", "instance_pred", "sem_conf", "inst_conf"):
+            assert dt[k].dtype == dj[k].dtype, k
+            np.testing.assert_array_equal(dt[k], dj[k], err_msg=k)
+    m2f = bup20_t.load_data(root, dataset_center_idx=5)
+    c = dt["filenames"].index(f"{stamps[47]}.png")
+    unfiltered = bup20_t.load_data(root, load_modes=modes, dataset_center_idx=5)
+    np.testing.assert_array_equal(unfiltered["instance_pred"][c], m2f["instance_pred"][c])
+    assert unfiltered["instance_pred"][c].max() >= 2
 
 
 def test_written_tree_rays_see_its_depth(written_tree):
