@@ -366,22 +366,6 @@ def phase_build():
          flags=" ".join(_build.NVCC_FLAGS))
 
 
-def render_coords(pipe, origins, dirs, cam_idx):
-    """Sample coordinates [3, N] of the flagship render (its march)."""
-    import torch
-
-    from pagnerf_tpu_torch.core.rays import Rays
-    from pagnerf_tpu_torch.ops.occupancy import OccupancyGrid
-    from pagnerf_tpu_torch.ops.raymarch import raymarch
-
-    occ = OccupancyGrid.create(level=7, device=origins.device)
-    with torch.no_grad():
-        rays = pipe.transform_rays(
-            Rays(origins=origins, dirs=dirs, dist_min=0.0, dist_max=6.0), cam_idx)
-        coordsT = raymarch(rays, occ, pipe.tracer_cfg.num_steps).positionsT
-    return coordsT.reshape(3, -1).contiguous()
-
-
 def phase_encode(dev, spec, coords, flush):
     """The fused encode kernels against their plain versions, at the render's
     and a training microbatch's coordinates (``coords``: name -> x [3, N])."""
@@ -395,6 +379,11 @@ def phase_encode(dev, spec, coords, flush):
     st = pe.level_statics(spec.scales, c, f)
     gen = torch.Generator(device=dev).manual_seed(4)
     results = {}
+    # the kernel stages no level in shared memory and takes one sample a
+    # thread (PERF.md); its levels run in interleaved groups
+    group, order = pe.encode_level_order(l)
+    plan = dict(shared_memory_levels=[], samples_per_thread=1,
+                level_groups=[order[i:i + group] for i in range(0, l, group)])
     for where, x in coords.items():
         n = x.shape[1]
         with_lattice = where == "train"      # training keeps idx/bary for the backward
@@ -467,7 +456,8 @@ def phase_encode(dev, spec, coords, flush):
                         times[name]["plain_ms"] = cuda_ms(plain, reps=5, flush=flush)
             results[(where, dtype)] = dict(check, **times)
             emit("encode", at=where, dtype=str(dtype).replace("torch.", ""), L=l, C=c,
-                 F=f, N=n, idx_bary_written=with_lattice, **results[(where, dtype)])
+                 F=f, N=n, idx_bary_written=with_lattice, kernel_plan=plan,
+                 **results[(where, dtype)])
             del ta, tb
         del idx_p, bary_p
     return results
@@ -2940,6 +2930,7 @@ def main() -> None:
     import torch
 
     from pagnerf_tpu_torch.entry import entry
+    from pagnerf_tpu_torch.profile_encode import render_coords
     from pagnerf_tpu_torch.profile_scatter import training_coords
 
     if not torch.cuda.is_available():

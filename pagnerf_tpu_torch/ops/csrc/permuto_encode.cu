@@ -24,22 +24,30 @@
 // _lattice_levels (:149). On the TPU the lattice is a scan of vector ops that
 // writes idx and bary to device memory and the gather reads them back.
 //
-// What bounds it on an H100: bytes. It must read x (12 bytes a sample) and
-// the tables and write NT*L*F*N outputs; at the render's shapes (L = 24,
-// C = 2^18, F = 2, N = 1,572,864, float32, dual) that is 0.72 GB, against
-// 1.9 GB that the unfused gather alone must move: it reads idx and bary,
-// 1.2 GB that the plain lattice first writes. What the design does about
-// those bytes: idx and bary stay in registers unless a backward needs them;
-// x (19-25 MB) is read once per level but stays in the 50 MB L2 across
-// levels; the grid is level-major
-// (blockIdx.y = level), so the blocks in flight share one level's 2 MB (4 MB
-// dual) of tables, which stay in L2. The dual kernel can read both tables of
-// a vertex with one load from a packed [L, C, 2F] copy (``PACKED``) instead of
-// one load from each table. The lattice arithmetic, ~250 instructions per
-// (level, sample), is far below the card's rate. What holds it above its
-// bound in practice: each vertex of a fine (hashed) level is a random row,
-// so every table read moves a whole 32-byte L2 sector for 8 (16 packed)
-// useful bytes, four per (level, sample) and table (PERF.md).
+// What bounds it on an H100 (PERF.md; ``python -m
+// pagnerf_tpu_torch.profile_encode --parts`` splits its time with two
+// ablations of this source and measures the ceilings): one of two things per
+// level. A coarse (direct) level's rows are few and neighbouring samples
+// share them, so its reads cost nothing: its time is the lattice's issue,
+// about 26 us a level at the render's N = 1,572,864. A fine (hashed) level
+// reads 4 random rows a sample, a 32-byte L2 sector each: the finest load
+// at 0.43-0.46 rows per SM per clock, the rate random 8- or 16-byte loads
+// from a buffer the L2 holds reach (0.40-0.42, however many are in flight).
+// Under a level-major grid the two bounds came one after the other, the
+// lattice 61% of the render's time. The grid now runs the levels in pairs, a
+// coarse one beside a fine one, whose blocks alternate (``block_work``), so
+// each SM overlaps one level's lattice with the other's waits on the L2, and
+// the blocks in flight still read only two levels' tables, which the 50 MB
+// L2 holds. With idx/bary (a training microbatch) the 41 bytes written per
+// (level, sample) add DRAM writes: 2.06 GB at N = 2,097,152, at least
+// 0.65 ms at the 3.16 TB/s the card writes at. Measured and left out: 2 or
+// 4 samples a thread with vector loads and stores (58-109 registers, fewer
+// warps, slower at every N), shared-memory staging of the direct levels
+// (their reads take no time), larger groups, other block sizes, streaming
+// stores (within the spread between runs). Tensor cores do not apply: el
+// must round as cuBLAS's float32 product does (``elevate``). The dual
+// kernel can read both tables of a vertex with one load from a packed
+// [L, C, 2F] copy (``PACKED``) instead of one load from each table.
 //
 // Exactness: the plain PyTorch lattice on the card (ops/permuto_encoding.py)
 // is the reference, and one ulp of el moves a weight by a quarter ulp, so
@@ -63,12 +71,21 @@ namespace {
 constexpr int kDim = 3;
 constexpr int kVerts = 4;
 constexpr int kThreads = 256;
+constexpr int kGroup = 2;  // levels whose blocks alternate (``block_work``)
 constexpr int kMaxLevels = 64;
 constexpr uint32_t kPrime1 = 2654435761u;  // _PRIMES[1]; _PRIMES[0] is 1
 constexpr uint32_t kPrime2 = 805459861u;   // _PRIMES[2]
 
+#ifndef PAGNERF_ENCODE_ABLATE
+#define PAGNERF_ENCODE_ABLATE 0
+#endif
+#if PAGNERF_ENCODE_ABLATE == 2
+__device__ const int32_t* g_lattice_idx;
+__device__ const float* g_lattice_bary;
+#endif
+
 // Per-level statics, passed by value (__grid_constant__: read in place from
-// the kernel's parameter space, indexed by blockIdx.y).
+// the kernel's parameter space, indexed by the block's level).
 struct Levels {
   float elev[kVerts][kDim];  // E, the elevation matrix, in float32
   float inv_scale[kMaxLevels];
@@ -76,6 +93,7 @@ struct Levels {
   int32_t dm[kMaxLevels];      // direct levels: key box width Dm = 2 Mm + 1
   int32_t direct[kMaxLevels];  // 1: index r*Dm^3 + flatten(m + Mm); 0: hash
   uint32_t hash_mask;          // capacity - 1
+  int32_t levels;
 };
 
 template <typename T>
@@ -258,7 +276,30 @@ __device__ __forceinline__ void simplex(const Levels& p, int l, const float (&x)
   }
 }
 
-// grid = (ceil(N / kThreads), L), level-major; one thread per (level, sample).
+// The (level, first sample) of a block. The grid is (kGroup gx, ceil(L /
+// kGroup)) for gx = ceil(N / kThreads): blockIdx.y picks a group of kGroup
+// levels in the order 0, L - 1, 1, L - 2, ... (a coarse level beside a fine
+// one) and the blocks of its levels alternate along x. The card starts
+// blocks in this order, so an SM holds blocks of both: those of the coarse
+// level keep the issue slots busy with the lattice while those of the fine
+// one wait on random rows from the L2; and the blocks in flight read two
+// levels' tables (4 MB, 8 MB packed), which stay in the L2. A last group of
+// one level (L odd) takes its chunks from x directly; its blocks past gx
+// start past N.
+__host__ __device__ __forceinline__ int level_at(int64_t k, int64_t levels) {
+  return static_cast<int>((k & 1) ? levels - 1 - (k >> 1) : (k >> 1));
+}
+
+__device__ __forceinline__ void block_work(int levels, int& l, int64_t& s0) {
+  const int q = blockIdx.y;
+  const bool full = levels - kGroup * q >= kGroup;
+  const unsigned j = blockIdx.x;
+  const int k = kGroup * q + (full ? static_cast<int>(j % kGroup) : 0);
+  l = level_at(k, levels);
+  s0 = static_cast<int64_t>(full ? j / kGroup : j) * kThreads;
+}
+
+// One thread per (level, sample), the blocks as ``block_work`` assigns them.
 // NT = 1: table_a alone. NT = 2: table_a and table_b, or with PACKED the
 // packed [L, C, 2F] rows (a's F entries, then b's) at table_a.
 template <typename T, int F, int NT, bool PACKED>
@@ -269,15 +310,26 @@ __global__ void __launch_bounds__(kThreads)
                           int32_t* __restrict__ idx_out, float* __restrict__ bary_out,
                           uint8_t* __restrict__ rank_out, int64_t capacity, int64_t n) {
   static_assert(!PACKED || NT == 2, "only the dual kernel reads packed rows");
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  int l;
+  int64_t s;
+  block_work(p.levels, l, s);
+  s += threadIdx.x;
   if (s >= n) return;
-  const int l = blockIdx.y;
 
   const float xs[kDim] = {__ldg(x + s), __ldg(x + n + s), __ldg(x + 2 * n + s)};
   int32_t idx[kVerts];
   float bary[kVerts];
   uint8_t rank_bits;
+#if PAGNERF_ENCODE_ABLATE == 2
+  // ablation: idx and bary from the arrays the plain lattice wrote
+  for (int v = 0; v < kVerts; ++v) {
+    idx[v] = g_lattice_idx[(static_cast<int64_t>(l) * kVerts + v) * n + s];
+    bary[v] = g_lattice_bary[(static_cast<int64_t>(l) * kVerts + v) * n + s];
+  }
+  rank_bits = static_cast<uint8_t>(xs[0] > 0.0f);
+#else
   simplex(p, l, xs, idx, bary, rank_bits);
+#endif
 
   const int64_t level_off = static_cast<int64_t>(l) * capacity;
   float acc[NT][F];
@@ -288,7 +340,12 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
   for (int v = 0; v < kVerts; ++v) {
+#if PAGNERF_ENCODE_ABLATE == 1
+    // ablation: vertex v reads row v, one 32-byte line for the whole warp
+    const int64_t row = level_off + v + (idx[v] & static_cast<int32_t>(capacity >> 32));
+#else
     const int64_t row = level_off + idx[v];
+#endif
     const float w = Elem<T>::weight(bary[v]);
     if constexpr (PACKED) {
       float feat[2 * F];
@@ -336,8 +393,8 @@ template <typename T, int F>
 cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* tb, void* oa,
                    void* ob, int32_t* idx, float* bary, uint8_t* rank, int64_t levels,
                    int64_t capacity, int64_t n, int64_t layout, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(levels));
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads * kGroup),
+                  static_cast<unsigned>((levels + kGroup - 1) / kGroup));
   const auto* a = static_cast<const T*>(ta);
   const auto* b = static_cast<const T*>(tb);
   auto* out_a = static_cast<T*>(oa);
@@ -403,7 +460,8 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
                                       void* stream) {
   if (levels <= 0 || levels > kMaxLevels || capacity <= 0 || capacity > (1LL << 31) ||
       (capacity & (capacity - 1)) != 0 || n <= 0 ||
-      (n + kThreads - 1) / kThreads > 2147483647LL || (idx == nullptr) != (bary == nullptr) ||
+      (n + kThreads - 1) / kThreads * kGroup > 2147483647LL ||
+      (idx == nullptr) != (bary == nullptr) ||
       (idx == nullptr) != (rank == nullptr) ||
       (dtype != 0 && dtype != 1) || layout < 1 || layout > 3)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -424,6 +482,7 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
     p.direct[l] = live ? direct[l] : 0;
   }
   p.hash_mask = static_cast<uint32_t>(capacity - 1);
+  p.levels = static_cast<int32_t>(levels);
 
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
@@ -439,3 +498,170 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
                                        levels, capacity, n, feat, layout, s);
   return static_cast<int>(err);
 }
+
+// The order in which the kernel runs the levels (``block_work``): order[k]
+// for k < levels, kGroup consecutive entries to a group. Returns kGroup.
+extern "C" int pagnerf_permuto_encode_level_order(int64_t levels, int32_t* order) {
+  for (int64_t k = 0; k < levels; ++k) order[k] = level_at(k, levels);
+  return kGroup;
+}
+
+#ifdef PAGNERF_ENCODE_PROFILE
+// Measurement aids, compiled only by ``python -m pagnerf_tpu_torch.profile_encode``
+// (-DPAGNERF_ENCODE_PROFILE): the kernel the paths run has none of this.
+
+// PAGNERF_ENCODE_ABLATE == 2 reads idx and bary [L, 4, N] from these arrays.
+extern "C" int pagnerf_encode_ablate_lattice(const void* idx, const void* bary) {
+#if PAGNERF_ENCODE_ABLATE == 2
+  const auto* i = static_cast<const int32_t*>(idx);
+  const auto* b = static_cast<const float*>(bary);
+  cudaError_t err = cudaMemcpyToSymbol(g_lattice_idx, &i, sizeof(i));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_lattice_bary, &b, sizeof(b));
+  return static_cast<int>(err);
+#else
+  (void)idx;
+  (void)bary;
+  return static_cast<int>(cudaErrorInvalidValue);
+#endif
+}
+
+namespace {
+
+__device__ __forceinline__ uint32_t mix(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7feb352du;
+  h ^= h >> 15;
+  h *= 0x846ca68bu;
+  return h ^ (h >> 16);
+}
+
+template <int BYTES>
+__device__ __forceinline__ uint32_t fold(const typename Vec<BYTES>::type& v);
+template <>
+__device__ __forceinline__ uint32_t fold<8>(const uint2& v) { return v.x ^ v.y; }
+template <>
+__device__ __forceinline__ uint32_t fold<16>(const uint4& v) { return v.x ^ v.y ^ v.z ^ v.w; }
+
+template <int BYTES>
+__device__ __forceinline__ typename Vec<BYTES>::type load_cg(const void* p);
+template <>
+__device__ __forceinline__ uint2 load_cg<8>(const void* p) {
+  return __ldcg(static_cast<const uint2*>(p));
+}
+template <>
+__device__ __forceinline__ uint4 load_cg<16>(const void* p) {
+  return __ldcg(static_cast<const uint4*>(p));
+}
+
+// K random rows of BYTES bytes per lane (rows a power of two), all K loads
+// issued before the first use. WHERE 0: global through L1 (__ldg); 1:
+// global, L2 only (__ldcg); 2: shared memory, filled from buf once per block
+// (a persistent grid-stride block).
+template <int BYTES, int K, int WHERE>
+__global__ void ceiling_kernel(const uint8_t* __restrict__ buf, uint32_t rows_mask, int64_t lanes,
+                               uint32_t* __restrict__ sink) {
+  using V = typename Vec<BYTES>::type;
+  extern __shared__ __align__(16) uint8_t smem[];
+  if constexpr (WHERE == 2) {
+    const int64_t bytes = (static_cast<int64_t>(rows_mask) + 1) * BYTES;
+    for (int64_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(buf)[i];
+    __syncthreads();
+  }
+  uint32_t acc = 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < lanes;
+       g += stride) {
+    V v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t row = mix(static_cast<uint32_t>(g) * K + k) & rows_mask;
+      if constexpr (WHERE == 0)
+        v[k] = __ldg(reinterpret_cast<const V*>(buf) + row);
+      else if constexpr (WHERE == 1)
+        v[k] = load_cg<BYTES>(reinterpret_cast<const V*>(buf) + row);
+      else
+        v[k] = reinterpret_cast<const V*>(smem)[row];
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc ^= fold<BYTES>(v[k]);
+  }
+  if (acc == 0x9e3779b9u) sink[0] = acc;  // keeps the loads; never true in practice
+}
+
+// One thread spins for ``cycles`` SM clocks; clocks[0] = the clocks counted,
+// clocks[1] = the global timer's nanoseconds meanwhile.
+__global__ void clock_kernel(long long cycles, long long* clocks) {
+  long long t0, t1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  const long long c0 = clock64();
+  long long c = c0;
+  while (c - c0 < cycles) c = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  clocks[0] = c - c0;
+  clocks[1] = t1 - t0;
+}
+
+template <int BYTES, int K>
+cudaError_t launch_ceiling(int where, const uint8_t* buf, uint32_t mask, int64_t lanes,
+                           uint32_t* sink, int blocks, int threads, int smem, cudaStream_t s) {
+  switch (where) {
+    case 0:
+      ceiling_kernel<BYTES, K, 0><<<blocks, threads, 0, s>>>(buf, mask, lanes, sink);
+      break;
+    case 1:
+      ceiling_kernel<BYTES, K, 1><<<blocks, threads, 0, s>>>(buf, mask, lanes, sink);
+      break;
+    case 2: {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ceiling_kernel<BYTES, K, 2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      ceiling_kernel<BYTES, K, 2><<<blocks, threads, smem, s>>>(buf, mask, lanes, sink);
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ``lanes`` x ``k`` random loads of ``row_bytes`` (8 or 16) bytes from the
+// first ``rows`` rows of buf (a power of two); where 0 global, 1 global
+// L2-only, 2 shared memory (rows * row_bytes <= 227 KB, persistent blocks of
+// 1024 threads, one per SM).
+extern "C" int pagnerf_encode_ceiling(const void* buf, int64_t rows, int64_t row_bytes,
+                                      int64_t lanes, int64_t k, int64_t where, void* sink,
+                                      void* stream) {
+  if (rows <= 0 || (rows & (rows - 1)) != 0 || lanes <= 0 || where < 0 || where > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  const int threads = where == 2 ? 1024 : 256;
+  const int blocks = where == 2 ? sms
+                                : static_cast<int>((lanes + threads - 1) / threads);
+  const int smem = where == 2 ? static_cast<int>(rows * row_bytes) : 0;
+  const auto* b = static_cast<const uint8_t*>(buf);
+  const auto mask = static_cast<uint32_t>(rows - 1);
+  auto* sk = static_cast<uint32_t*>(sink);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (row_bytes == 8 && k == 4)
+    err = launch_ceiling<8, 4>(static_cast<int>(where), b, mask, lanes, sk, blocks, threads, smem, s);
+  else if (row_bytes == 8 && k == 16)
+    err = launch_ceiling<8, 16>(static_cast<int>(where), b, mask, lanes, sk, blocks, threads, smem, s);
+  else if (row_bytes == 16 && k == 4)
+    err = launch_ceiling<16, 4>(static_cast<int>(where), b, mask, lanes, sk, blocks, threads, smem, s);
+  else if (row_bytes == 16 && k == 16)
+    err = launch_ceiling<16, 16>(static_cast<int>(where), b, mask, lanes, sk, blocks, threads, smem, s);
+  return static_cast<int>(err);
+}
+
+// The SM clock: one thread counts ``cycles`` clocks against the global timer.
+extern "C" int pagnerf_encode_clock(int64_t cycles, void* clocks, void* stream) {
+  clock_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(cycles,
+                                                              static_cast<long long*>(clocks));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // PAGNERF_ENCODE_PROFILE

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -386,6 +387,48 @@ def _encode_kernel():
     return fn
 
 
+def encode_level_order(levels: int):
+    """(group size, order) of the encode kernel's levels: the levels run in
+    groups of that many consecutive entries of ``order``, a group's blocks
+    alternating (``permuto_encode.cu::block_work``)."""
+    from . import _build
+    fn = _build.load("permuto_encode").pagnerf_permuto_encode_level_order
+    fn.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)]
+    fn.restype = ctypes.c_int
+    order = (ctypes.c_int32 * levels)()
+    group = fn(levels, order)
+    return group, list(order)
+
+
+# The one packed [L, C, 2F] copy of a dual encode's tables: (weak references
+# to the two tables, their keys at the copy, the copy).
+_packed_copy = None
+
+
+def _table_key(t: torch.Tensor):
+    return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device)
+
+
+def packed_tables(tables_a: torch.Tensor, tables_b: torch.Tensor) -> torch.Tensor:
+    """``torch.cat((tables_a, tables_b), dim=2)`` [L, C, 2F], the rows the
+    packed dual kernel reads with one load a vertex. One copy is kept and
+    returned again while both tables are the same tensors, unchanged: an
+    in-place update (the optimizer's ``add_``, a checkpoint's ``copy_``)
+    bumps a table's ``_version``, a new tensor fails the identity check,
+    and either rebuilds the copy. At most one copy lives at a time."""
+    global _packed_copy
+    keys = (_table_key(tables_a), _table_key(tables_b))
+    if _packed_copy is not None:
+        refs, old_keys, packed = _packed_copy
+        if (old_keys == keys and refs[0]() is tables_a and refs[1]() is tables_b):
+            return packed
+    _packed_copy = None                  # frees the old copy before the new one
+    with torch.no_grad():
+        packed = torch.cat((tables_a, tables_b), dim=2)
+    _packed_copy = ((weakref.ref(tables_a), weakref.ref(tables_b)), keys, packed)
+    return packed
+
+
 def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
                    st: LevelStatics, with_lattice: bool, packed: bool, kernel=None):
     """One launch of the encode kernel -> (outs, idx, bary, rank); idx, bary
@@ -408,7 +451,7 @@ def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
     if len(tables) == 1:
         layout, src = _LAYOUT_SINGLE, tables
     elif packed:
-        layout, src = _LAYOUT_PACKED, (torch.cat(tables, dim=2),)
+        layout, src = _LAYOUT_PACKED, (packed_tables(*tables),)
     else:
         layout, src = _LAYOUT_DUAL, tables
     as_c = lambda a, t: (t * len(a))(*a)
@@ -498,8 +541,8 @@ def fused_encode_dual(tables_a: torch.Tensor, tables_b: torch.Tensor,
     """Two same-spec table stacks at one shared lattice -> (out_a, out_b),
     each [L, F, N]; out_a is bit-equal to ``fused_encode(tables_a, ...)``.
     One launch (counted in ``.launches``) reads both tables of a vertex with
-    one load from a packed [L, C, 2F] copy made per call (faster than one
-    load from each table at every shape measured). CPU tensors take
+    one load from a packed [L, C, 2F] copy (``packed_tables``, rebuilt only
+    when a table changed). CPU tensors take
     ``dual_encode_plain``'s path. Differentiable in both tables and in the
     coordinates, whose gradient comes from the A side only."""
     st = _check_encode(coordsT, (tables_a, tables_b), scales)

@@ -21,11 +21,15 @@ JAX package, on the CPU.
   largest entry (1e-5 with the contrastive loss, whose 1 / 0.07 temperature
   scales the float32 rounding of the similarities, and for
   ``semantic_nerf_app``: there one entry of the trunk's second bias differs
-  by 1.5e-6, 1.5 times 1e-6 of the largest entry, in the first microbatch;
-  the trunk's backward alone agrees to 5e-10 on the same upstream
-  gradients, so the difference enters upstream of the trunk at one sample,
-  and at hidden width 32 or 24 steps the worst entry is at a tenth of the
-  1e-6 tolerance), the step's losses at atol 1e-5.
+  by 1.5e-6, 1.5 times 1e-6 of the largest entry, in the first microbatch.
+  XLA fuses the march's ``t0 + u * span`` and ``o + d * t`` into fused
+  multiply-adds, so sample coordinates lie 1-2 ulp from the port's, and
+  the positional embedding's 2^9 frequency makes that up to 6.4e-5 in the
+  first layer; at sample 313 the second layer's unit 12 sits at -1.4e-6 in
+  JAX and +1.7e-5 here, its ReLU derivative flips, and the bias entry
+  takes that sample's gradient on one side only. At hidden width 32 or 24
+  steps the worst entry is at a tenth of the 1e-6 tolerance), the step's
+  losses at atol 1e-5.
 - ``maybe_upsample_tensorf`` against the JAX trainer's on a tiny TensoRF
   run (``PanopticLiftingNeF`` over ``--grid-type TensoRF``), after one step
   of both and on the JAX trainer's parameters: the resized factors at atol

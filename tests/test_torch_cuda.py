@@ -473,6 +473,131 @@ def test_encode_kernel_matches_plain_at_the_bup20_validation_n(dev, n):
     _assert_encode_matches_plain(spec, x, ta, tb, torch.float32, False)
 
 
+# ------------------------------------------ every layout, tail and level count
+def _launch_into(x, tables, st, lattice, layout, offset):
+    """The C entry with outputs (and idx/bary/rank) that start ``offset``
+    elements into their buffers: (outs, idx, bary, rank)."""
+    import ctypes
+    l, c, f = tables[0].shape
+    n = x.shape[1]
+
+    def alloc(shape, dt):
+        return torch.empty(int(np.prod(shape)) + offset, dtype=dt,
+                           device=x.device)[offset:].view(shape)
+    outs = [alloc((l, f, n), tables[0].dtype) for _ in (tables if layout == 1 else (0, 1))]
+    idx = bary = rank = None
+    if lattice:
+        idx, bary = alloc((l, 4, n), torch.int32), alloc((l, 4, n), torch.float32)
+        rank = alloc((l, n), torch.uint8)
+    src = (pe.packed_tables(*tables),) if layout == 3 else tables
+    as_c = lambda a, t: (t * len(a))(*a)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = pe._encode_kernel()(
+        x.data_ptr(), src[0].data_ptr(), src[-1].data_ptr(), outs[0].data_ptr(),
+        outs[-1].data_ptr(), ptr(idx), ptr(bary), ptr(rank),
+        as_c(np.asarray(pe._E, dtype=np.float32).reshape(-1), ctypes.c_float),
+        as_c(st.inv_scales, ctypes.c_float), as_c(st.mm, ctypes.c_int32),
+        as_c(st.dm, ctypes.c_int32), as_c(st.direct.astype(np.int32), ctypes.c_int32),
+        l, c, n, f, layout, tg._DTYPE_CODE[tables[0].dtype], tg._stream(x.device))
+    assert err == 0
+    return outs, idx, bary, rank
+
+
+def _assert_every_layout_matches_plain(spec, x, ta, tb, dtype, offset=0):
+    """Single, packed dual and dual with two loads, each without and with
+    idx/bary, against the plain lattice and gathers (the boundary rule and
+    per-level bounds of ``_assert_encode_matches_plain``); every run's
+    outputs and lattice bit-equal to the others', the rank the one of
+    ``elevate_as_kernel``'s el."""
+    from pagnerf_tpu_torch.profile_encode import kernel_order_rank
+    st = pe.level_statics(spec.scales, spec.capacity, spec.feature_dim)
+    idx_p, bary_p = pe.lattice(ta, x, spec.scales)
+    ulps = _el_ulps(spec, x)
+    pa, pb = tg.dual_gather_plain(ta, tb, idx_p, bary_p.to(dtype))
+    tols = _encode_tol(ulps, (ta, tb), torch.stack([pa, pb]).float().abs().amax(0), dtype)
+    first = lat = None
+    for layout, tables in ((1, (ta,)), (3, (ta, tb)), (2, (ta, tb))):
+        for lattice in (False, True):
+            outs, idx, bary, rank = _launch_into(x, tables, st, lattice, layout, offset)
+            torch.cuda.synchronize()
+            for got, want in zip(outs, (pa, pb)):
+                assert got.dtype == dtype and got.shape == want.shape
+                for lv, tol in enumerate(tols):
+                    assert float((got[lv].float() - want[lv].float()).abs().max()) <= tol, lv
+            first = outs[0] if first is None else first
+            assert torch.equal(outs[0], first)
+            if lattice:
+                bad = idx != idx_p
+                for lv, ulp in enumerate(ulps):
+                    assert bool((bary_p[lv][bad[lv]].abs() <= ulp).all()), lv
+                assert torch.equal(rank, kernel_order_rank(x, st.inv_scales))
+                lat = lat or (idx, bary, rank)
+                assert all(torch.equal(a, b) for a, b in zip(lat, (idx, bary, rank)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 3, 255, 4096, 4097, 4098, 4099, 65537])
+def test_encode_every_layout_at_each_tail(dev, dtype, f, n):
+    """N of every residue mod 4 and N below, at and above a block (256)."""
+    _assert_every_layout_matches_plain(*_encode_case(dev, f, n, dtype), dtype)
+
+
+@pytest.mark.parametrize("levels", [1, 24, 64])
+def test_encode_every_layout_at_each_level_count(dev, levels):
+    """One level (a group of one), an even count and the most the kernel
+    takes: every level's blocks run once, in the kernel's level order."""
+    spec, x, ta, tb = _encode_case(dev, 2, 4099, torch.float32, levels=levels, log2_c=14,
+                                   finest=1e-4 if levels > 1 else 0.5)
+    _assert_every_layout_matches_plain(spec, x, ta, tb, torch.float32)
+    group, order = pe.encode_level_order(levels)
+    assert group == 2 and sorted(order) == list(range(levels))
+
+
+@pytest.mark.parametrize("levels", [5, 7])
+def test_encode_odd_level_counts(dev, levels):
+    """An odd count leaves the last group with one level."""
+    spec, x, ta, tb = _encode_case(dev, 1, 3000, torch.float32, levels=levels)
+    _assert_every_layout_matches_plain(spec, x, ta, tb, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_outputs_at_any_offset_bit_equal(dev, dtype):
+    """Outputs that start one element into their buffers hold what outputs
+    at the allocator's alignment hold, bit for bit."""
+    spec, x, ta, tb = _encode_case(dev, 2, 8192, dtype, levels=24, log2_c=14)
+    st = pe.level_statics(spec.scales, spec.capacity, 2)
+    _assert_every_layout_matches_plain(spec, x, ta, tb, dtype, offset=1)
+    for layout, tables in ((1, (ta,)), (3, (ta, tb)), (2, (ta, tb))):
+        aligned = _launch_into(x, tables, st, True, layout, 0)
+        shifted = _launch_into(x, tables, st, True, layout, 1)
+        assert all(torch.equal(a, b) for a, b in zip(aligned[0], shifted[0]))
+        assert all(torch.equal(a, b) for a, b in zip(aligned[1:], shifted[1:]))
+
+
+# The direct level with the most reachable rows that 227 KB of shared memory
+# would hold as 8-byte rows (4 Dm^3 <= 29,056: Dm = 19, scale 0.22 at C = 2^18),
+# and a schedule without a direct level (C = 2^8 holds none)
+FIT_SCHEDULES = {"largest_direct_level_that_would_fit": (2 ** 18, 1.0, 0.22),
+                 "no_direct_level": (2 ** 8, 0.1, 1e-4)}
+
+
+@pytest.mark.parametrize("schedule", list(FIT_SCHEDULES))
+def test_encode_direct_level_schedules(dev, schedule):
+    c, coarsest, finest = FIT_SCHEDULES[schedule]
+    st = pe.level_statics(np.geomspace(coarsest, finest, 6), c, 2)
+    if schedule == "no_direct_level":
+        assert not st.direct.any()
+    else:
+        rows = [4 * int(d) ** 3 for d, dr in zip(st.dm, st.direct) if dr]
+        assert max(rows) * 8 <= 232448 < 4 * (max(st.dm[st.direct]) + 2) ** 3 * 8
+    spec = pe.PermutoEncodingSpec(6, 2, int(np.log2(c)), coarsest, finest)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.rand((3, 20000), generator=g, device=dev) * 2 - 1).contiguous()
+    ta, tb = (torch.randn((6, c, 2), generator=g, device=dev) for _ in range(2))
+    _assert_every_layout_matches_plain(spec, x, ta, tb, torch.float32)
+
+
 def test_encode_backward_on_the_forward_simplex_at_the_tuned_n(dev):
     from pagnerf_tpu_torch.profile_encode import backward_rank_check
     spec, x, ta, _ = _encode_case(dev, 2, TUNED_N, torch.float32, levels=24, log2_c=18,

@@ -258,3 +258,69 @@ def test_rank_kept_for_the_backward_is_the_lattice_rank():
         pe_t._rank_and_el(xx.detach() * torch.tensor(s))[2] for s in inv]))
     assert torch.equal(pe_t._lattice_levels_dx(xx.detach(), inv, dbary, rank),
                        pe_t._lattice_levels_dx(xx.detach(), inv, dbary, recomputed))
+
+
+# ------------------------------------------------- the dual encode's packed copy
+def _packed_case():
+    g = torch.Generator().manual_seed(11)
+    a = torch.randn((3, 64, 2), generator=g).requires_grad_()
+    b = torch.randn((3, 64, 2), generator=g).requires_grad_()
+    return a, b
+
+
+def _change(how, a, b):
+    """Change table a or b in place as a path does, or hand in a new one."""
+    if how == "add_a":
+        with torch.no_grad():
+            a.add_(0.5)                     # the optimizer's update
+    elif how == "add_b":
+        with torch.no_grad():
+            b.add_(-0.25)
+    elif how == "copy_b":
+        with torch.no_grad():
+            b.copy_(torch.ones_like(b))     # a checkpoint's restore
+    elif how == "optimizer_a":
+        a.grad = torch.ones_like(a)
+        torch.optim.SGD([a], lr=0.1).step()
+    elif how == "new_b":
+        b = b.detach().clone() * 3          # same shape and dtype, another tensor
+    return a, b
+
+
+def test_packed_tables_kept_while_the_tables_are_unchanged():
+    a, b = _packed_case()
+    first = pe_t.packed_tables(a, b)
+    assert torch.equal(first, torch.cat((a, b), dim=2)) and not first.requires_grad
+    assert pe_t.packed_tables(a, b) is first
+    with torch.no_grad():
+        _ = a * 2                           # reads do not rebuild
+    assert pe_t.packed_tables(a, b) is first
+
+
+@pytest.mark.parametrize("how", ["add_a", "add_b", "copy_b", "optimizer_a", "new_b"])
+def test_packed_tables_rebuilt_after_a_change(how):
+    a, b = _packed_case()
+    first = pe_t.packed_tables(a, b)
+    a, b = _change(how, a, b)
+    again = pe_t.packed_tables(a, b)
+    assert again is not first
+    assert torch.equal(again, torch.cat((a.detach(), b.detach()), dim=2))
+    assert pe_t.packed_tables(a, b) is again
+    # one copy at most: the first is no longer held
+    assert pe_t._packed_copy[2] is again
+
+
+def test_packed_tables_rebuilt_for_a_new_tensor_at_a_freed_address():
+    """A table freed and another allocated in its place (the same address,
+    version 0, as a bfloat16 cast per call may be) is not taken for the
+    first: the copy holds only weak references, checked by identity."""
+    a, b = _packed_case()
+    b16 = b.detach().to(torch.bfloat16)
+    a16 = a.detach().to(torch.bfloat16)
+    first = pe_t.packed_tables(a16, b16).clone()
+    del a16
+    a16 = (a.detach() * 2).to(torch.bfloat16)
+    got = pe_t.packed_tables(a16, b16)
+    assert torch.equal(got, torch.cat((a16, b16), dim=2))
+    assert not torch.equal(got, first)
+    assert pe_t._packed_copy[0][0]() is a16
