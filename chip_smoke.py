@@ -205,9 +205,10 @@ Phases, each printing one JSON line as it ends:
    path's own idx, bary, cotangents and tables at each N the path gave it
    (the gathers single and dual, also at the validation chunks' N without
    a gradient; the scatters single and dual with the path's per-level
-   modes, and each level's scatter under each mode; dbary) against its
-   plain version, with times, bounds and ``embedding_bag`` /
-   ``index_add_`` beside them.
+   modes (GLOBAL, then the window merge), timed in turns with the previous
+   per-level plan on the same tensors, and each level's scatter under each
+   mode; dbary) against its plain version, with times, bounds and
+   ``embedding_bag`` / ``index_add_`` beside them.
 
 Then the ``{"kernels": [...]}`` line (the V = 4 kernels, then the V = 8
 rows ``hash_*``), the ``nvidia-smi`` name/power line, and last ``{"ok":
@@ -2512,13 +2513,18 @@ def hash_kernel_checks(calls, resolutions, dev, flush):
     path's cotangents and, same-signed, their magnitudes; the dual's second
     cotangent random; 64 eps_f32 of each entry's sum of |bary * g|) with the
     path's modes; dbary (4 eps_f32 of sum_f |g * T|); and each level's
-    scatter under each accumulation mode (CUDA events).
-    ``embedding_bag`` is the gather's library call, ``index_add_`` the
-    scatter's. Returns (checks, times) keyed by kernel name and then N."""
+    scatter under each accumulation mode (CUDA events). Beside the scatter's
+    times, the previous design's (the per-level SHARED / GLOBAL / FLOAT plan
+    whose fine levels the window mode took over; its kernels stay) on the
+    same tensors in turns with the path's (previous, path, path, previous).
+    ``embedding_bag`` is the gather's library call,
+    ``index_add_`` the scatter's. Returns (checks, times) keyed by kernel
+    name and then N."""
     import torch
     import torch.nn.functional as F
 
     from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.profile_hash_scatter import previous_hash_modes
 
     gen = torch.Generator(device=dev).manual_seed(13)
     checks, times = {}, {}
@@ -2587,33 +2593,42 @@ def hash_kernel_checks(calls, resolutions, dev, flush):
             worst[label], errs[label] = w_, e_
             del got
         rows = tg._flat_rows(idx, c)
+        prev = previous_hash_modes(resolutions)
         for name, gs in (("hash_table_grad_single", (g,)), ("hash_table_grad_dual", (g, g_b))):
             vals = torch.cat([(bary[..., None] * g_.permute(0, 2, 1)[:, None]).reshape(-1, f)
                               for g_ in gs], dim=1)
             if len(gs) == 1:
-                kern = lambda: tg.multilevel_table_grad(idx, bary, g, c, modes=modes)
+                kern = lambda m=modes: tg.multilevel_table_grad(idx, bary, g, c, modes=m)
                 plain = lambda: tg.table_grad_plain(idx, bary, g, c)
             else:
-                kern = lambda: tg.dual_multilevel_table_grad(idx, bary, g, g_b, c, modes=modes)
+                kern = lambda m=modes: tg.dual_multilevel_table_grad(idx, bary, g, g_b, c,
+                                                                      modes=m)
                 plain = lambda: tg.dual_table_grad_plain(idx, bary, g, g_b, c)
             lib = lambda: torch.zeros((l * c, vals.shape[1]), device=dev).index_add_(0, rows, vals)
             bound_ms, bound_by, _, _ = scatter_bound(l, c, f, n, len(gs), v=8)
             w_ = max(worst["path"], worst["same_signed"]) if len(gs) == 1 else worst["dual"]
             e_ = errs["path"] if len(gs) == 1 else errs["dual"]
+            turns = {"previous": [], "path": []}
+            for which in ("previous", "path", "path", "previous"):
+                turns[which].append(cuda_ms(lambda: kern(prev if which == "previous"
+                                                         else modes), flush=flush))
             put(name, n, dict(N=n, worst_err_over_tol=w_, worst_by_cotangent=dict(worst),
                               tol="64 eps_f32 * sum|bary*g| per entry", modes=list(modes),
                               ok=w_ <= 1.0),
-                dict(max_abs_err=e_, worst_err_over_tol=w_, ms=cuda_ms(kern, flush=flush),
+                dict(max_abs_err=e_, worst_err_over_tol=w_, ms=statistics.mean(turns["path"]),
                      plain_ms=cuda_ms(plain, reps=5, flush=flush),
                      library_ms=cuda_ms(lib, reps=5, flush=flush),
-                     bound_ms=bound_ms, bound_by=bound_by))
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     previous_design=dict(modes=list(prev),
+                                          ms=statistics.mean(turns["previous"]),
+                                          turns_ms=turns)))
             del vals
         del rows
         # each level alone under each accumulation mode (CUDA events around
         # the call: its memset, event and finishing kernels)
         per_level = {}
         for mode_name, mode in (("shared", tg.SHARED), ("global", tg.GLOBAL),
-                                ("float", tg.FLOAT)):
+                                ("float", tg.FLOAT), ("window", tg.WINDOW)):
             per_level[mode_name] = [cuda_ms(lambda lv=lv: tg.multilevel_table_grad(
                 idx[lv:lv + 1], bary[lv:lv + 1], g[lv:lv + 1], c, modes=(mode,)))
                 for lv in range(l)]
@@ -2919,6 +2934,9 @@ def hash_kernel_rows(slice_paths, hash_times, sources):
             row["validation"] = hash_times[name + "_val"]
         if "per_level_ms" in r:
             row["per_level_ms"] = r["per_level_ms"]
+        if "previous_design" in r:
+            row["redesigned"] = "window mode on the fine levels"
+            row["previous_design"] = r["previous_design"]
         rows.append(row)
     return rows
 

@@ -36,6 +36,9 @@
 // width: on a fine hashed level every event goes to a row of its own, so
 // the design spends one vector atomic per event there (two for the dual
 // scatter) and merges events wherever rows repeat (PERF.md has the rates).
+// On the hash grid (V = 8), a sample's 8 voxel corners share 4 with the
+// next sample's voxel when a ray crosses a face, in other vertex slots, so
+// the window levels merge equal rows across slots before any atomic.
 //
 // Accuracy contract of the table-gradient scatter: each entry within
 // 64 eps_f32 (= 128 u, u = 2^-24) of its sum of |bary * g| to the plain
@@ -70,6 +73,15 @@
 //   in float64, and the finishing pass rounds it once. The redo costs one
 //   more read of the level's events and is skipped where no row overflowed
 //   (its warp runs are summed in float32 too: the kShared bound).
+// - kWindow (the hash grid's fine levels): the window merge ("Window
+//   levels") into kFloat's float32 rows, in float32 throughout. At V = 8 a
+//   flushed sum is a chain of at most kSeg = 8 addends merged over at most
+//   32 lanes, within gamma_12 of its sum|x|, and each flush adds 9/8 to the
+//   row's count (kFlushCount): a row whose count stays within kMaxAddends
+//   took at most 106 flushes and is within (12 + 105) u sum|x| of exact,
+//   under 118 u sum|x| with the plain version's rounding. At V = 4 each
+//   flush adds its nonzero addends, the kFloat argument as it stands. Any
+//   other row is redone in float64, as for kFloat.
 //
 // Atomic contention. Samples are laid out ray-major, so neighbouring lanes of
 // a warp are neighbouring samples of one ray and, on a coarse level, mostly
@@ -101,15 +113,19 @@ constexpr float kMaxAddends = 120.0f;   // float32 rows beyond this are summed a
 
 enum Mode : int32_t { kShared = 0, kFloat = 1, kGlobal = 2 };
 constexpr int kModes = 3;
+// The caller's fourth mode: the window accumulation ("Window levels") into
+// kFloat's float32 rows.
+constexpr int32_t kWindow = 3;
 
 // Per-level plan, built on the host from the caller's modes and live rows.
 struct LevelPlan {
-  int32_t mode[kMaxLevels];    // kShared, kFloat or kGlobal
+  int32_t mode[kMaxLevels];    // kShared, kFloat or kGlobal: the accumulator
   int32_t rows[kMaxLevels];    // live rows: events at rows >= rows are dropped
   int64_t offset[kMaxLevels];  // first row of the level in its accumulator
   int32_t order[kMaxLevels];   // the levels grouped by mode
   int32_t first[kModes];       // where each mode's levels start in order
-  int32_t count[kModes];       // and how many there are
+  int32_t count[kModes];       // and how many there are,
+  int32_t windowed;            // of which the last kFloat ones are kWindow levels
 };
 
 // One aligned vector load of F floats through the read-only path.
@@ -389,6 +405,308 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
+// ------------------------------------------------------------ window levels
+// grid = (ceil(N / span), kWindow levels). Each thread takes kSeg
+// consecutive samples of one level (a ray-major run, so neighbouring
+// samples lie in one voxel or in two that share corners, in other vertex
+// slots) and keeps in registers a window: the last sample's V rows with
+// their float32 sums of bary * g and nonzero addends. The next sample's
+// events add into the window entries of equal rows, whatever their slot;
+// an entry it does not continue goes out, and at the segment's end the
+// whole window does, after a warp merge of equal rows in equal slots over
+// consecutive lanes (consecutive segments). Out means one vector atomic
+// into kFloat's float32 rows with a count (FloatRow, kFlushCount). A thread
+// reads its kSeg samples as kSeg / kGroup 16-byte vectors of each array
+// (where N is a multiple of kGroup and the pointers are aligned; else a
+// sample at a time), lanes kSeg samples apart: a warp's two vectors cover
+// whole 32-byte sectors, the second from L1. What bounds it (PERF.md): its
+// reads run at the byte bound, its per-sample work adds ~10%, and its
+// atomics add their own time at the L2's atomic rate, not overlapped with
+// the reads.
+#ifndef PAGNERF_SCATTER_SEG  // profile_hash_scatter --variant builds other lengths
+#define PAGNERF_SCATTER_SEG 8
+#endif
+constexpr int kSeg = PAGNERF_SCATTER_SEG;  // consecutive samples a thread takes
+constexpr int kGroup = 4;                  // samples per vector load
+constexpr int kSegSpan = kSeg * kThreads;  // samples a block takes per step
+constexpr int kWindowSteps = 4;            // steps per block
+
+// A measurement aid for ``profile_hash_scatter --variant`` (the package's
+// build never defines it): PAGNERF_SCATTER_ABLATE 1 drops the window
+// kernel's atomics, 2 also its per-sample work (reads only).
+#ifndef PAGNERF_SCATTER_ABLATE
+#define PAGNERF_SCATTER_ABLATE 0
+#endif
+
+// Events of kGroup consecutive samples s, s + 1, ... of level l; samples at
+// or beyond n have row 0 and zero weights and cotangents (they add nothing).
+template <int F, int NT, int V>
+struct Group {
+  int key[V][kGroup];
+  float w[V][kGroup];
+  float g[NT][F][kGroup];
+};
+
+template <int F, int NT, int V>
+__device__ __forceinline__ void load_group(const int32_t* __restrict__ idx,
+                                           const float* __restrict__ bary,
+                                           const float* __restrict__ g_a,
+                                           const float* __restrict__ g_b, int64_t l, int64_t n,
+                                           int64_t s, bool vec, Group<F, NT, V>& t) {
+  if (vec && s + kGroup <= n) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int64_t e = (l * V + v) * n + s;
+      const int4 k = __ldg(reinterpret_cast<const int4*>(idx + e));
+      const float4 w = __ldg(reinterpret_cast<const float4*>(bary + e));
+      t.key[v][0] = k.x, t.key[v][1] = k.y, t.key[v][2] = k.z, t.key[v][3] = k.w;
+      t.w[v][0] = w.x, t.w[v][1] = w.y, t.w[v][2] = w.z, t.w[v][3] = w.w;
+    }
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>((k == 0 ? g_a : g_b) +
+                                                                 (l * F + f) * n + s));
+        t.g[k][f][0] = x.x, t.g[k][f][1] = x.y, t.g[k][f][2] = x.z, t.g[k][f][3] = x.w;
+      }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    const bool active = s + j < n;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int64_t e = (l * V + v) * n + s + j;
+      t.key[v][j] = active ? __ldg(idx + e) : 0;
+      t.w[v][j] = active ? __ldg(bary + e) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        t.g[k][f][j] = active ? __ldg((k == 0 ? g_a : g_b) + (l * F + f) * n + s + j) : 0.0f;
+  }
+}
+
+// Shift the group's samples down one slot (slot 0 takes slot 1's, ...).
+template <int F, int NT, int V>
+__device__ __forceinline__ void next_sample(Group<F, NT, V>& t) {
+#pragma unroll
+  for (int j = 0; j + 1 < kGroup; ++j) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      t.key[v][j] = t.key[v][j + 1];
+      t.w[v][j] = t.w[v][j + 1];
+    }
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int f = 0; f < F; ++f) t.g[k][f][j] = t.g[k][f][j + 1];
+  }
+}
+
+// The shift between the voxels of two consecutive samples, as the XOR d of
+// their corner slots: corner u of the new voxel is corner u ^ d of the old
+// one where both are the same lattice point (the hash grid's corners are in
+// zyx bit order, so crossing a face flips one bit). For each of the 26
+// neighbouring voxels one representative pair is tested (corner u with its
+// uncrossed bits 0); the first whose rows agree, by d, gives d; 0 if none
+// does (no corner shared, or the same voxel).
+__device__ __forceinline__ int voxel_shift(const int (&nk)[8], const int (&wk)[8]) {
+  int d = 0;
+#pragma unroll
+  for (int dd = 7; dd >= 1; --dd)  // the last assignment is the first match
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if ((u & ~dd) == 0 && nk[u] >= 0 && nk[u] == wk[u ^ dd]) d = dd;
+  return d;
+}
+
+// Swap slot u with slot u ^ bit of the window where the bit is set in d.
+template <int K>
+__device__ __forceinline__ void window_swap(int bit, bool on, int (&wk)[8], float (&ws)[8][K]) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    if (u & bit) continue;
+    const int a = wk[u], b = wk[u | bit];
+    wk[u] = on ? b : a;
+    wk[u | bit] = on ? a : b;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const float x = ws[u][c], y = ws[u | bit][c];
+      ws[u][c] = on ? y : x;
+      ws[u | bit][c] = on ? x : y;
+    }
+  }
+}
+
+// The group's first sample against the window (wk, ws): the sample's
+// events in nk (its rows; -1 dropped) and ns (its float32 products as the
+// plain version forms them, then the nonzero-addend count in ns[.][S]).
+// Each event takes the sums of the window entry at its row; the entries
+// none took go to emit(row, sums); the sample's events become the window.
+// At V = 8 the window is first permuted by the voxel shift, so the entry an
+// event continues sits in its own slot; at other V each event looks at
+// every entry not yet taken.
+template <int F, int NT, int V, int K, typename Emit>
+__device__ __forceinline__ void window_sample(const Group<F, NT, V>& t, int rows, int (&wk)[V],
+                                              float (&ws)[V][K], Emit&& emit) {
+  constexpr int j = 0;
+  constexpr int S = NT * F;
+  int nk[V];
+  float ns[V][K];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    nk[u] = t.key[u][j] < rows ? t.key[u][j] : -1;
+    bool nz = false;
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float p = t.w[u][j] * t.g[k][f][j];
+        ns[u][k * F + f] = nk[u] >= 0 ? p : 0.0f;
+        nz |= p != 0.0f;
+      }
+    ns[u][S] = nk[u] >= 0 && nz ? 1.0f : 0.0f;
+  }
+  unsigned taken = 0;  // bit v: window entry v continues
+  if constexpr (V == 8) {
+    unsigned same = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) same |= (nk[u] >= 0 && nk[u] == wk[u]) ? 1u << u : 0u;
+    if (same == 0) {
+      const int d = voxel_shift(nk, wk);
+      if (d != 0) {
+        window_swap<K>(1, d & 1, wk, ws);
+        window_swap<K>(2, d & 2, wk, ws);
+        window_swap<K>(4, d & 4, wk, ws);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const bool m = nk[u] >= 0 && nk[u] == wk[u];
+      taken |= m ? 1u << u : 0u;
+#pragma unroll
+      for (int c = 0; c < K; ++c) ns[u][c] += m ? ws[u][c] : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const bool m = !(taken >> v & 1u) && nk[u] >= 0 && wk[v] == nk[u];
+        taken |= m ? 1u << v : 0u;
+#pragma unroll
+        for (int c = 0; c < K; ++c) ns[u][c] += m ? ws[v][c] : 0.0f;
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (!(taken >> v & 1u) && wk[v] >= 0) emit(wk[v], ws[v]);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    wk[v] = nk[v];
+#pragma unroll
+    for (int c = 0; c < K; ++c) ws[v][c] = ns[v][c];
+  }
+}
+
+// Count a flush adds to a float32 row at V = 8: a flushed sum there is a
+// chain of at most kSeg = 8 float32 addends (depth 7) merged over at most
+// 32 lanes (depth 5 more), within gamma_12 sum|x| of exact, so a row is
+// held to its bound by its number of flushes m: within (12 + m - 1) u
+// sum|x| of exact. Each adds 9/8, so a count of at most kMaxAddends = 120
+// means m <= 106 and, with the plain version's rounding, under 118 u
+// sum|x| (for any kSeg up to 17: (kSeg + 4) + 105 + 1 <= 127). At other V
+// a flush adds its nonzero addends, as kFloat does.
+constexpr float kFlushCount = 1.125f;
+static_assert(kSeg + 4 + 106 <= 127, "the flush count's bound holds for kSeg <= 17");
+
+// span is a multiple of kSegSpan.
+template <int F, int NT, int V>
+__global__ void __launch_bounds__(kThreads)
+    window_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ bary,
+                       const float* __restrict__ g_a, const float* __restrict__ g_b,
+                       float* __restrict__ acc32, float* __restrict__ counts,
+                       const LevelPlan plan, int64_t n, int64_t span, bool vec) {
+  using Row = FloatRow<F, NT>;
+  constexpr int S = NT * F;
+  constexpr int K = S + 1;
+  constexpr int kQ = kSeg / kGroup;  // groups a segment
+  const int l = plan.order[plan.first[kFloat] + plan.count[kFloat] - plan.windowed + blockIdx.y];
+  const int rows = plan.rows[l];
+  const int64_t off = plan.offset[l];
+  const int lane = threadIdx.x & 31;
+
+  unsigned sink = 0;  // what an ablation keeps alive
+  auto out = [&](int key, const float (&s)[K]) {
+    if constexpr (PAGNERF_SCATTER_ABLATE != 0) {
+      sink ^= static_cast<unsigned>(key) ^ __float_as_uint(s[0]);
+      return;
+    }
+    if (s[S] == 0.0f) return;  // no nonzero addend
+    if constexpr (V == 8) {
+      float c[K];
+#pragma unroll
+      for (int k = 0; k < S; ++k) c[k] = s[k];
+      c[S] = kFlushCount;
+      Row::add(acc32, counts, off + key, c);
+    } else {
+      Row::add(acc32, counts, off + key, s);
+    }
+  };
+
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * span;
+  const int64_t end = begin + span < n ? begin + span : n;
+  const int groups = static_cast<int>((end - begin + kSegSpan - 1) / kSegSpan) * kQ;
+  auto start = [&](int gi) {  // first sample of this thread's group gi
+    return begin + static_cast<int64_t>(gi / kQ) * kSegSpan +
+           static_cast<int64_t>(threadIdx.x) * kSeg + (gi % kQ) * kGroup;
+  };
+  int wk[V];
+  float ws[V][K];
+#pragma unroll 1
+  for (int gi = 0; gi < groups; ++gi) {
+    if (gi % kQ == 0) {  // a new segment: an empty window
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        wk[v] = -1;
+#pragma unroll
+        for (int c = 0; c < K; ++c) ws[v][c] = 0.0f;
+      }
+    }
+    Group<F, NT, V> t;
+    load_group<F, NT, V>(idx, bary, g_a, g_b, l, n, start(gi), vec, t);
+    if constexpr (PAGNERF_SCATTER_ABLATE == 2) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) sink ^= t.key[v][j] ^ __float_as_uint(t.w[v][j]);
+#pragma unroll
+        for (int k = 0; k < NT; ++k)
+#pragma unroll
+          for (int f = 0; f < F; ++f) sink ^= __float_as_uint(t.g[k][f][j]);
+      }
+      continue;
+    }
+    // one copy of the sample's code, each sample moved to slot 0 in turn
+#pragma unroll 1
+    for (int j = 0; j < kGroup; ++j) {
+      window_sample<F, NT, V, K>(t, rows, wk, ws, out);
+      next_sample(t);
+    }
+    if (gi % kQ != kQ - 1) continue;
+    // the segment's end: the window out, equal rows of consecutive lanes at
+    // one slot merged first
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (merge_runs<float, K>(wk[v], ws[v], lane) && wk[v] >= 0) out(wk[v], ws[v]);
+  }
+  if (PAGNERF_SCATTER_ABLATE != 0 && sink == 0x9e3779b9u) acc32[0] = 0.0f;
+}
+
 // ------------------------------------------------------------ finishing passes
 // grid = (blocks, L): every entry of the float32 gradients is written here.
 // kShared and kGlobal rows round their float64 sums; kFloat rows of at most
@@ -646,6 +964,8 @@ dim3 grid_of(int64_t levels, int64_t n) {
 
 int64_t align_up(int64_t bytes) { return (bytes + 255) / 256 * 256; }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // Scratch carved from one buffer: [acc64 | acc32 | counts | flags] are
 // zero-filled, then [redo] is not (the finishing pass zeroes the rows the
 // redo pass uses).
@@ -672,26 +992,32 @@ Scratch scratch_layout(const LevelPlan& plan, int64_t levels, int64_t feat, int6
 }
 
 // Fill a plan from the caller's per-level modes and live rows; false if one
-// is out of range.
+// is out of range. kWindow levels take kFloat's rows and come last among
+// its levels.
 bool make_plan(const int32_t* modes, const int32_t* rows, int64_t levels, int64_t capacity,
                LevelPlan* plan) {
   if (levels > kMaxLevels) return false;
   int64_t off64 = 0, off32 = 0;
   for (int64_t l = 0; l < levels; ++l) {
-    if (modes[l] != kShared && modes[l] != kFloat && modes[l] != kGlobal) return false;
+    if (modes[l] < kShared || modes[l] > kWindow) return false;
     if (rows[l] <= 0 || rows[l] > capacity) return false;
-    plan->mode[l] = modes[l];
+    const int32_t acc = modes[l] == kWindow ? kFloat : modes[l];
+    plan->mode[l] = acc;
     plan->rows[l] = rows[l];
-    plan->offset[l] = modes[l] == kFloat ? off32 : off64;
-    (modes[l] == kFloat ? off32 : off64) += rows[l];
+    plan->offset[l] = acc == kFloat ? off32 : off64;
+    (acc == kFloat ? off32 : off64) += rows[l];
   }
   int k = 0;
   for (int mode : {kShared, kGlobal, kFloat}) {
     plan->first[mode] = k;
-    for (int64_t l = 0; l < levels; ++l)
-      if (modes[l] == mode) plan->order[k++] = static_cast<int32_t>(l);
+    for (int window = 0; window < 2; ++window)
+      for (int64_t l = 0; l < levels; ++l)
+        if (plan->mode[l] == mode && (modes[l] == kWindow) == (window == 1))
+          plan->order[k++] = static_cast<int32_t>(l);
     plan->count[mode] = k - plan->first[mode];
   }
+  plan->windowed = 0;
+  for (int64_t l = 0; l < levels; ++l) plan->windowed += modes[l] == kWindow;
   return true;
 }
 
@@ -718,7 +1044,7 @@ cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
 
   const int num_shared = plan.count[kShared];
   const int num_global = plan.count[kGlobal];
-  const int num_float = plan.count[kFloat];
+  const int num_float = plan.count[kFloat] - plan.windowed;
   const unsigned chunks = static_cast<unsigned>((n + kChunk - 1) / kChunk);
   if (num_shared > 0) {
     const int lg = slots_log2_for(W);
@@ -741,18 +1067,27 @@ cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
         idx, bary, ga, gb, acc32, counts, plan, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  if (plan.windowed > 0) {
+    const bool vec = n % kGroup == 0 && aligned16(idx) && aligned16(bary) && aligned16(ga) &&
+                     (NT == 1 || aligned16(gb));
+    const int64_t span = static_cast<int64_t>(kSegSpan) * kWindowSteps;
+    const unsigned blocks = static_cast<unsigned>((n + span - 1) / span);
+    window_grad_kernel<F, NT, V><<<dim3(blocks, plan.windowed), kThreads, 0, stream>>>(
+        idx, bary, ga, gb, acc32, counts, plan, n, span, vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   const unsigned row_blocks =
       static_cast<unsigned>(std::min<int64_t>((capacity + kThreads - 1) / kThreads, 1024));
   finish_kernel<F, NT><<<dim3(row_blocks, static_cast<unsigned>(levels)), kThreads, 0, stream>>>(
       acc64, acc32, counts, redo, flags, da, db, plan, capacity);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (num_float > 0) {
+  if (plan.count[kFloat] > 0) {  // every level with float32 rows, windowed or not
     const unsigned redo_blocks =
         static_cast<unsigned>(std::min<int64_t>((n + kThreads - 1) / kThreads, 1024));
-    redo_kernel<F, NT, V><<<dim3(redo_blocks, num_float), kThreads, 0, stream>>>(
+    redo_kernel<F, NT, V><<<dim3(redo_blocks, plan.count[kFloat]), kThreads, 0, stream>>>(
         idx, bary, ga, gb, acc32, counts, redo, flags, plan, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    fix_kernel<F, NT><<<dim3(row_blocks, num_float), kThreads, 0, stream>>>(
+    fix_kernel<F, NT><<<dim3(row_blocks, plan.count[kFloat]), kThreads, 0, stream>>>(
         acc32, counts, redo, flags, da, db, plan, capacity);
     err = cudaGetLastError();
   }
@@ -835,8 +1170,8 @@ extern "C" int64_t pagnerf_table_grad_scratch(const int32_t* modes, const int32_
 
 // Table gradients of one (num_tables = 1) or two tables from one event
 // stream; the _b pointers are unused for one. verts is 4 or 8, the V of idx
-// and bary. modes[l] is 0 (kShared), 1 (kFloat) or 2 (kGlobal) and rows[l]
-// the live rows of level l (host arrays [levels]);
+// and bary. modes[l] is 0 (kShared), 1 (kFloat), 2 (kGlobal) or 3 (kWindow)
+// and rows[l] the live rows of level l (host arrays [levels]);
 // scratch is device memory of pagnerf_table_grad_scratch bytes, in any state.
 // d_a / d_b receive the float32 gradients [L, C, F], every entry written.
 // Returns the launches' cudaError_t (0 on success); nothing is launched for
@@ -929,3 +1264,123 @@ extern "C" int pagnerf_scatter_rows(const void* row, const void* vals, void* out
   round_kernel<<<round_blocks, kThreads, 0, s>>>(a, static_cast<float*>(out), count);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef PAGNERF_SCATTER_PROFILE
+// Measurement aids, compiled only by ``python -m
+// pagnerf_tpu_torch.profile_hash_scatter`` (-DPAGNERF_SCATTER_PROFILE): the
+// kernels the paths run have none of this.
+namespace {
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7feb352du;
+  h ^= h >> 15;
+  h *= 0x846ca68bu;
+  return h ^ (h >> 16);
+}
+
+// per_lane atomics a lane to random 16-byte rows (rows_mask + 1 of them, a
+// power of two), the return values unused. KIND 0: float32; 1: float2; 2:
+// float4; 3: float64; 4: two float64 (one row); 5: int32 compare-and-swap of
+// an empty key. WHERE 0: device memory; 1: shared memory (zeroed first).
+template <int KIND, int WHERE>
+__global__ void __launch_bounds__(kThreads)
+    atomic_ceiling_kernel(unsigned char* __restrict__ buf, uint32_t rows_mask, int64_t lanes,
+                          int per_lane) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = buf;
+  if constexpr (WHERE == 1) {
+    const int64_t words = (static_cast<int64_t>(rows_mask) + 1) * 4;
+    for (int64_t i = threadIdx.x; i < words; i += kThreads)
+      reinterpret_cast<int*>(smem_raw)[i] = 0;
+    __syncthreads();
+    base = smem_raw;
+  }
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= lanes) return;
+  for (int j = 0; j < per_lane; ++j) {
+    const uint32_t r = mix32(static_cast<uint32_t>(lane * per_lane + j)) & rows_mask;
+    unsigned char* p = base + static_cast<int64_t>(r) * 16;
+    if constexpr (KIND == 0) {
+      atomicAdd(reinterpret_cast<float*>(p), 1.0f);
+    } else if constexpr (KIND == 1) {
+      atomicAdd(reinterpret_cast<float2*>(p), make_float2(1.0f, 2.0f));
+    } else if constexpr (KIND == 2) {
+      atomicAdd(reinterpret_cast<float4*>(p), make_float4(1.0f, 2.0f, 3.0f, 0.0f));
+    } else if constexpr (KIND == 3) {
+      atomicAdd(reinterpret_cast<double*>(p), 1.0);
+    } else if constexpr (KIND == 4) {
+      atomicAdd(reinterpret_cast<double*>(p), 1.0);
+      atomicAdd(reinterpret_cast<double*>(p) + 1, 2.0);
+    } else {
+      atomicCAS(reinterpret_cast<int*>(p), 0, static_cast<int>(r) + 1);
+    }
+  }
+}
+
+template <int KIND>
+cudaError_t launch_ceiling(unsigned char* buf, uint32_t rows_mask, int64_t where, int64_t lanes,
+                           int per_lane, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
+  if (where == 0) {
+    atomic_ceiling_kernel<KIND, 0><<<blocks, kThreads, 0, stream>>>(buf, rows_mask, lanes,
+                                                                    per_lane);
+    return cudaGetLastError();
+  }
+  if constexpr (KIND == 1 || KIND == 2) {
+    return cudaErrorInvalidValue;  // vector atomics exist for device memory only
+  } else {
+    const int bytes = static_cast<int>((rows_mask + 1) * 16);
+    cudaError_t err = cudaFuncSetAttribute(atomic_ceiling_kernel<KIND, 1>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    atomic_ceiling_kernel<KIND, 1><<<blocks, kThreads, bytes, stream>>>(buf, rows_mask, lanes,
+                                                                        per_lane);
+    return cudaGetLastError();
+  }
+}
+
+__global__ void clock_kernel(int64_t cycles, int64_t* out) {
+  uint64_t t0, t1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  const int64_t c0 = clock64();
+  while (clock64() - c0 < cycles) {
+  }
+  const int64_t c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  out[0] = c1 - c0;
+  out[1] = static_cast<int64_t>(t1 - t0);
+}
+
+}  // namespace
+
+// Atomics ceiling: lanes x per_lane atomics of ``kind`` (see
+// atomic_ceiling_kernel) to random 16-byte rows of ``buf`` (rows a power of
+// two; where = 1: of a shared-memory table of that many rows per block).
+extern "C" int pagnerf_scatter_ceiling(void* buf, int64_t rows, int64_t kind, int64_t where,
+                                       int64_t lanes, int64_t per_lane, void* stream) {
+  if (rows <= 0 || (rows & (rows - 1)) != 0 || lanes <= 0 || per_lane <= 0 ||
+      (where == 1 && rows * 16 > 200 * 1024))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* b = static_cast<unsigned char*>(buf);
+  const auto mask = static_cast<uint32_t>(rows - 1);
+  const int k = static_cast<int>(per_lane);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case 0: return static_cast<int>(launch_ceiling<0>(b, mask, where, lanes, k, s));
+    case 1: return static_cast<int>(launch_ceiling<1>(b, mask, where, lanes, k, s));
+    case 2: return static_cast<int>(launch_ceiling<2>(b, mask, where, lanes, k, s));
+    case 3: return static_cast<int>(launch_ceiling<3>(b, mask, where, lanes, k, s));
+    case 4: return static_cast<int>(launch_ceiling<4>(b, mask, where, lanes, k, s));
+    case 5: return static_cast<int>(launch_ceiling<5>(b, mask, where, lanes, k, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The SM clock: one thread spins ``cycles`` clocks; out = [clocks, ns].
+extern "C" int pagnerf_scatter_clock(int64_t cycles, void* out, void* stream) {
+  clock_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(cycles,
+                                                               static_cast<int64_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // PAGNERF_SCATTER_PROFILE

@@ -93,32 +93,25 @@ def hash_indices(coordsT: torch.Tensor, resolutions, log2_table_size: int
 
 
 # Accumulation of the table-gradient scatter per hash level, by the number of
-# lattice corners (r + 1)^3 the level can address (table_gather.level_modes).
-# Chosen on the card at panoptic_nerf.yaml's microbatch (14 levels of 2^19
-# rows, resolutions 16 -> 512, N = 1,048,576; PERF.md): SHARED on the two
-# coarsest levels, GLOBAL while a level's events still crowd onto a minority
-# of its rows (to res 176, 5.5 M corners), FLOAT on the finer levels, whose
-# rows take few events each.
-HASH_SHARED_MAX_CORNERS = 1 << 14
-HASH_GLOBAL_MAX_CORNERS = 1 << 23
+# lattice corners (r + 1)^3 the level can address. Measured on the card at
+# panoptic_nerf.yaml's microbatch (14 levels of 2^19 rows, resolutions 16 ->
+# 512, N = 1,048,576; PERF.md): up to HASH_WINDOW_MIN_CORNERS (2^21, levels
+# 0-7 there) a row takes hundreds to ~5e4 events from as many segments, so
+# float32 rows would be redone in float64; GLOBAL's warp runs of one voxel
+# merge as well as a window there and cost less. Beyond, consecutive samples
+# cross into neighbouring voxels and share corners in other vertex slots,
+# rows take at most ~70 flushes, and WINDOW merges them (1.4-2.6x fewer
+# atomics than GLOBAL or FLOAT there).
+HASH_WINDOW_MIN_CORNERS = 1 << 21
 
 
 def scatter_modes(resolutions, capacity: int) -> Tuple[int, ...]:
     """The table-gradient scatter's mode per level of a hash grid (of
-    ``capacity`` rows; the modes do not depend on it): SHARED up to
-    ``HASH_SHARED_MAX_CORNERS`` corners, GLOBAL up to
-    ``HASH_GLOBAL_MAX_CORNERS``, FLOAT beyond. The choice moves time, never
-    the scatter's accuracy contract."""
-    modes = []
-    for r in np.asarray(resolutions):
-        corners = (int(r) + 1) ** 3
-        if corners <= HASH_SHARED_MAX_CORNERS:
-            modes.append(table_gather.SHARED)
-        elif corners <= HASH_GLOBAL_MAX_CORNERS:
-            modes.append(table_gather.GLOBAL)
-        else:
-            modes.append(table_gather.FLOAT)
-    return tuple(modes)
+    ``capacity`` rows; the modes do not depend on it): GLOBAL up to
+    ``HASH_WINDOW_MIN_CORNERS`` corners, WINDOW beyond. The choice moves
+    time, never the scatter's accuracy contract."""
+    return tuple(table_gather.GLOBAL if (int(r) + 1) ** 3 <= HASH_WINDOW_MIN_CORNERS
+                 else table_gather.WINDOW for r in np.asarray(resolutions))
 
 
 def hash_encode_T(tables: torch.Tensor, coordsT: torch.Tensor,

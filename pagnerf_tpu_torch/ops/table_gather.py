@@ -36,8 +36,9 @@ the kernel does not take raises.
 The scatter kernel holds each entry within 64 eps_f32 of its sum of
 |bary * g| to its plain version (a float64 sum rounded once), however many
 events share a table row: per level it sums in float64, or in float32 on rows
-of at most 120 addends and in float64 again beyond (``level_modes``,
-``csrc/permuto_scatter.cu`` "Accuracy"). ``rows_used`` bounds a level to its
+of at most 120 addends (of at most 106 merged flushes in the window mode) and
+in float64 again beyond (``level_modes``, ``csrc/permuto_scatter.cu``
+"Accuracy"). ``rows_used`` bounds a level to its
 live rows (a direct-indexed level's index range); the permutohedral encodes
 pass it with the modes from ``permuto_encoding.scatter_plan``, the hash
 encodes their modes from ``hash_encoding.scatter_modes``.
@@ -292,8 +293,11 @@ def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
 # one float64 atomic per touched row; GLOBAL one float64 atomic per warp run
 # of equal rows; FLOAT one float32 vector atomic per event, with an addend
 # count that sends rows of more than 120 addends to an exact float64 redo.
-SHARED, FLOAT, GLOBAL = 0, 1, 2
-MODES = (SHARED, FLOAT, GLOBAL)
+# WINDOW first merges each thread's run of consecutive samples in
+# registers, equal rows in any vertex slot ("Window levels"), then adds into
+# FLOAT's float32 rows, one vector atomic per merged row.
+SHARED, FLOAT, GLOBAL, WINDOW = 0, 1, 2, 3
+MODES = (SHARED, FLOAT, GLOBAL, WINDOW)
 SHARED_MAX_ROWS = 1 << 14     # live rows of the levels SHARED serves by default
 MAX_LEVELS = 64               # levels one scatter or encode launch takes
 
@@ -310,7 +314,7 @@ def level_modes(rows: Tuple[int, ...], capacity: int, modes=None) -> Tuple[int, 
     modes = tuple(int(m) for m in modes)
     if len(modes) != len(rows) or any(m not in MODES for m in modes):
         raise ValueError(f"modes must hold {len(rows)} of SHARED={SHARED}, "
-                         f"FLOAT={FLOAT}, GLOBAL={GLOBAL}; got {modes}")
+                         f"FLOAT={FLOAT}, GLOBAL={GLOBAL}, WINDOW={WINDOW}; got {modes}")
     return modes
 
 

@@ -11,7 +11,8 @@ steps; idx/bary from the port's march and lattice) feeds:
   share of events) beyond 120 events -- what decides each level's
   accumulation in ``csrc/permuto_scatter.cu``;
 - ``check``: the scatter (single and dual, default per-level modes, other
-  splits, and every level forced to one mode) against the plain version with
+  splits, every level forced to one mode, and the hash grid's window mode
+  in place of the float32 one) against the plain version with
   random and same-signed cotangents, as the largest error over the
   tolerance 64 eps_f32 * sum|bary * g| per entry;
 - ``time``: median device ms (CUDA events, L2 evicted, 10 launches) of the
@@ -183,7 +184,8 @@ def kernel_breakdown(fn) -> dict:
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         if t:
-            out[ev.key[:60]] = t / 1e3
+            key = ev.key[:80]
+            out[key] = out.get(key, 0.0) + t / 1e3
     return out or "not measured"
 
 
@@ -255,6 +257,8 @@ def main(argv=None) -> None:
         plans[f"float_from_{last + 1}"] = tuple(
             m if m == tg.SHARED else tg.GLOBAL if lv <= last else tg.FLOAT
             for lv, m in enumerate(modes))
+    # the hash grid's window merge in place of the float32 mode
+    plans["window_fine"] = tuple(tg.WINDOW if m == tg.FLOAT else m for m in modes)
     for plan, plan_modes in plans.items():
         worst = {}
         for kind, gs in (("random", g_rand), ("same_signed", g_same)):

@@ -29,7 +29,13 @@ gathers' bound doubled for their 8 multiply-adds, at small shapes, at the
 hash path's N = 2^20 with 14 levels of 2^19 rows, and through
 ``hash_encode_dual_T`` with gradients against the plain versions on the
 card (table gradients and coordinate gradients within 1e-5 of their largest
-entry)."""
+entry). The scatter's window mode (each thread's run of consecutive samples
+merged in registers, equal rows in any vertex slot) holds the scatter's
+contract on ray-ordered hash events (rays in random directions and along
++x, N odd or below a segment, F in 1, 2, 4) and on patterns at its bounds
+(hot rows past their count, every event on one row, no row repeated, rows
+continued in other slots), at V = 8 and 4, with live-row bounds; the V = 4
+default plan keeps its contract beside window levels."""
 import contextlib
 
 import numpy as np
@@ -974,3 +980,124 @@ class _PlainDual(torch.autograd.Function):
         da, db = tg.dual_table_grad_plain(idx, bary.float(), ga.float().contiguous(),
                                           gb.float().contiguous(), ctx.capacity)
         return da, db, None, tg.gather_dbary_plain(ta, idx, ga.float())
+
+
+# ---------------------------------------------------- the window merge (WINDOW)
+def _ray_case(dev, rays, steps, levels=5, log2_c=14, along_x=False, seed=0):
+    """The hash grid's idx/bary at ``rays`` rays of ``steps`` samples each,
+    ray-major, as a training microbatch lays them out: origins in the box,
+    random directions (or all along +x, where neighbouring samples share
+    faces and the x pairs (2k, 2k + 1) of rows), steps of 1/256, so the
+    finest level (resolution 512) sees about one sample a voxel and the
+    coarsest about eight; samples past the box clamp onto its faces."""
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    spec = he.HashEncodingSpec(levels, 2, log2_c, 16, 512)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.rand((rays, 3), generator=g, device=dev) * 2 - 1
+    d = (torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(rays, 3) if along_x
+         else torch.randn((rays, 3), generator=g, device=dev))
+    d = d / d.norm(dim=1, keepdim=True)
+    t = torch.arange(steps, device=dev, dtype=torch.float32) / 256
+    x = (o[:, None, :] + t[None, :, None] * d[:, None, :]).reshape(-1, 3).T.contiguous()
+    idx, w = he.hash_indices(x, spec.resolutions, log2_c)
+    return spec, idx.contiguous(), w.contiguous()
+
+
+def _window_modes(name, spec):
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    l = spec.num_levels
+    return {"hash": he.scatter_modes(spec.resolutions, spec.capacity),
+            "window": (tg.WINDOW,) * l,
+            "window_global": tuple(tg.WINDOW if lv % 2 else tg.GLOBAL for lv in range(l))}[name]
+
+
+@pytest.mark.parametrize("modes", ["hash", "window", "window_global"])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("rays,steps,along_x", [(64, 512, False), (64, 512, True),
+                                                 (63, 509, False), (3, 7, True)],
+                         ids=["rays", "along_x", "odd_n", "tiny"])
+def test_window_scatter_on_ray_ordered_events_matches_plain(dev, modes, f, rays, steps,
+                                                            along_x):
+    """Consecutive samples of a few rays through a 5-level hash grid, so
+    events of neighbouring samples meet at one row in other vertex slots
+    (the window merges them) and at one slot over consecutive lanes (the
+    warp merge): single and dual, random and same-signed cotangents, a third
+    of the samples masked (zero cotangents); N odd or below a segment."""
+    spec, idx, bary = _ray_case(dev, rays, steps, along_x=along_x, seed=f)
+    l, c, n = spec.num_levels, spec.capacity, idx.shape[2]
+    mode = _window_modes(modes, spec)
+    g = torch.Generator(device=dev).manual_seed(11)
+    g_a = torch.randn((l, f, n), generator=g, device=dev)
+    g_b = torch.randn((l, f, n), generator=g, device=dev)
+    g_a[:, :, ::3] = 0.0
+    for ga, gb in ((g_a, g_b), (g_a.abs(), g_b.abs())):
+        tg.reset_launches()
+        single = tg.multilevel_table_grad(idx, bary, ga, c, modes=mode)
+        da, db = tg.dual_multilevel_table_grad(idx, bary, ga, gb, c, modes=mode)
+        torch.cuda.synchronize()
+        assert (tg.multilevel_table_grad.launches,
+                tg.dual_multilevel_table_grad.launches) == (1, 1)
+        _assert_scatter_close(single, idx, bary, ga, c)
+        _assert_scatter_close(da, idx, bary, ga, c)
+        _assert_scatter_close(db, idx, bary, gb, c)
+
+
+@pytest.mark.parametrize("modes", ["window", "window_global"])
+@pytest.mark.parametrize("pattern", ["hot", "one_row", "distinct", "pairs"])
+@pytest.mark.parametrize("v", [4, 8])
+def test_window_scatter_patterns_match_plain_same_signed(dev, modes, pattern, v):
+    """The window mode on patterns that push its bounds, same-signed
+    cotangents, at V = 8 and V = 4, on every level or every other one:
+    "hot" sends ~1e5 events to 7 rows (the rows pass their count and are
+    summed again in float64); "one_row" puts every event of a level on one
+    row (each window entry takes its most addends, every lane of a warp
+    merges); "distinct" gives every event a row of its own (no merge
+    anywhere); "pairs" walks rows 2k, 2k + 1, 2k + 2, ... in every slot, so
+    each entry continues in another slot. Live-row bounds drop events at
+    rows beyond."""
+    l, c, n, f = 4, 1 << 16, (1 << 15) + 3, 2
+    g = torch.Generator(device=dev).manual_seed(v)
+    s = torch.arange(n, device=dev)
+    if pattern == "hot":
+        idx = torch.randint(0, 7, (l, v, n), generator=g, device=dev)
+    elif pattern == "one_row":
+        idx = torch.full((l, v, n), 5, device=dev)
+    elif pattern == "distinct":
+        idx = (s[None, None, :] * v + torch.arange(v, device=dev)[None, :, None]) % c
+        idx = idx.expand(l, v, n)
+    else:
+        idx = (s[None, None, :] // 3 + torch.arange(v, device=dev)[None, :, None]) % c
+        idx = idx.expand(l, v, n)
+    idx = idx.to(torch.int32).contiguous()
+    bary = torch.rand((l, v, n), generator=g, device=dev)
+    g_a = torch.randn((l, f, n), generator=g, device=dev).abs()
+    g_b = torch.rand((l, f, n), generator=g, device=dev)
+    mode = tuple(tg.WINDOW if modes == "window" or lv % 2 else tg.GLOBAL for lv in range(l))
+    for rows_used in (None, (3, 0, 40000, 0)):
+        (single,) = tg._launch_grad(idx, bary, (g_a,), c, rows_used, mode)
+        da, db = tg._launch_grad(idx, bary, (g_a, g_b), c, rows_used, mode)
+        torch.cuda.synchronize()
+        _assert_scatter_close(single, idx, bary, g_a, c, rows_used)
+        _assert_scatter_close(da, idx, bary, g_a, c, rows_used)
+        _assert_scatter_close(db, idx, bary, g_b, c, rows_used)
+        if rows_used is not None:
+            assert not bool(single[0, 3:].any()) and not bool(single[2, 40000:].any())
+
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_v4_scatter_keeps_its_contract_beside_the_window_modes(dev, f):
+    """The permutohedral (V = 4) scatter under its default per-level modes
+    (SHARED, GLOBAL, FLOAT), with run patterns and live-row bounds, in one
+    call that also holds window levels (the plan groups them apart)."""
+    l, c, n = 5, 1 << 12, 20001
+    idx, bary, g_a, g_b = _grad_inputs(dev, l, c, f, n, seed=f, runs=True)
+    rows_used = (64, 0, 4096, 0, 0)
+    idx[0] %= 64
+    modes = (tg.SHARED, tg.FLOAT, tg.GLOBAL, tg.WINDOW, tg.WINDOW)
+    for mode in (tg.level_modes(tg.live_rows(rows_used, l, c), c), modes):
+        (single,) = tg._launch_grad(idx, bary, (g_a,), c, rows_used, mode)
+        da, db = tg._launch_grad(idx, bary, (g_a, g_b), c, rows_used, mode)
+        torch.cuda.synchronize()
+        _assert_scatter_close(single, idx, bary, g_a, c, rows_used)
+        _assert_scatter_close(da, idx, bary, g_a, c, rows_used)
+        _assert_scatter_close(db, idx, bary, g_b, c, rows_used)

@@ -15,8 +15,9 @@ hash grid's voxel corners): the port against the JAX package, on the CPU.
   each entry's sum of |bary * g| (the port's accuracy contract), and
   against the Pallas ``table_grad_matmul_T`` / ``_dual_T`` (interpret)
   within 2^-8 of it, because those multiply bary * g in bfloat16.
-- The scatter's per-level modes of a hash grid, the wrappers' acceptance of
-  V = 8 (and refusal of other V), the seeded init.
+- The scatter's per-level modes of a hash grid (GLOBAL, then the window
+  merge), the wrappers' acceptance of V = 8 (and refusal of other V) and of
+  the window mode at V = 4 and 8, the seeded init.
 """
 import jax
 import jax.numpy as jnp
@@ -215,17 +216,37 @@ def test_plain_scatter_matches_xla_and_pallas(n):
 
 
 def test_scatter_modes_of_the_hash_grid():
+    """GLOBAL up to ``HASH_WINDOW_MIN_CORNERS`` lattice corners, the window
+    merge beyond; the plan of panoptic_nerf.yaml's grid."""
     spec = he_t.HashEncodingSpec(14, 2, 19, 16, 512)
     modes = he_t.scatter_modes(spec.resolutions, spec.capacity)
     corners = (spec.resolutions.astype(np.int64) + 1) ** 3
     assert len(modes) == 14
     for m, k in zip(modes, corners):
-        want = (tg_t.SHARED if k <= he_t.HASH_SHARED_MAX_CORNERS
-                else tg_t.GLOBAL if k <= he_t.HASH_GLOBAL_MAX_CORNERS else tg_t.FLOAT)
-        assert m == want
+        assert m == (tg_t.GLOBAL if k <= he_t.HASH_WINDOW_MIN_CORNERS else tg_t.WINDOW)
     # the measured plan of panoptic_nerf.yaml's grid (resolutions 16 -> 512)
-    assert modes == (tg_t.SHARED,) * 2 + (tg_t.GLOBAL,) * 8 + (tg_t.FLOAT,) * 4
-    assert he_t.scatter_modes((16, 64), 1 << 8) == (tg_t.SHARED, tg_t.GLOBAL)
+    assert modes == (tg_t.GLOBAL,) * 8 + (tg_t.WINDOW,) * 6
+    assert he_t.scatter_modes((16, 64), 1 << 8) == (tg_t.GLOBAL, tg_t.GLOBAL)
+    assert he_t.scatter_modes((16, 600), 1 << 8) == (tg_t.GLOBAL, tg_t.WINDOW)
+    assert tg_t.level_modes((C,) * 14, C, modes) == modes
+
+
+@pytest.mark.parametrize("v", [4, 8])
+@pytest.mark.parametrize("modes", [(3, 3, 3), (0, 3, 1), (2, 3, 2), (3, 1, 0)])
+def test_window_mode_takes_the_plain_version_on_the_cpu(v, modes):
+    """The window mode (3) passes the wrappers' checks beside the others, at
+    V = 4 and 8; on the CPU the result is the plain version's, bit for bit,
+    single and dual; a mode outside 0..3 raises."""
+    _, _, idx, bary, g_a, g_b = _rand(20 + v, n=301)
+    idx, bary = idx[:, :v].copy(), bary[:, :v].copy()
+    want_a = tg_t.table_grad_plain(*_t(idx, bary, g_a), C)
+    want_b = tg_t.table_grad_plain(*_t(idx, bary, g_b), C)
+    got = tg_t.multilevel_table_grad(*_t(idx, bary, g_a), C, modes=modes)
+    da, db = tg_t.dual_multilevel_table_grad(*_t(idx, bary, g_a, g_b), C, modes=modes)
+    assert torch.equal(got, want_a) and torch.equal(da, want_a) and torch.equal(db, want_b)
+    for bad in (4, -1):
+        with pytest.raises(ValueError, match="WINDOW"):
+            tg_t.multilevel_table_grad(*_t(idx, bary, g_a), C, modes=modes[:2] + (bad,))
 
 
 @pytest.mark.parametrize("v", [3, 5, 16])
