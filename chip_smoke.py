@@ -134,6 +134,34 @@ Phases, each printing one JSON line as it ends:
    losses, the prunes' walls and kept shares, B and the truncated share;
    run directories under ``pagnerf_tpu_torch/_build/cli``.
 
+10a-d. the apps, from the cli run's final checkpoint at ``CLI_FLAGS``:
+   render_views -- main path 6a: ``cli.main`` with ``--pretrained`` and
+   ``--render-views`` at the tuned config's full width: 120 views x 4
+   channels, each PNG read back with ``data/image_io.read_png`` equal to
+   the returned frame; launch counts set to 0 before and read after: one
+   dual encode per rendered chunk, none with idx/bary, nothing else; one
+   view through the kernels against the plain encodes (channels 1e-2, depth
+   1e-2 of its largest value, as ``validate``); ``render_orbit``'s ms per
+   view. optimizers -- the same config restored with one more epoch: one
+   full-width training step each with ``--optimizer-type sgd``,
+   ``rmsprop`` and ``adam --weight-decay 1e-6`` (a fresh optimizer state
+   each), the card's update redone on CPU copies of the parameters and
+   state from the card's own gradients (1e-6 relative), a non-finite
+   gradient leaving everything bit-equal; a decoder forward at full width
+   per activation (``sin``, ``selu``, ``gelu``), card against CPU.
+   viewer -- main path 6b: ``app/viewer_server.make_server`` on that
+   trainer, served from a thread: the page, ``/api/info``, each channel's
+   ``/api/frame`` (first and cached ms), ``/api/free_frame`` and
+   ``/api/click``, each PNG read back equal to its array, the launches of
+   the view's and the free pose's renders; ``POST /api/train?epochs=1``
+   polled to its end: the epoch advanced, the view's channels changed, the
+   launches its steps imply (scatters, dbary, encodes); ``/api/stop``.
+   hp_sweep -- main path 6c: ``python -m pagnerf_tpu_torch.main_hp_tunning``
+   on the tuned config, 2 learning rates, rungs of 1 epoch, 2 rungs, 2
+   worker processes on the card at once: 2 + 1 results, all scored, the
+   rung-1 trial resumed from its rung-0 checkpoint to epoch 2; each
+   worker's wall, peak memory and launches.
+
 11. bup20 -- main path 7: the flagship's own config,
    ``configs/bup20/best.yaml``, through ``cli.main`` over a BUP20-format
    tree of the synthetic scene that the port writes itself
@@ -195,7 +223,8 @@ Phases, each printing one JSON line as it ends:
    (``PanopticLiftingNeF``: a 128^3 TensoRF grid) through ``cli.main`` over
    the bup20 phase's tree at their own widths with ``SLICE_FLAGS``: an RGB
    epoch, a panoptic epoch, a validation at mip 2 and the final one at mip
-   0 (the ``_app`` configs centred on the tree's frame 47). Launch counts
+   0 (the three plain-PyTorch configs at mip 2, ``--low-res-val``; the
+   ``_app`` configs centred on the tree's frame 47). Launch counts
    set to 0 before and read after: on the hash grid one gather and one
    scatter (V = 8) per microbatch and one gather per rendered chunk, on the
    plain-PyTorch grids none. On the hash grid then: one panoptic
@@ -1897,7 +1926,489 @@ def phase_cli(dev, flush):
         fail(f"a kernel at one of this path's N outside its tolerance: {checks}")
     emit("cli", **fields)
     torch.cuda.empty_cache()
-    return launches, times
+    return launches, times, os.path.join(run_dir, "model.ckpt")
+
+
+# the apps restore the cli phase's final checkpoint at its flags; the viewer
+# and the optimizers' trainer runs one epoch more (its train button)
+APP_ARGV = ["--config", os.path.join(ROOT, CLI_CONFIG)] + CLI_FLAGS
+
+
+def app_root(name):
+    import shutil
+    root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def expected_render_launches(renders):
+    """One encode per rendered chunk, dual when a panoptic channel is asked
+    for (``renders``: (channels, chunks) per ``batch_render``)."""
+    expected = {k: 0 for k in _launches()}
+    for channels, chunks in renders:
+        dual = bool(set(channels) & {"semantics", "inst_embedding"})
+        expected["dual_encode" if dual else "encode"] += chunks
+    return expected
+
+
+@contextlib.contextmanager
+def render_spy(renders, buffers=None):
+    """Each ``batch_render``'s channels and chunk count into ``renders``
+    (and its buffer into ``buffers``)."""
+    from unittest import mock
+
+    from pagnerf_tpu_torch.train.trainer import PanopticTrainer
+    batch_render = PanopticTrainer.batch_render
+
+    def spy(self, rays, channels, *args, **kwargs):
+        rb = batch_render(self, rays, channels, *args, **kwargs)
+        renders.append((tuple(sorted(channels)), len(self.last_render)))
+        if buffers is not None:
+            buffers.append(rb)
+        return rb
+
+    with mock.patch.object(PanopticTrainer, "batch_render", spy):
+        yield
+
+
+def phase_render_views(dev, ckpt):
+    """``cli.main`` with ``--pretrained`` the cli phase's final checkpoint
+    and ``--render-views`` at the tuned config's full width: every view's
+    rgb, depth, semantics and instance PNG, each read back with
+    ``data/image_io.read_png`` equal to the returned frame; launch counts
+    set to 0 before and read after: one dual encode per rendered chunk, none
+    with idx/bary, nothing else. One view's render through the kernels
+    against the same view through the plain encodes, at the ``validate``
+    phase's tolerance (channels 1e-2, depth 1e-2 of its largest value).
+    The command's wall, ``render_orbit``'s wall per view (render, colours,
+    PNGs) and timed single-view renders."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.app import orbit_renderer
+    from pagnerf_tpu_torch.data.image_io import read_png
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+
+    root = app_root("render_views")
+    out_dir = os.path.join(root, "views")
+    argv = APP_ARGV + ["--device", dev.type, "--log-dir", os.path.join(root, "logs"),
+                       "--pretrained", ckpt, "--render-views", "--render-views-dir", out_dir]
+    trainers, renders = [], []
+    get_modules = cli.get_modules_from_config
+
+    def modules_spy(*args, **kwargs):
+        out = get_modules(*args, **kwargs)
+        trainers.append(out[2])
+        return out
+
+    render_orbit, orbit_s = orbit_renderer.render_orbit, []
+
+    def orbit_spy(*args, **kwargs):
+        t = time.perf_counter()
+        out = render_orbit(*args, **kwargs)
+        torch.cuda.synchronize()
+        orbit_s.append(time.perf_counter() - t)
+        return out
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with render_spy(renders), mock.patch.object(cli, "get_modules_from_config", modules_spy), \
+         mock.patch.object(orbit_renderer, "render_orbit", orbit_spy):
+        frames = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, idx_bary = _launches(), _idx_bary_launches()
+    trainer = trainers[0]
+    ds = trainer.dataset
+    views = sorted(set(ds.train_idxs.tolist()) | set(ds.val_idxs.tolist()))
+    expected = expected_render_launches(renders)
+    fields = dict(config=CLI_CONFIG, views=len(views), image=list(ds.img_shape),
+                  channels=sorted(frames), wall_s=wall, render_orbit_s=orbit_s[0],
+                  ms_per_view=orbit_s[0] * 1e3 / len(views),
+                  launches=launches, expected_launches=expected,
+                  launches_with_idx_bary=idx_bary,
+                  chunks_per_view=sorted({c for _, c in renders}))
+
+    def fail(msg):
+        emit("render_views", ok=False, **fields)
+        raise AssertionError(msg)
+
+    if sorted(frames) != ["depth", "instance", "rgb", "semantics"] or any(
+            len(fl) != len(views) for fl in frames.values()):
+        fail(f"frames {({k: len(v) for k, v in frames.items()})} for {len(views)} views")
+    bad = [f"{ch}_{v:04d}" for ch, fl in frames.items() for v, img in zip(views, fl)
+           if img.shape[:2] != tuple(ds.img_shape) or not np.array_equal(
+               read_png(os.path.join(out_dir, f"{ch}_{v:04d}.png")), img)]
+    if bad:
+        fail(f"PNGs that do not hold their returned frame: {bad[:8]}")
+    if launches != expected or any(idx_bary.values()) or len(renders) != len(views):
+        fail(f"--render-views launched {launches} (idx/bary {idx_bary}), expected {expected}")
+
+    # one view through the kernels and through the plain encodes
+    view, kernel_rb, plain_rb = views[0], [], []
+    with render_spy([], kernel_rb):
+        img_k = orbit_renderer.render_channels_for_view(trainer, view)
+    with render_spy([], plain_rb), \
+         mock.patch.object(pe, "fused_encode", pe.encode_plain), \
+         mock.patch.object(pe, "fused_encode_dual", pe.dual_encode_plain):
+        img_p = orbit_renderer.render_channels_for_view(trainer, view)
+    chans = ("rgb", "depth", "semantics", "inst_embedding")
+    d_max = plain_rb[0].depth.abs().max().item()
+    errs = {ch: (getattr(kernel_rb[0], ch).float() - getattr(plain_rb[0], ch).float()
+                 ).abs().max().item() for ch in chans}
+    tols = {ch: 1e-2 * (d_max if ch == "depth" else 1.0) for ch in chans}
+    fields.update(vs_plain_view=view, vs_plain_max_abs_err=errs, vs_plain_tol=tols,
+                  vs_plain_differing_pixels={k: int((img_k[k] != img_p[k]).any(-1).sum())
+                                             for k in ("rgb", "depth", "semantics",
+                                                       "instance")})
+    if not all(errs[ch] <= tols[ch] for ch in chans):
+        fail(f"view {view} through the kernels vs the plain encodes: {errs}")
+    per_view = []
+    for v in views[:5]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orbit_renderer.render_channels_for_view(trainer, v)
+        torch.cuda.synchronize()
+        per_view.append((time.perf_counter() - t) * 1e3)
+    fields.update(render_channels_for_view_ms=per_view)
+    emit("render_views", **fields)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def restored_trainer(dev, ckpt):
+    """The tuned config's trainer at ``APP_ARGV`` with one more epoch, the
+    cli phase's final checkpoint restored."""
+    from pagnerf_tpu_torch.config.config import parse_options
+    from pagnerf_tpu_torch.config.factory import get_modules_from_config
+    from pagnerf_tpu_torch.train import checkpoint
+
+    _, _, trainer = get_modules_from_config(parse_options(APP_ARGV + ["--epochs", "5"]), dev)
+    checkpoint.load_checkpoint(ckpt, trainer, "full")
+    return trainer
+
+
+def phase_viewer(dev, trainer):
+    """The viewer (``app/viewer_server.make_server``) on the restored
+    trainer, served from a thread on 127.0.0.1: the page, ``/api/info``,
+    each channel's ``/api/frame`` (the first request renders the view: cold,
+    then cached ms), ``/api/free_frame`` and ``/api/click``, each PNG read
+    back equal to the array it came from; then ``POST /api/train?epochs=1``
+    polled to its end: the epoch advanced by 1, the frame changed, and the
+    launches those steps imply (counts set to 0 before the request and read
+    after the epoch); ``/api/stop``. Any failed request fails the phase."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch.app.viewer_server import CHANNELS, make_server
+    from pagnerf_tpu_torch.data.image_io import read_png
+
+    root = app_root("viewer")
+    server, state = make_server(trainer, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    fields = dict(config=CLI_CONFIG, image=list(trainer.dataset.img_shape))
+
+    def fail(msg):
+        emit("viewer", ok=False, **fields)
+        raise AssertionError(msg)
+
+    def get(path, method="GET"):
+        t = time.perf_counter()
+        req = urllib.request.Request(base + path, method=method)
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body, ctype, code = r.read(), r.headers.get("Content-Type"), r.status
+        if code != 200:
+            fail(f"{method} {path}: {code}")
+        return body, ctype, (time.perf_counter() - t) * 1e3
+
+    def png(body, want, what):
+        path = os.path.join(root, "frame.png")
+        with open(path, "wb") as f:
+            f.write(body)
+        img = read_png(path)
+        if not np.array_equal(img, want):
+            fail(f"{what}: the PNG does not hold the rendered array")
+        return img
+
+    try:
+        page, ctype, _ = get("/")
+        if "text/html" not in ctype or b"pagnerf_tpu_torch viewer" not in page:
+            fail("the page")
+        info = json.loads(get("/api/info")[0])
+        if (info["views"] != state.views or info["epoch"] != trainer.epoch
+                or info["total_epochs"] != trainer.cfg.epochs or info["training"]):
+            fail(f"/api/info {info}")
+        view = info["views"][0]
+        renders = []
+        _reset_launches()
+        with render_spy(renders):
+            frame_ms = {}
+            for ch in CHANNELS:
+                body, ctype, cold = get(f"/api/frame?view={view}&channel={ch}")
+                png(body, state.frame(view, ch), f"frame {ch}")
+                frame_ms[ch] = {"first": cold,
+                                "cached": get(f"/api/frame?view={view}&channel={ch}")[2]}
+            free = "/api/free_frame?az=30&el=20&r=2.2&channel="
+            free_ms = {"first": get(free + "rgb")[2]}
+            body, _, free_ms["cached"] = get(free + "rgb")
+            png(body, state.free_frame(30.0, 20.0, 2.2, "rgb"), "free frame")
+            png(get(free + "depth")[0], state.free_frame(30.0, 20.0, 2.2, "depth"),
+                "free depth")
+            h, w = trainer.dataset.img_shape
+            body, _, click_ms = get(f"/api/click?view={view}&y={h // 2}&x={w // 3}")
+            png(body, state.click(view, h // 2, w // 3), "click")
+        torch.cuda.synchronize()
+        render_launches = _launches()
+        fields.update(view=view, renders=renders, render_launches=render_launches,
+                      frame_ms=frame_ms, free_frame_ms=free_ms, click_ms=click_ms)
+        if len(renders) != 2 or render_launches != expected_render_launches(renders):
+            fail(f"the view and the free pose launched {render_launches} for {renders}")
+
+        # train while viewing
+        before = {k: v.copy() for k, v in state.channels_for_view(view).items()}
+        epoch, steps, prunes = trainer.epoch, [], []
+        train_step, prune = trainer.train_step, trainer.prune
+
+        def step_spy(stage, batch, *args, **kwargs):
+            steps.append({"channels": sorted(stage.channels),
+                          "cam_idx": batch["cam_idx"].tolist()})
+            return train_step(stage, batch, *args, **kwargs)
+
+        def prune_spy(*args, **kwargs):
+            prunes.append(kwargs)
+            return prune(*args, **kwargs)
+
+        trainer.train_step, trainer.prune = step_spy, prune_spy
+        _reset_launches()
+        t0 = time.perf_counter()
+        if not json.loads(get("/api/train?epochs=1", "POST")[0])["started"]:
+            fail("POST /api/train did not start")
+        while json.loads(get("/api/info")[0])["training"]:
+            time.sleep(0.25)
+        train_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _launches()
+        del trainer.train_step, trainer.prune
+        anchor = trainer.pipeline.anchor_mask.cpu().numpy()
+        expected = cli_launches(steps, anchor, [], len(prunes),
+                                max(1, trainer.cfg.prune_samples_per_cell)
+                                * math.ceil(trainer.occ.res ** 3 / 65536))
+        info = json.loads(get("/api/info")[0])
+        png(get(f"/api/frame?view={view}&channel=rgb")[0], state.frame(view, "rgb"),
+            "frame after the epoch")
+        after = state.channels_for_view(view)
+        changed = {k: float(np.abs(after[k].astype(np.float64) - before[k]).max())
+                   for k in before}
+        fields.update(train_wall_s=train_wall, steps=len(steps), prunes=len(prunes),
+                      train_launches=launches, expected_train_launches=expected,
+                      losses=info["losses"], frame_max_change=changed)
+        if trainer.epoch != epoch + 1 or info["epoch"] != epoch + 1:
+            fail(f"the epoch went from {epoch} to {trainer.epoch}")
+        if not info["losses"] or not all(np.isfinite(v) for v in info["losses"].values()):
+            fail(f"the epoch's losses {info['losses']}")
+        if launches != expected or not (launches["table_grad"] + launches["dual_table_grad"]):
+            fail(f"the epoch launched {launches}, expected {expected}")
+        if not any(changed.values()):
+            fail("the view's channels did not change after the epoch")
+        if json.loads(get("/api/stop", "POST")[0]) != {"stopping": True}:
+            fail("POST /api/stop")
+    finally:
+        server.shutdown()
+        server.server_close()
+    emit("viewer", **fields)
+    return {k: render_launches[k] + launches[k] for k in launches}
+
+
+def rel_err(a, b):
+    """max |a - b| / max(1, |b|), on the host."""
+    import torch
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float(((a - b).abs() / torch.clamp(b.abs(), min=1.0)).max())
+
+
+def phase_optimizers(dev, trainer):
+    """From the restored state, one full-width training step of the
+    restored epoch's stage with each optimizer the flags build
+    (``--optimizer-type sgd``, ``rmsprop``, ``adam --weight-decay 1e-6``;
+    a fresh state each): the card's update applied again on the CPU to
+    copies of the parameters and state, from the card's own gradients
+    (1e-6 relative); then a non-finite gradient leaves parameters and
+    state bit-equal. Then one decoder forward at full width (the colour
+    decoder's widths over a microbatch's N samples) per activation (``sin``,
+    ``selu``, ``gelu``), card against CPU: the activation on the same
+    pre-activations within 4 float32 ulp of the larger of output and input
+    (CUDA's ``sinf`` / ``tanhf`` within 2 ulp, the CPU's within 1; gelu's
+    ``1 + tanh`` cancels where tanh saturates), the decoder within 1e-5 of
+    its largest output."""
+    import torch
+
+    from pagnerf_tpu_torch.config.config import parse_options
+    from pagnerf_tpu_torch.config.factory import optimizer_config_from_args
+    from pagnerf_tpu_torch.models.decoder import BasicDecoder
+    from pagnerf_tpu_torch.train.optimizer import MOMENTS, MaskedOptimizer
+
+    saved = {n: p.detach().clone() for n, p in trainer.params.items()}
+    restored_opt = (trainer.opt_cfg, trainer.opt)
+    stage = trainer.stage_for_epoch(trainer.epoch)
+    fields, ok = dict(config=CLI_CONFIG, stage=stage.label, kinds={}), True
+    for name, flags in (("sgd", ["--optimizer-type", "sgd"]),
+                        ("rmsprop", ["--optimizer-type", "rmsprop"]),
+                        ("adamw", ["--optimizer-type", "adam", "--weight-decay", "1e-6"])):
+        with torch.no_grad():
+            for n, p in trainer.params.items():
+                p.copy_(saved[n])
+        trainer.opt_cfg = dataclasses.replace(
+            optimizer_config_from_args(parse_options(APP_ARGV + flags)),
+            num_epochs=trainer.cfg.epochs, steps_per_epoch=trainer.steps_per_epoch)
+        trainer.opt = opt = MaskedOptimizer(trainer.opt_cfg, trainer.params)
+        keys = MOMENTS[opt.cfg.optimizer_type]
+        host = {n: p.detach().cpu().clone() for n, p in trainer.params.items()}
+        host_opt = MaskedOptimizer(opt.cfg, host)
+        seen = {}
+        update = opt.update
+
+        def spy(grads, frozen_fn=None, clip_norm=0.0):
+            seen.update(grads={n: None if g is None else g.detach().clone()
+                               for n, g in grads.items()}, frozen=frozen_fn, clip=clip_norm)
+            return update(grads, frozen_fn, clip_norm)
+
+        opt.update = spy
+        batch = trainer.dataset.sample_batch(
+            trainer.rng, trainer.cfg.batch_size, trainer.cfg.num_rays_sampled_per_img,
+            "val" if stage.training_val_poses else "train")
+        t0 = time.perf_counter()
+        losses = trainer.train_step(stage, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        del opt.update
+        applied = host_opt.update({n: None if g is None else g.cpu()
+                                   for n, g in seen["grads"].items()},
+                                  seen["frozen"], seen["clip"])
+        errs = {"params": max(rel_err(p, host[n]) for n, p in trainer.params.items())}
+        for key in keys:
+            errs[key] = max(rel_err(t, getattr(host_opt, key)[n])
+                            for n, t in getattr(opt, key).items())
+        # a non-finite gradient: nothing moves
+        bad = {n: g for n, g in seen["grads"].items()}
+        first = next(n for n, g in bad.items() if g is not None)
+        bad[first] = bad[first].clone()
+        bad[first].view(-1)[0] = float("nan")
+        before = ({n: p.clone() for n, p in trainer.params.items()}, dict(opt.count),
+                  {k: dict(getattr(opt, k)) for k in keys})
+        skipped = not opt.update(bad, seen["frozen"], seen["clip"])
+        unchanged = (all(torch.equal(p, before[0][n]) for n, p in trainer.params.items())
+                     and opt.count == before[1]
+                     and all(getattr(opt, k)[n] is t for k in keys
+                             for n, t in before[2][k].items()))
+        fields["kinds"][name] = dict(
+            kind=opt.kind, applied=applied, counts_equal=opt.count == host_opt.count,
+            rel_err=errs, step_ms=step_ms, losses={k: float(v) for k, v in losses.items()},
+            nonfinite_skipped=skipped, nonfinite_unchanged=unchanged)
+        ok &= (applied and opt.count == host_opt.count and skipped and unchanged
+               and all(e <= 1e-6 for e in errs.values()))
+
+    dec0 = trainer.pipeline.nef.decoder_color
+    n = trainer.cfg.num_rays_sampled_per_img * trainer.pipeline.tracer_cfg.num_steps
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(dec0.hidden_0.kernel.shape[0], n, generator=gen)
+    fields["activations"] = {}
+    for act in ("sin", "selu", "gelu"):
+        dec = BasicDecoder(x.shape[0], dec0.lout.kernel.shape[1], dec0.hidden_0.kernel.shape[1],
+                           dec0.num_layers, activation=act, compute_dtype=dec0.compute_dtype)
+        dec.reset_parameters(torch.Generator().manual_seed(8))
+        pre = (torch.randn(dec0.hidden_0.kernel.shape[1], n, generator=gen) * 3).to(
+            dec0.compute_dtype)
+        want, got = dec.act(pre).float(), dec.act(pre.to(dev)).float().cpu()
+        # ulps of the larger of output and input: gelu's 1 + tanh cancels
+        # where tanh saturates, so an ulp of tanh there is one of the input
+        scale = torch.maximum(want.abs(), pre.float().abs()).clamp(min=2.0 ** -126)
+        ulp = 2.0 ** -23 * torch.exp2(torch.floor(torch.log2(scale)))
+        with torch.no_grad():
+            out_h = dec(x)
+            out_c = dec.to(dev)(x.to(dev)).cpu()
+        act_ulps = float(((got - want).abs() / ulp).max())
+        dec_err = float((out_c - out_h).abs().max())
+        tol = 1e-5 * float(out_h.abs().max())
+        fields["activations"][act] = dict(n=n, activation_max_ulps=act_ulps,
+                                          decoder_max_abs_err=dec_err, decoder_tol=tol)
+        ok &= act_ulps <= 4 and dec_err <= tol
+    with torch.no_grad():                   # back to the restored state
+        for n, p in trainer.params.items():
+            p.copy_(saved[n])
+    trainer.opt_cfg, trainer.opt = restored_opt
+    if not ok:
+        emit("optimizers", ok=False, **fields)
+        raise AssertionError(f"an optimizer or activation on the card vs the CPU: {fields}")
+    emit("optimizers", **fields)
+
+
+def phase_hp_sweep(dev):
+    """``python -m pagnerf_tpu_torch.main_hp_tunning`` on the tuned config:
+    two learning rates, rungs of 1 epoch, 2 rungs, 2 worker processes on
+    the card at once (the workers' lifetimes overlap). The results file
+    has 2 + 1 entries, all scored; the rung-1 trial resumed from its
+    rung-0 checkpoint (epoch 2 reached). Each worker's wall, peak memory
+    and launches (``<trial>_epoch<n>.worker.json``)."""
+    import subprocess
+
+    import numpy as np
+
+    out = app_root("hp_sweep")
+    cmd = [sys.executable, "-m", "pagnerf_tpu_torch.main_hp_tunning", "--config",
+           os.path.join(ROOT, CLI_CONFIG), "--out-dir", out, "--space",
+           '{"lr": [0.001, 0.005]}', "--rung-epochs", "1", "--num-rungs", "2",
+           "--num-workers", "2", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    fields = dict(config=CLI_CONFIG, command=" ".join(cmd[1:]), rc=proc.returncode,
+                  wall_s=wall)
+
+    def fail(msg):
+        emit("hp_sweep", ok=False, stderr=proc.stderr[-3000:], **fields)
+        raise AssertionError(msg)
+
+    if proc.returncode != 0:
+        fail(f"the sweep exited with {proc.returncode}")
+    with open(os.path.join(out, "sweep_results.json")) as f:
+        results = json.load(f)
+    workers = {}
+    for path in sorted(glob.glob(os.path.join(out, "*.worker.json"))):
+        with open(path) as f:
+            workers[os.path.basename(path)[:-len(".worker.json")]] = json.load(f)
+    fields.update(results=[{k: r[k] for k in ("trial", "rung", "config", "metric", "wall")}
+                           for r in results], workers=workers)
+    rung0 = [r["trial"] for r in results if r["rung"] == 0]
+    rung1 = [r["trial"] for r in results if r["rung"] == 1]
+    if len(rung0) != 2 or len(rung1) != 1 or rung1[0] not in rung0:
+        fail(f"results {fields['results']}")
+    if not all(r["metric"] is not None and np.isfinite(r["metric"]) for r in results):
+        fail("a trial failed or scored a non-finite metric")
+    first = [workers.get(f"{t}_epoch1") for t in rung0]
+    last = workers.get(f"{rung1[0]}_epoch2")
+    if None in first or last is None:
+        fail(f"worker records {sorted(workers)}")
+    if not max(w["start"] for w in first) < min(w["end"] for w in first):
+        fail("the two rung-0 workers did not run at the same time")
+    if last["epoch"] != 2 or last["resumed_epoch"] != 1:
+        fail(f"the rung-1 trial did not resume from rung 0: {last}")
+    on_card = dev.type == "cuda"
+    if not all(w["device"] == ("cuda:0" if on_card else "cpu") and (not on_card or (
+            w["launches"]["encode"] and w["launches"]["table_grad"]))
+            for w in first + [last]):
+        fail("a worker did not train on its device through the kernels")
+    emit("hp_sweep", **fields)
+    return {k: sum(w["launches"].get(k, 0) for w in workers.values()) for k in _launches()}
 
 
 BUP20_CONFIG = "configs/bup20/best.yaml"
@@ -2414,18 +2925,23 @@ def phase_bup20_variant(dev, flush, card, tree, name, seen):
 # the bup20 phase's tree: 2 epochs (RGB, then the panoptic heads), a
 # validation at val_mip 2 and the final one at mip 0. The `_app` configs'
 # window centre (index 10) lies beyond the tree's 6 labelled frames, so
-# they are centred on its index 5, best.yaml's (frame 47)
+# they are centred on its index 5, best.yaml's (frame 47). The three that
+# run no kernel validate at mip 2 at the end too (`--low-res-val`): their
+# final validations at mip 0 took 137 s of plain PyTorch, and the app
+# phases need that time within the script's run
 SLICE_FLAGS = ["--epochs", "2", "--sem-epoch-start", "1", "--valid-every", "2"]
 SLICE_VARIANTS = {
     "panoptic_nerf": dict(nef="MeanShiftPanopticNeF", grid="HashGrid", clustering=True,
                           flags=["--inst-epoch-start", "1"]),
     "mean_shift_app": dict(nef="MeanShiftPanopticNeF", grid="TriplanarGrid", clustering=True,
-                           flags=["--inst-epoch-start", "1", "--dataset-center-idx", "5"]),
+                           flags=["--inst-epoch-start", "1", "--dataset-center-idx", "5",
+                                  "--low-res-val"]),
     # its instance stage starts at 900: SemanticNeF has no instance head
     "semantic_nerf_app": dict(nef="SemanticNeF", grid=None,
-                              flags=["--dataset-center-idx", "5"]),
+                              flags=["--dataset-center-idx", "5", "--low-res-val"]),
     "panoptic_lifting_app": dict(nef="PanopticLiftingNeF", grid="TensoRFGrid",
-                                 flags=["--inst-epoch-start", "1", "--dataset-center-idx", "5"]),
+                                 flags=["--inst-epoch-start", "1", "--dataset-center-idx", "5",
+                                        "--low-res-val"]),
 }
 # the kernels the hash path must launch (recorded_gathers keeps a gather
 # under no_grad, a validation chunk's, as "gather_val")
@@ -2751,7 +3267,8 @@ def phase_bup20_slice(dev, flush, card, tree, name):
     """Main paths 10-13: ``BUP20_VARIANTS[name]`` (``SLICE_VARIANTS``) through ``cli.main`` over
     the bup20 phase's tree at its config's full width with ``SLICE_FLAGS``:
     an RGB epoch, a panoptic epoch, a validation at mip 2 and the final one
-    at mip 0. Launch counts set to 0 before and read after: on the hash
+    at mip 0 (at mip 2 where the variant's flags say ``--low-res-val``).
+    Launch counts set to 0 before and read after: on the hash
     grid (``panoptic_nerf``) the gathers and scatters the steps' cameras
     and the render chunks imply (``hash_launches``), on the others none.
     ``panoptic_nerf`` then: one panoptic microbatch with the train
@@ -2850,7 +3367,9 @@ def phase_bup20_slice(dev, flush, card, tree, name):
         fail("final metrics not finite or incomplete")
     w, h = BUP20_SIZE
     n_val = len(trainer.dataset.val_idxs)
-    want_images = [("val", 2, (n_val, h // 4, w // 4)), ("val", 0, (n_val, h, w))]
+    last_val = (2, h // 4, w // 4) if "--low-res-val" in flags else (0, h, w)
+    want_images = [("val", 2, (n_val, h // 4, w // 4)),
+                   ("val", last_val[0], (n_val, *last_val[1:]))]
     if images != want_images:
         fail(f"validated {images}, expected {want_images}")
     # each validation: the mean shift's clustering renders first (its
@@ -2990,7 +3509,14 @@ def main() -> None:
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
     paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
-    paths["cli"], cli_times = phase_cli(dev, flush_buf.zero_)
+    paths["cli"], cli_times, cli_ckpt = phase_cli(dev, flush_buf.zero_)
+    paths["render_views"] = phase_render_views(dev, cli_ckpt)
+    trainer = restored_trainer(dev, cli_ckpt)
+    phase_optimizers(dev, trainer)
+    paths["viewer"] = phase_viewer(dev, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    paths["hp_sweep"] = phase_hp_sweep(dev)
     paths["bup20"], bup20_times, tree = phase_bup20(dev, flush_buf.zero_, smi_line)
     seen = {(k, int(n)) for k, by_n in bup20_times.items() for n in by_n}
     variant_times = {}

@@ -9,8 +9,12 @@ runs). The flow is ``main.py``'s: a log directory per run
 (``<log_dir>/<exp_name or run>/<timestamp>``) with ``log.txt``,
 ``events.jsonl`` and the config snapshot ``config.yaml``; ``--pretrained``
 restores a checkpoint in ``--model-format``; then ``--valid-only`` runs one
-validation of ``--valid-split``, ``--save-map-only`` writes the point-cloud
-map to ``nerf_pc.pkl``, and otherwise the trainer trains, validating every
+validation of ``--valid-split``, ``--render-views`` renders every view's
+channel images to ``--render-views-dir`` (default ``<run dir>/views``;
+``app/orbit_renderer.py``) and returns them, ``--viewer`` serves the HTTP
+viewer on ``--viewer-port`` until interrupted (``app/viewer_server.py``),
+``--save-map-only`` writes the point-cloud map to ``nerf_pc.pkl``, and
+otherwise the trainer trains, validating every
 ``valid_every`` epochs and checkpointing to ``model.ckpt`` every
 ``save_every``, then writes a final checkpoint and runs a final validation.
 Returns the metrics of the last validation (or the map). With ``--perf``
@@ -24,13 +28,10 @@ its wall on the host clock, to ``perf.jsonl`` in the run directory.
 ``--validate-dataset`` (with ``--validate-dataset-deep``: every frame
 opened) walks the tree at ``--dataset-path`` without training and without a
 device, prints the report of ``data/validate.py`` and returns the number of
-errors, which is also the command's exit code:
+errors; the command exits with 1 when there is any, as ``main.py`` does:
 
     python -m pagnerf_tpu_torch.cli --config configs/bup20/best.yaml \
         --dataset-path <dir>/BUP_20 --validate-dataset
-
-``--render-views`` and ``--viewer`` raise ``NotImplementedError``
-(``ROADMAP.md`` Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import time
 from typing import Optional, Sequence
 
 from .config.config import build_parser, config_to_yaml, parse_options
-from .config.factory import get_modules_from_config, roadmap_item
+from .config.factory import get_modules_from_config
 from .data.validate import run_validation
 from .device import resolve_device
 from .train import checkpoint
@@ -68,10 +69,6 @@ def main(argv: Optional[Sequence[str]] = None, **trainer_fields):
     if args.validate_dataset:
         return run_validation(args)
     dev = resolve_device(device)
-    for flag in ("render_views", "viewer"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet ({roadmap_item(7)})")
 
     stamp = time.strftime("%Y%m%d-%H%M%S")
     log_dir = os.path.join(args.log_dir, args.exp_name or "run", stamp)
@@ -106,6 +103,20 @@ def main(argv: Optional[Sequence[str]] = None, **trainer_fields):
         writer.close()
         return metrics
 
+    if args.render_views:
+        from .app.orbit_renderer import render_orbit
+        out_dir = args.render_views_dir or os.path.join(log_dir, "views")
+        frames = render_orbit(trainer, out_dir)
+        log.info("rendered %d views x %d channels to %s",
+                 len(next(iter(frames.values()), [])), len(frames), out_dir)
+        writer.close()
+        return frames
+
+    if args.viewer:
+        from .app.viewer_server import serve
+        writer.close()
+        return serve(trainer, port=args.viewer_port)
+
     if args.save_map_only:
         out = generate_pc_map_from_views(trainer, mip=2)
         with open(os.path.join(log_dir, "nerf_pc.pkl"), "wb") as f:
@@ -138,4 +149,4 @@ def main(argv: Optional[Sequence[str]] = None, **trainer_fields):
 if __name__ == "__main__":
     ret = main()
     if isinstance(ret, int):
-        sys.exit(min(ret, 255))
+        sys.exit(min(ret, 1))

@@ -54,9 +54,6 @@ from .config import register_class, str2mod
 
 log = logging.getLogger(__name__)
 
-def roadmap_item(n: int) -> str:
-    return f"ROADMAP.md Queue 1 item {n}"
-
 
 def register_default_classes() -> None:
     for cls in (PanopticNeF, PanopticDeltaNeF, PanopticDDensityNeF, MeanShiftPanopticNeF,

@@ -36,6 +36,25 @@ def params_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]
     return state
 
 
+def _group_state(group: str, inner: Mapping):
+    """(kind, count, first inner state) of one group's optax chain:
+    adam ``(ScaleByAdamState, ScaleByScheduleState)``, adamw ``(..Adam..,
+    AddDecayedWeightsState (empty), ..Schedule..)``, sgd ``(EmptyState,
+    ..Schedule..)``, rmsprop ``(ScaleByRmsState, ..Schedule.., EmptyState)``.
+    Every count in the chain must agree: they advance together, and the
+    JAX trainer's prune carries them over together."""
+    chain = inner["inner_state"]
+    first = chain["0"]
+    if "mu" in first:
+        kind = "adamw" if "2" in chain else "adam"
+    else:
+        kind = "rmsprop" if "nu" in first else "sgd"
+    counts = {k: int(st["count"]) for k, st in chain.items() if "count" in st}
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"group {group}: the counts of its chain differ: {counts}")
+    return kind, counts["1" if kind in ("sgd", "rmsprop") else "0"], first
+
+
 def state_from_jax(state: Mapping) -> Dict:
     """A checkpoint state of the JAX package (the dict that
     ``flax.serialization.msgpack_restore`` reads from its file: nested dicts
@@ -43,30 +62,32 @@ def state_from_jax(state: Mapping) -> Dict:
     (``train.checkpoint.trainer_state``'s layout), for
     ``train.checkpoint.load_state``.
 
-    The optax state is ``multi_transform``'s: per group an inner state of
-    (Adam: count, mu, nu; schedule: count). Adam's moments cover only the
-    group's parameters; the port keeps one moment per parameter and one
-    count per group, so both counts of a group must agree (they advance
-    together, and the JAX trainer's prune carries them over together)."""
+    The optax state is ``multi_transform``'s: per group an inner chain
+    (``_group_state``) whose first state holds the moments of the group's
+    parameters; the port keeps one moment per parameter and one count per
+    group. The kind is that of the groups, ``adamw`` where a group decays
+    (the grid groups under adam with weight decay; the others are adam)."""
     params = params_from_flax(state["params"])
-    mu: Dict[str, torch.Tensor] = {}
-    nu: Dict[str, torch.Tensor] = {}
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
     count: Dict[str, int] = {}
+    kinds = set()
     for group, inner in state["opt_state"]["inner_states"].items():
-        adam, sched = inner["inner_state"]["0"], inner["inner_state"]["1"]
-        counts = {int(adam["count"]), int(sched["count"])}
-        if len(counts) != 1:
-            raise ValueError(f"group {group}: Adam count {int(adam['count'])} and "
-                             f"schedule count {int(sched['count'])} differ")
-        count[group] = counts.pop()
-        mu.update(params_from_flax(adam.get("mu") or {}))
-        nu.update(params_from_flax(adam.get("nu") or {}))
-    for name, p in params.items():      # a parameter of no group's moments
-        mu.setdefault(name, torch.zeros_like(p))
-        nu.setdefault(name, torch.zeros_like(p))
+        kind, count[group], first = _group_state(group, inner)
+        kinds.add(kind)
+        for key in ("mu", "nu"):
+            if key in first:
+                moments.setdefault(key, {}).update(params_from_flax(first[key] or {}))
+    # adamw's groups beside plain adam ones are one optimizer
+    one = kinds - {"adam"} if "adamw" in kinds else kinds
+    if len(one) != 1:
+        raise ValueError(f"the groups' optimizers differ: {sorted(kinds)}")
+    kind = one.pop()
+    for moment in moments.values():     # a parameter of no group's moments
+        for name, p in params.items():
+            moment.setdefault(name, torch.zeros_like(p))
     out = {
         "params": params,
-        "opt_state": {"count": count, "mu": mu, "nu": nu},
+        "opt_state": {"kind": kind, "count": count, **moments},
         "occupancy": torch.from_numpy(np.array(state["occupancy"], dtype=np.float32)),
         "occ_mask": torch.from_numpy(np.array(state["occ_mask"], dtype=bool)),
         "occ_level": int(state["occ_level"]),

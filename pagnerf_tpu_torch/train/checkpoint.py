@@ -1,7 +1,8 @@
 """Checkpoints (counterpart of ``pagnerf_tpu/train/checkpoint.py``).
 
-The state is what the JAX package keeps: the parameters, each group's Adam
-moments and count, the occupancy (accumulator, mask, level), the LoD
+The state is what the JAX package keeps: the parameters, the optimizer's
+state (its kind, each group's count and the kind's moments: Adam's ``mu``
+and ``nu``, RMSprop's ``nu``, none for SGD), the occupancy (accumulator, mask, level), the LoD
 weights, the epoch (the next one to run), the global step and the prune
 flags (``pruned``, ``real_pruned``, ``occ_frac``). No random-generator state
 is kept: a resumed trainer re-seeds, as the JAX one does.
@@ -27,7 +28,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from ..ops.occupancy import OccupancyGrid
-from .optimizer import MaskedAdam
+from .optimizer import MOMENTS, MaskedOptimizer
 
 log = logging.getLogger(__name__)
 
@@ -43,9 +44,8 @@ def trainer_state(trainer) -> Dict:
     opt = trainer.opt
     return {
         "params": {n: _cpu(p) for n, p in trainer.params.items()},
-        "opt_state": {"count": dict(opt.count),
-                      "mu": {n: _cpu(t) for n, t in opt.mu.items()},
-                      "nu": {n: _cpu(t) for n, t in opt.nu.items()}},
+        "opt_state": {k: ({n: _cpu(t) for n, t in v.items()} if k in ("mu", "nu") else v)
+                      for k, v in opt.state().items()},
         "occupancy": _cpu(trainer.occ.occupancy),
         "occ_mask": _cpu(trainer.occ.mask),
         "occ_level": int(trainer.occ.level),
@@ -122,18 +122,24 @@ def _partial_merge(current: Mapping[str, torch.Tensor], loaded: Mapping[str, tor
 
 
 def _restore_optimizer(trainer, opt_state: Mapping) -> None:
+    """The saved optimizer state, or, where its kind, groups, parameters or
+    shapes differ from the trainer's optimizer, a fresh optimizer of the
+    trainer's own kind (the JAX package's "incompatible; reinitialised").
+    A state saved without its kind is Adam's."""
     opt = trainer.opt
-    mu, nu, count = opt_state["mu"], opt_state["nu"], opt_state["count"]
-    if (set(mu) != set(opt.mu) or set(nu) != set(opt.nu) or set(count) != set(opt.count)
-            or any(tuple(mu[n].shape) != tuple(opt.mu[n].shape)
-                   or tuple(nu[n].shape) != tuple(opt.nu[n].shape) for n in opt.mu)):
+    keys = MOMENTS[opt.cfg.optimizer_type]
+    if (opt_state.get("kind", "adam") != opt.kind or set(opt_state["count"]) != set(opt.count)
+            or any(key not in opt_state or set(opt_state[key]) != set(getattr(opt, key))
+                   or any(tuple(opt_state[key][n].shape) != tuple(t.shape)
+                          for n, t in getattr(opt, key).items()) for key in keys)):
         log.warning("optimizer state incompatible; reinitialised")
-        trainer.opt = MaskedAdam(trainer.opt_cfg, trainer.params)
+        trainer.opt = MaskedOptimizer(trainer.opt_cfg, trainer.params)
         return
     dev = trainer.device
-    opt.mu = {n: mu[n].to(dev, torch.float32) for n in opt.mu}
-    opt.nu = {n: nu[n].to(dev, torch.float32) for n in opt.nu}
-    opt.count = {g: int(count[g]) for g in opt.count}
+    for key in keys:
+        setattr(opt, key, {n: opt_state[key][n].to(dev, torch.float32)
+                           for n in getattr(opt, key)})
+    opt.count = {g: int(opt_state["count"][g]) for g in opt.count}
 
 
 def _match_tensorf_resolution(trainer, params: Mapping[str, torch.Tensor]) -> None:

@@ -1,17 +1,28 @@
-"""Optimizer: per-group learning rates and the masked Adam update
+"""Optimizer: per-group learning rates and the masked update
 (counterpart of ``pagnerf_tpu/train/optimizer.py``).
 
 Parameters are grouped by name (``label_for_path``: decoder, sem, inst,
 delta_grid, grid, rest, extrinsics) with per-group learning rates: the grids
-at lr x 100, the extrinsics at 1e-4. Each group runs Adam (eps = 1e-15) with
-its own step count, as optax's ``multi_transform`` keeps one count per
-group. ``torch.optim.Adam`` cannot stand in: it keeps a count per parameter
-and skips parameters whose gradient is None, so its bias correction drifts
-from the JAX package's after a frozen span or a stage that leaves a head
-unused. Here a missing gradient is a zero gradient, as it is in JAX.
+at lr x 100, the extrinsics at 1e-4. Each group has its own step count, as
+optax's ``multi_transform`` keeps one count per group, and runs the
+``optimizer_type`` of the config, as the JAX package's ``_group_tx`` builds
+it:
+- ``adam``: Adam (eps = 1e-15); with ``weight_decay`` > 0 the ``grid`` and
+  ``delta_grid`` groups run ``optax.adamw`` instead, whose update is
+  ``-lr * (adam_step + weight_decay * p)``;
+- ``sgd``: ``optax.sgd``, ``-lr * g``, no momentum, no state but the count;
+- ``rmsprop``: ``optax.rmsprop`` at its defaults, ``nu = 0.9 nu + 0.1 g^2``
+  and ``-lr * g * rsqrt(nu + 1e-8)``: no momentum, not centred, no bias
+  correction.
+``weight_decay`` acts only under ``adam``: sgd and rmsprop ignore it, as
+the JAX package's do. ``torch.optim`` cannot stand in: it keeps a count
+per parameter and skips parameters whose gradient is None, so Adam's bias
+correction drifts from the JAX package's after a frozen span or a stage
+that leaves a head unused. Here a missing gradient is a zero gradient, as
+it is in JAX.
 
-``MaskedAdam.update`` is ``masked_update``:
-- frozen parameters (``frozen_fn(name)``) keep their values and their Adam
+``MaskedOptimizer.update`` is ``masked_update``:
+- frozen parameters (``frozen_fn(name)``) keep their values and their
   moments, while their group's count advances;
 - a global-norm clip (``clip_grad_norm > 0``) scales all gradients after the
   freeze zeroing;
@@ -25,9 +36,6 @@ constant, or with ``use_lr_scheduler`` the ``step``, ``one_cycle`` and
 count *before* the update increments it, while Adam's bias correction uses
 the incremented count. The counts run on across ``reset_moments``; a skipped
 step changes no count, so it moves no schedule either.
-
-Ported: Adam with every schedule. The other optimizers and weight decay
-raise.
 """
 from __future__ import annotations
 
@@ -165,24 +173,41 @@ def lr_schedule(cfg: OptimizerConfig, group: str) -> Schedule:
     raise ValueError(f"unknown lr scheduler {kind!r}")
 
 
-class MaskedAdam:
-    """Adam over named parameters, one step count per group (the JAX
-    package's ``build_optimizer`` + ``masked_update``)."""
+OPTIMIZER_TYPES = ("adam", "sgd", "rmsprop")
+# the moments each optimizer type keeps per parameter, beside the counts
+MOMENTS = {"adam": ("mu", "nu"), "sgd": (), "rmsprop": ("nu",)}
+DECAYED_GROUPS = ("grid", "delta_grid")
+_RMS_DECAY, _RMS_EPS = 0.9, 1e-8
+
+
+class MaskedOptimizer:
+    """The config's optimizer over named parameters, one step count per
+    group (the JAX package's ``build_optimizer`` + ``masked_update``).
+    ``mu`` and ``nu`` hold the moments of the type (``MOMENTS``); a type
+    that keeps none has them empty. ``kind`` names the state checkpoints
+    keep: ``adamw`` for adam with weight decay (its decayed groups' optax
+    state has one more entry, so the JAX package reinitialises an adam
+    state loaded into it, and back), else ``optimizer_type``."""
 
     def __init__(self, cfg: OptimizerConfig,
                  params: Mapping[str, torch.Tensor]):
-        unported = [name for name, on in (
-            (f"optimizer_type={cfg.optimizer_type!r}", cfg.optimizer_type != "adam"),
-            ("weight_decay", cfg.weight_decay > 0)) if on]
-        if unported:
-            raise NotImplementedError(f"optimizer settings not ported yet: {unported}")
+        if cfg.optimizer_type not in OPTIMIZER_TYPES:
+            raise ValueError(f"unknown optimizer '{cfg.optimizer_type}'")
         self.cfg = cfg
+        self.kind = ("adamw" if cfg.optimizer_type == "adam" and cfg.weight_decay > 0
+                     else cfg.optimizer_type)
         self.params = dict(params)
         self.group = {name: label_for_path(name) for name in self.params}
         self.schedule = {g: lr_schedule(cfg, g) for g in GROUPS}
         self.count = {g: 0 for g in GROUPS}
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.mu: Dict[str, torch.Tensor] = {}
+        self.nu: Dict[str, torch.Tensor] = {}
+        self.reset_moments()
+
+    def _decay(self, group: str) -> float:
+        """The group's weight decay: adamw's, on the grid groups only."""
+        return self.cfg.weight_decay if (self.kind == "adamw"
+                                         and group in DECAYED_GROUPS) else 0.0
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, Optional[torch.Tensor]],
@@ -213,15 +238,25 @@ class MaskedAdam:
             if n in frozen:
                 continue
             grp = self.group[n]
-            t = self.count[grp]
-            mu = g[n] * (1 - _B1) + self.mu[n] * _B1
-            nu = (g[n] * g[n]) * (1 - _B2) + self.nu[n] * _B2
-            bc1 = 1 - torch.tensor(_B1, dtype=torch.float32) ** t
-            bc2 = 1 - torch.tensor(_B2, dtype=torch.float32) ** t
-            step = (mu / bc1.to(mu.device)) / (
-                torch.sqrt(nu / bc2.to(nu.device)) + self.cfg.eps)
+            if self.kind == "sgd":
+                step = g[n]
+            elif self.kind == "rmsprop":
+                nu = (g[n] * g[n]) * (1 - _RMS_DECAY) + self.nu[n] * _RMS_DECAY
+                step = torch.rsqrt(nu + _RMS_EPS) * g[n]
+                self.nu[n] = nu
+            else:
+                t = self.count[grp]
+                mu = g[n] * (1 - _B1) + self.mu[n] * _B1
+                nu = (g[n] * g[n]) * (1 - _B2) + self.nu[n] * _B2
+                bc1 = 1 - torch.tensor(_B1, dtype=torch.float32) ** t
+                bc2 = 1 - torch.tensor(_B2, dtype=torch.float32) ** t
+                step = (mu / bc1.to(mu.device)) / (
+                    torch.sqrt(nu / bc2.to(nu.device)) + self.cfg.eps)
+                wd = self._decay(grp)
+                if wd:
+                    step = step + p * wd
+                self.mu[n], self.nu[n] = mu, nu
             p.add_(step * neg_lr[grp].to(step.device))
-            self.mu[n], self.nu[n] = mu, nu
         return True
 
     def lr(self, group: str) -> float:
@@ -229,15 +264,16 @@ class MaskedAdam:
         return self.schedule[group](self.count[group])
 
     def reset_moments(self) -> None:
-        """Zero every Adam moment and keep each group's count, as the JAX
+        """Zero every moment and keep each group's count, as the JAX
         trainer's ``_reinit_opt_state`` does after a prune: a fresh optimizer
         would restart the counts, and with them any schedule read from them.
         The moments take the parameters' current shapes (the TensoRF
         upsampling replaces its factors)."""
-        for n, p in self.params.items():
-            self.mu[n] = torch.zeros_like(p)
-            self.nu[n] = torch.zeros_like(p)
+        for key in MOMENTS[self.cfg.optimizer_type]:
+            setattr(self, key, {n: torch.zeros_like(p) for n, p in self.params.items()})
 
     def state(self) -> Dict:
-        """Counts and moments (for tests and checkpoints)."""
-        return {"count": dict(self.count), "mu": self.mu, "nu": self.nu}
+        """The kind, the counts and the kind's moments (for tests and
+        checkpoints)."""
+        return {"kind": self.kind, "count": dict(self.count),
+                **{key: getattr(self, key) for key in MOMENTS[self.cfg.optimizer_type]}}

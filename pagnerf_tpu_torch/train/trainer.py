@@ -60,7 +60,7 @@ from ..ops.occupancy import OccupancyGrid
 from ..ops.raymarch import raymarch
 from ..utils.lod_annealing import constant_lod_weights, lod_weights
 from ..utils.logging_utils import PerfTimer
-from .optimizer import MaskedAdam, OptimizerConfig
+from .optimizer import MaskedOptimizer, OptimizerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +213,7 @@ class PanopticTrainer:
         self.draw_normal = lambda shape: torch.randn(
             tuple(shape), generator=self.generator, device=self.device)
         self.params = dict(pipeline.named_parameters())
-        self.opt = MaskedAdam(self.opt_cfg, self.params)
+        self.opt = MaskedOptimizer(self.opt_cfg, self.params)
         self.occ = OccupancyGrid.create(level=occ_level, device=self.device)
         nef = pipeline.nef
         self.lod_w = torch.from_numpy(constant_lod_weights(

@@ -3,9 +3,10 @@ label, instance and depth colouring, PNG frames and per-channel videos.
 
 ``label_colormap``, ``label2rgb`` and ``depth2rgb`` are numpy copies of the
 JAX package's. The card's machine has neither PIL nor imageio, so
-``write_png`` encodes the PNG with the standard library (``zlib``,
-``struct``), and ``write_video`` writes the strip of PNG frames that the
-JAX package writes when imageio is missing.
+``png_bytes`` encodes a PNG with the standard library (``zlib``,
+``struct``; the viewer serves its bytes), ``write_png`` writes them, and
+``write_video`` writes the strip of PNG frames that the JAX package writes
+when imageio is missing.
 """
 from __future__ import annotations
 
@@ -87,12 +88,11 @@ def _paeth_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
-def write_png(path: str, img: np.ndarray, paeth: bool = False):
+def png_bytes(img: np.ndarray, paeth: bool = False) -> bytes:
     """uint8 (or [0, 1] float) image [H, W], [H, W, 3] or [H, W, 4] -> an
     8-bit grey, RGB or RGBA PNG; a uint16 [H, W] image -> a 16-bit grey
     PNG (big-endian samples). Every row unfiltered, or with ``paeth`` every
     row Paeth-filtered (the filter a reader must undo pixel by pixel)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if img.dtype == np.uint16:
         if img.ndim != 2:
             raise ValueError(f"a 16-bit PNG is written from [H, W], not {img.shape}")
@@ -109,13 +109,21 @@ def write_png(path: str, img: np.ndarray, paeth: bool = False):
     ftype = np.full((h, 1), 4 if paeth else 0, np.uint8)
     raw = np.concatenate([ftype, rows], axis=1).tobytes()
     header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(raw)) + _png_chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, paeth: bool = False):
+    """``png_bytes(img, paeth)`` written to ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    data = png_bytes(img, paeth)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
-                + _png_chunk(b"IDAT", zlib.compress(raw)) + _png_chunk(b"IEND", b""))
+        f.write(data)
 
 
-def write_video(path: str, frames: Sequence[np.ndarray]):
-    """Frames -> ``<path without extension>_<i:04d>.png``, one PNG per frame."""
+def write_video(path: str, frames: Sequence[np.ndarray], fps: int = 15):
+    """Frames -> ``<path without extension>_<i:04d>.png``, one PNG per frame
+    (``fps``, the JAX signature's frame rate, has no use in a PNG strip)."""
     base = os.path.splitext(path)[0]
     for i, f in enumerate(frames):
         write_png(f"{base}_{i:04d}.png", f)

@@ -10,9 +10,11 @@ script's helpers, on the CPU.
 - ``--valid-only --pretrained`` that checkpoint reproduces the final
   validation's metrics exactly (the render time apart); ``--save-map-only``
   writes the point-cloud map.
-- Without a card and without ``--device cpu`` it refuses; the unported
-  entry flags raise ``NotImplementedError``; ``--validate-dataset``
-  refuses only a format it cannot check.
+- Without a card and without ``--device cpu`` it refuses; the entry flags
+  run their modes: ``--render-views`` writes every view's channel PNGs
+  under ``<run dir>/views``, ``--viewer`` serves (its loop patched to
+  return); ``--validate-dataset`` refuses only a format it cannot check,
+  and as a command exits with 1 on any error, as ``main.py`` does.
 - ``quality_run``'s record reader, the stages' labels, its summary of the
   timer's records, and ``pose_drift`` on a checkpoint with a camera turned
   by a known angle.
@@ -133,17 +135,29 @@ def test_cli_refuses_without_a_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--render-views", "--viewer", "--validate-dataset"])
-def test_cli_refuses_unported_entry_flags(flag, tmp_path, capsys):
+def test_cli_refuses_unported_entry_flags(flag, tmp_path, capsys, monkeypatch):
+    """Each entry flag runs its mode (none is refused since the apps are
+    ported; the name is kept)."""
     argv = ["--config", TINY, "--device", "cpu", "--log-dir", str(tmp_path), flag]
     if flag == "--validate-dataset":
-        # ported: it refuses only a format the validator does not know, with
-        # one error, as the JAX package's run_validation does
+        # it refuses only a format the validator does not know, with one
+        # error, as the JAX package's run_validation does
         assert cli.main(argv + ["--multiview-dataset-format", "replica"]) == 1
         assert "does not support format 'replica'" in capsys.readouterr().out
         assert cli.main(argv) == 0 and not os.listdir(tmp_path)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        cli.main(argv)
+    if flag == "--viewer":
+        from http.server import ThreadingHTTPServer
+        monkeypatch.setattr(ThreadingHTTPServer, "serve_forever", lambda self, *a, **k: None)
+        assert cli.main(argv + ["--viewer-port", "0"]) is None
+        assert "# viewer: http://0.0.0.0:" in capsys.readouterr().out
+        return
+    frames = cli.main(argv)
+    views = os.path.join(run_dir(tmp_path), "views")
+    assert sorted(frames) == ["depth", "instance", "rgb", "semantics"]
+    n = len(frames["rgb"])
+    assert n >= 2 and all(len(f) == n for f in frames.values())
+    assert len(glob.glob(os.path.join(views, "*_*.png"))) == 4 * n
 
 
 def test_device_flag_is_split_off():

@@ -257,8 +257,19 @@ def test_trainer_still_refuses_unported_stages(extra):
 
 @pytest.mark.parametrize("extra", [("--optimizer-type", "sgd"), ("--weight-decay", "0.1")])
 def test_optimizer_still_refuses_other_optimizers(extra):
-    with pytest.raises(NotImplementedError, match="optimizer settings not ported"):
-        factory_t.get_modules_from_config(_args(*extra), "cpu")
+    """Nothing is refused since the other optimizers and weight decay are
+    ported (the name is kept): the factory builds the optimizer the flags
+    name, SGD, or Adam with the grid groups' decay (``adamw``)."""
+    _, _, trainer = factory_t.get_modules_from_config(_args(*extra), "cpu")
+    opt = trainer.opt
+    if extra[0] == "--optimizer-type":
+        assert (opt.cfg.optimizer_type, opt.kind, opt.mu, opt.nu) == ("sgd", "sgd", {}, {})
+        assert sorted(opt.state()) == ["count", "kind"]
+    else:
+        assert (opt.cfg.weight_decay, opt.kind) == (0.1, "adamw")
+        assert opt._decay("grid") == opt._decay("delta_grid") == 0.1
+        assert opt._decay("decoder") == opt._decay("extrinsics") == 0.0
+        assert set(opt.mu) == set(opt.nu) == set(trainer.params)
 
 
 def test_argparse_namespace_type():

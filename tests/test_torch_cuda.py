@@ -1101,3 +1101,100 @@ def test_v4_scatter_keeps_its_contract_beside_the_window_modes(dev, f):
         _assert_scatter_close(single, idx, bary, g_a, c, rows_used)
         _assert_scatter_close(da, idx, bary, g_a, c, rows_used)
         _assert_scatter_close(db, idx, bary, g_b, c, rows_used)
+
+
+# ------------------------------------------------ optimizers, activations, viewer
+def _rel_close(a, b, tol, what):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    bound = tol * torch.clamp(b.abs(), min=1.0)
+    assert bool(((a - b).abs() <= bound).all()), (what, float((a - b).abs().max()))
+
+
+@pytest.mark.parametrize("kw", [{}, {"weight_decay": 1e-2}, {"optimizer_type": "sgd"},
+                                {"optimizer_type": "rmsprop"}],
+                         ids=["adam", "adamw", "sgd", "rmsprop"])
+def test_optimizer_update_on_card_matches_cpu(dev, kw):
+    """Four masked steps (the second skipped on a non-finite gradient, the
+    third with the extrinsics frozen, all under a global-norm clip) on the
+    card and on CPU copies: parameters and state within 1e-6 relative; the
+    skipped step bit-equal."""
+    from pagnerf_tpu_torch.train.optimizer import MOMENTS, MaskedOptimizer, OptimizerConfig
+    cfg = OptimizerConfig(clip_grad_norm=50.0, **kw)
+    g = torch.Generator().manual_seed(0)
+    shapes = {"nef.grid.tables": (4, 4096, 2), "nef.delta_grid.tables": (4, 4096, 2),
+              "nef.decoder_color.hidden_0.kernel": (32, 64), "extrinsics": (8, 9)}
+    init = {n: torch.randn(s, generator=g) for n, s in shapes.items()}
+    p_c = {n: v.clone().to(dev) for n, v in init.items()}
+    p_h = {n: v.clone() for n, v in init.items()}
+    opt_c, opt_h = MaskedOptimizer(cfg, p_c), MaskedOptimizer(cfg, p_h)
+    for step in range(4):
+        grads = {n: torch.randn(s, generator=g) for n, s in shapes.items()}
+        if step == 1:
+            grads["nef.grid.tables"][0, 0, 0] = float("nan")
+            before = {n: p.clone() for n, p in p_c.items()}
+        frozen = (lambda n: n.startswith("extrinsics")) if step == 2 else None
+        applied = opt_c.update({n: v.to(dev) for n, v in grads.items()}, frozen, 50.0)
+        assert applied == opt_h.update(grads, frozen, 50.0) == (step != 1)
+        if step == 1:
+            assert all(torch.equal(p_c[n], before[n]) for n in p_c)
+        for n in shapes:
+            _rel_close(p_c[n], p_h[n], 1e-6, f"{opt_c.kind} step {step} {n}")
+            for key in MOMENTS[cfg.optimizer_type]:
+                _rel_close(getattr(opt_c, key)[n], getattr(opt_h, key)[n], 1e-6, key)
+    assert opt_c.count == opt_h.count == {grp: 3 for grp in opt_c.count}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["sin", "selu", "gelu"])
+def test_decoder_activation_on_card_matches_cpu(dev, activation, dtype):
+    """The activation on the same pre-activations within one bfloat16 ulp,
+    or 4 float32 ulp (CUDA's ``sinf`` / ``tanhf`` are within 2, the CPU's
+    within 1), of the larger of output and input (gelu's ``1 + tanh``
+    cancels where tanh saturates); the decoder within 1e-5 of its largest
+    output (float32) or the bf16 matmul bound of 3e-2."""
+    from pagnerf_tpu_torch.models.decoder import BasicDecoder
+    dec = BasicDecoder(32, 8, 64, 2, activation=activation, compute_dtype=dtype)
+    dec.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.randn(32, 4096, generator=torch.Generator().manual_seed(2)) * 2
+    pre = (torch.randn(64, 4096, generator=torch.Generator().manual_seed(3)) * 3).to(dtype)
+    want, got = dec.act(pre).float(), dec.act(pre.to(dev)).float().cpu()
+    eps = 2.0 ** -7 if dtype == torch.bfloat16 else 4 * 2.0 ** -23
+    scale = torch.maximum(want.abs(), pre.float().abs()).clamp(min=2.0 ** -126)
+    ulp = eps * torch.exp2(torch.floor(torch.log2(scale)))
+    assert bool(((got - want).abs() <= ulp).all()), activation
+    with torch.no_grad():
+        out_h = dec(x)
+        out_c = dec.to(dev)(x.to(dev)).cpu()
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5 * float(out_h.abs().max())
+    assert float((out_c - out_h).abs().max()) <= tol, activation
+
+
+def test_viewer_frame_on_card_matches_cpu(dev, tmp_path):
+    """One viewer frame per channel of the tiny flagship served from the
+    card: a PNG equal to the rendered array, rgb within 1 level and depth
+    colours within 2 of the same trainer on the CPU."""
+    import threading
+    import urllib.request
+
+    from pagnerf_tpu_torch import entry
+    from pagnerf_tpu_torch.app.viewer_server import make_server
+    from pagnerf_tpu_torch.data.image_io import read_png
+    from pagnerf_tpu_torch.train.trainer import PanopticTrainer, TrainerConfig
+    trainers = [PanopticTrainer(*entry.flagship(tiny=True, device=d,
+                                                compute_dtype=torch.float32),
+                                TrainerConfig(epochs=2)) for d in (dev, "cpu")]
+    server, state = make_server(trainers[0], host="127.0.0.1", port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/api/frame?view=1&channel="
+        for channel, tol in (("rgb", 1), ("depth", 2)):
+            with urllib.request.urlopen(url + channel, timeout=300) as r:
+                (tmp_path / "f.png").write_bytes(r.read())
+            img = read_png(str(tmp_path / "f.png"))
+            assert np.array_equal(img, state.frame(1, channel))
+            from pagnerf_tpu_torch.app.orbit_renderer import render_channels_for_view
+            want = render_channels_for_view(trainers[1], 1)[channel]
+            assert np.abs(img.astype(int) - want.astype(int)).max() <= tol, channel
+    finally:
+        server.shutdown()
+        server.server_close()

@@ -72,7 +72,7 @@ def test_masked_adam_matches_jax(case):
     state_j = tx.init(params_j)
     names = {k: k.replace("/", ".") for k in SHAPES}
     params_t = {names[k]: torch.from_numpy(v.copy()) for k, v in init.items()}
-    adam = opt_t.MaskedAdam(opt_t.OptimizerConfig(**cfg_kw), params_t)
+    adam = opt_t.MaskedOptimizer(opt_t.OptimizerConfig(**cfg_kw), params_t)
 
     for step in range(3):
         g = _grads(rng, step, case)
@@ -125,9 +125,15 @@ def test_group_labels_and_rates():
 
 
 def test_unported_settings_raise():
+    """Only an optimizer neither package knows raises (the name is kept):
+    sgd, rmsprop and weight decay are ported (tests/test_torch_optimizers.py),
+    as are the learning-rate schedules (tests/test_torch_schedules.py)."""
     p = {"w": torch.zeros(2)}
-    for kw in ({"optimizer_type": "sgd"}, {"weight_decay": 0.1}):
-        with pytest.raises(NotImplementedError):
-            opt_t.MaskedAdam(opt_t.OptimizerConfig(**kw), p)
-    # ported since: the learning-rate schedules (tests/test_torch_schedules.py)
-    opt_t.MaskedAdam(opt_t.OptimizerConfig(use_lr_scheduler=True), p)
+    with pytest.raises(ValueError, match="unknown optimizer 'lamb'"):
+        opt_t.MaskedOptimizer(opt_t.OptimizerConfig(optimizer_type="lamb"), p)
+    with pytest.raises(ValueError, match="unknown optimizer 'lamb'"):
+        opt_j._group_tx(opt_j.OptimizerConfig(optimizer_type="lamb"), "grid")
+    for kw, kind in (({"optimizer_type": "sgd"}, "sgd"), ({"weight_decay": 0.1}, "adamw"),
+                     ({"optimizer_type": "rmsprop", "weight_decay": 0.1}, "rmsprop"),
+                     ({"use_lr_scheduler": True}, "adam")):
+        assert opt_t.MaskedOptimizer(opt_t.OptimizerConfig(**kw), p).kind == kind

@@ -5,7 +5,7 @@ per-ray compaction against the JAX package, on the CPU.
 - ``update_from_density`` over decay, ``monotone`` and ``dilate`` in {0, 1,
   2}, from the same accumulator, mask and density: accumulator and mask
   exactly equal (the 3^3 max of a dilation is ``F.max_pool3d``).
-- ``MaskedAdam.reset_moments``: moments zero, counts kept, as the JAX
+- ``MaskedOptimizer.reset_moments``: moments zero, counts kept, as the JAX
   trainer's ``_reinit_opt_state`` leaves its state after a prune.
 - ``PanopticTrainer.prune`` (real, seed with the keep floor, refresh) on the
   tiny flagship given the JAX trainer's draws, the field of

@@ -106,7 +106,7 @@ def test_lr_at_every_step_matches_optax(name):
     tx = opt_j.build_optimizer(cfg_j, params_j)
     state = tx.init(params_j)
     params_t = {k.replace("/", "."): torch.from_numpy(v.copy()) for k, v in p0.items()}
-    opt = opt_t.MaskedAdam(cfg_t, params_t)
+    opt = opt_t.MaskedOptimizer(cfg_t, params_t)
     groups = {k: opt_t.label_for_path(k) for k in LEAVES}
     assert sorted(set(groups.values())) == sorted(opt_t.GROUPS)
 
