@@ -7,10 +7,10 @@ Phases, each printing one JSON line as it ends:
 
 1. device  -- refuse to run without CUDA; name the card and its power limit.
 2. build   -- compile ``ops/csrc/permuto_encode.cu`` (the fused encode),
-   ``ops/csrc/permuto_gather.cu`` (the gathers, V = 4 and 8) and
+   ``ops/csrc/permuto_gather.cu`` (the gathers, V = 4 and 8),
    ``ops/csrc/permuto_scatter.cu`` (backward kernels, V = 4 and 8, and the
-   row scatter-add) with nvcc (ctypes route), one nvcc each, all started
-   together.
+   row scatter-add) and ``ops/csrc/lap_assign.cu`` (the exact assignment)
+   with nvcc (ctypes route), one nvcc each, all started together.
 3. encode  -- the fused encode kernels (lattice, index, gather and weighted
    sum in one launch; single and dual, the dual from packed rows and from
    two tables) against their plain versions (the port's lattice on the card,
@@ -132,7 +132,34 @@ Phases, each printing one JSON line as it ends:
    scatter also where the path ran only the single one, its second
    cotangent random); their times and bounds. Each epoch's wall and
    losses, the prunes' walls and kept shares, B and the truncated share;
-   run directories under ``pagnerf_tpu_torch/_build/cli``.
+   run directories under ``pagnerf_tpu_torch/_build/cli``. The run also
+   launches the assignment kernel once per microbatch of the instance
+   loss's stage (its count checked apart from the other kernels').
+   fused_step -- main path 6d, ``--fused-micro-step``: the assignment
+   kernel (``ops/csrc/lap_assign.cu``) against its plain version on the
+   card, the same columns exactly, on the cases of
+   ``tests/test_torch_assignment.py`` (the 200 x 200 ones at 48 x 48, which
+   the plain version solves in about a second) and on the cli run's first
+   panoptic microbatch's own costs, with the kernel's, the plain version's
+   and the host ``scipy`` solve's times (copies included); then the graph
+   against the host loop at each stage of ``CLI_FLAGS`` at full width (a
+   fresh trainer's dense RGB step; from the cli run's checkpoint the packed
+   RGB, voxel packed panoptic and val-pose steps): one step from one state
+   through the host loop twice (the spread of its float atomics), through
+   the fused step's eager first step, its capture and replay, a replay and
+   a replay under ``torch.profiler``: parameters, moments and counts
+   bit-equal or within the host spread, losses bit-equal, the profiled
+   replay's kernels those the step implies; then ``cli.main`` on the cli
+   phase's argv with ``--fused-micro-step`` (all 4 epochs): its stages,
+   per-epoch losses and final metrics against the cli run's, the median
+   step wall per stage of both (``dispatch_ahead`` 4), the captures, their
+   ms and replays, the peak memory of both, and the launches: counted by
+   the wrappers (each key's eager first step, the prunes, the
+   validations) against those expected, plus the kernels the profiler saw
+   in the first replay of each capture (each against what its step
+   implies); the launches all replays imply are printed apart
+   (``implied_on_card``); run directories under
+   ``pagnerf_tpu_torch/_build/cli_fused``.
 
 10a-d. the apps, from the cli run's final checkpoint at ``CLI_FLAGS``:
    render_views -- main path 6a: ``cli.main`` with ``--pretrained`` and
@@ -240,7 +267,7 @@ Phases, each printing one JSON line as it ends:
    ``embedding_bag`` / ``index_add_`` beside them.
 
 Then the ``{"kernels": [...]}`` line (the V = 4 kernels, then the V = 8
-rows ``hash_*``), the ``nvidia-smi`` name/power line, and last ``{"ok":
+rows ``hash_*``, then ``lap_assign``), the ``nvidia-smi`` name/power line, and last ``{"ok":
 true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -362,10 +389,18 @@ def _kernel_wrappers():
 
 
 def _reset_launches() -> None:
-    from pagnerf_tpu_torch.ops import scatter_rows, table_gather
+    from pagnerf_tpu_torch.ops import assignment, scatter_rows, table_gather
     _kernel_wrappers()                  # registers the fused encodes first
     table_gather.reset_launches()
     scatter_rows.scatter_rows.launches = 0
+    assignment.lap_assign.launches = 0
+
+
+def _assign_launches() -> int:
+    """The assignment kernel's launches (kept out of ``_launches``, whose
+    keys the earlier phases' gates compare whole)."""
+    from pagnerf_tpu_torch.ops.assignment import lap_assign
+    return lap_assign.launches
 
 
 def _launches() -> dict:
@@ -375,7 +410,7 @@ def _launches() -> dict:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from pagnerf_tpu_torch.ops import _build, permuto_encoding, table_gather
+    from pagnerf_tpu_torch.ops import _build, assignment, permuto_encoding, table_gather
 
     def timed(name):
         t = time.perf_counter()
@@ -383,13 +418,14 @@ def phase_build():
         return os.path.relpath(path, ROOT), time.perf_counter() - t
 
     t = time.perf_counter()
-    sources = ("permuto_encode", "permuto_gather", "permuto_scatter")
+    sources = ("permuto_encode", "permuto_gather", "permuto_scatter", "lap_assign")
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = {n: ex.submit(timed, n) for n in sources}
         built = {n: f.result() for n, f in futures.items()}
     permuto_encoding._encode_kernel()
     table_gather._kernel()
     table_gather._scatter_kernels()
+    assignment._kernel()
     emit("build", wall_seconds=time.perf_counter() - t,
          seconds={n: s for n, (_, s) in built.items()},
          libraries={n: p for n, (p, _) in built.items()},
@@ -911,17 +947,15 @@ def phase_train(dev, stage_name):
     import torch
 
     from pagnerf_tpu_torch.entry import train_flagship
-    from pagnerf_tpu_torch.ops.assignment import lap_assign
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    assign_s = lap_assign.seconds
     _reset_launches()
     trainer, log = train_flagship(stage_name, steps=3, device=dev)
     torch.cuda.synchronize()
     launches = _launches()
+    assign = _assign_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    assign_s = lap_assign.seconds - assign_s
 
     anchor = trainer.pipeline.anchor_mask.cpu().numpy()
     micro = sum(len(s["cam_idx"]) for s in log)
@@ -935,6 +969,10 @@ def phase_train(dev, stage_name):
     if launches != expected:
         raise AssertionError(f"{stage_name} training launched {launches}, "
                              f"expected {expected}")
+    # the instance loss solves each microbatch's assignment in one launch
+    if assign != (micro if stage_name == "panoptic" else 0):
+        raise AssertionError(f"{stage_name} training launched lap_assign {assign} times "
+                             f"for {micro} microbatches")
     for s in log:
         if not all(np.isfinite(v) for v in s["losses"].values()):
             raise AssertionError(f"{stage_name} step losses not finite: {s}")
@@ -959,11 +997,11 @@ def phase_train(dev, stage_name):
         step_ms=step_ms, step_ms_steady_median=steady_ms,
         rays_per_s=imgs * cfg.num_rays_sampled_per_img / (steady_ms / 1e3),
         peak_allocated_gib=peak_gb,
-        host_assignment_s=assign_s, **check)
+        lap_assign_launches=assign, **check)
     emit(f"train_{stage_name}", **result)
     del trainer
     torch.cuda.empty_cache()
-    return launches
+    return launches, assign
 
 
 class _Float32Decoders:
@@ -1733,7 +1771,7 @@ NO_IDX_BARY = "_no_idx_bary"
 
 
 @contextlib.contextmanager
-def recorded_run(calls, trainers, renders, pack_totals, no_grad=False):
+def recorded_run(calls, trainers, renders, pack_totals, no_grad=False, assign=None):
     """While a ``cli.main`` run goes: its trainer into ``trainers``, each
     ``batch_render``'s channels and chunk count into ``renders``, the
     packing totals (``quality_run.packing``) into ``pack_totals``, and the
@@ -1743,12 +1781,15 @@ def recorded_run(calls, trainers, renders, pack_totals, no_grad=False):
     ``permuto_encoding`` sees, so the wrappers' launch counts are
     untouched). With ``no_grad`` also the first encode at each N that ran
     under ``no_grad`` (the validation's chunks), as kind ``encode`` or
-    ``dual_encode`` + ``NO_IDX_BARY``."""
+    ``dual_encode`` + ``NO_IDX_BARY``. With ``assign`` (a dict), the first
+    assignment's inputs (the instance loss's [B, K, M] costs and [B, K]
+    presence) into it."""
     from unittest import mock
 
     import torch
 
     from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.losses import lin_assignment
     from pagnerf_tpu_torch.ops import permuto_encoding as pe
     from pagnerf_tpu_torch.ops import table_gather as tg
     from pagnerf_tpu_torch.quality_run import packing
@@ -1759,6 +1800,12 @@ def recorded_run(calls, trainers, renders, pack_totals, no_grad=False):
     encode_t, encode_dual_t = pe.PermutoEncodingSpec.encode_T, pe.PermutoEncodingSpec.encode_dual_T
     table_grad, dual_table_grad = tg.multilevel_table_grad, tg.dual_multilevel_table_grad
     dbary = tg.multilevel_gather_dbary
+    lap_assign = lin_assignment.lap_assign
+
+    def assign_spy(cost, present):
+        if assign is not None and not assign:
+            assign.update(cost=cost.clone(), present=present.clone())
+        return lap_assign(cost, present)
 
     def keep(kind, n, make):
         # the first call of a kernel at an N, as the path made it
@@ -1806,6 +1853,7 @@ def recorded_run(calls, trainers, renders, pack_totals, no_grad=False):
         return dbary(tables, idx, g)
 
     with packing(pack_totals), \
+         mock.patch.object(lin_assignment, "lap_assign", assign_spy), \
          mock.patch.object(cli, "get_modules_from_config", modules_spy), \
          mock.patch.object(PanopticTrainer, "batch_render", render_spy), \
          mock.patch.object(pe.PermutoEncodingSpec, "encode_T", encode_spy), \
@@ -1843,14 +1891,15 @@ def phase_cli(dev, flush):
     shutil.rmtree(log_root, ignore_errors=True)
     argv = ["--config", os.path.join(ROOT, CLI_CONFIG), "--device", "cuda",
             "--log-dir", log_root, "--perf"] + CLI_FLAGS
-    trainers, renders, calls, pack_totals = [], [], {}, {}
+    trainers, renders, calls, pack_totals, assign = [], [], {}, {}, {}
     _reset_launches()
     t0 = time.perf_counter()
-    with recorded_run(calls, trainers, renders, pack_totals):
+    with recorded_run(calls, trainers, renders, pack_totals, assign=assign):
         final = cli.main(argv + ["--exp-name", "train"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
+    assign_launches = _assign_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     trainer = trainers[0]
     run_dir, records = read_perf(log_root, "train")
@@ -1868,6 +1917,7 @@ def phase_cli(dev, flush):
                   prunes=summ["prunes"], stages=summ["stages"], packing=summ["packing"],
                   validations=summ["validations"], launches=launches,
                   expected_launches=expected, peak_allocated_gib=peak_gb,
+                  lap_assign_launches=assign_launches,
                   lr_after={g: trainer.opt.lr(g) for g in ("grid", "decoder")},
                   opt_count=trainer.opt.count["grid"], final_metrics=final,
                   recorded_calls=sorted(f"{k}@{n}" for k, n in calls))
@@ -1884,6 +1934,11 @@ def phase_cli(dev, flush):
         fail(f"prunes {prunes}: expected the seed prune and the real prune in epoch 1")
     if launches != expected:
         fail(f"cli.main launched {launches}, expected {expected}")
+    # one assignment per microbatch of the instance loss's stage
+    inst_micro = sum(len(s_["cam_idx"]) for s_ in steps if "inst_embedding" in s_["channels"])
+    fields["expected_lap_assign_launches"] = inst_micro
+    if assign_launches != inst_micro or not assign_launches:
+        fail(f"cli.main launched lap_assign {assign_launches} times, expected {inst_micro}")
     if not (launches["encode"] and launches["dual_encode"] and launches["table_grad"]
             and launches["dual_table_grad"] and launches["dbary"]):
         fail("a kernel of the path was not launched")
@@ -1926,7 +1981,498 @@ def phase_cli(dev, flush):
         fail(f"a kernel at one of this path's N outside its tolerance: {checks}")
     emit("cli", **fields)
     torch.cuda.empty_cache()
-    return launches, times, os.path.join(run_dir, "model.ckpt")
+    host = dict(epochs=epochs, final=final, stages=summ["stages"], peak_gib=peak_gb,
+                assign=assign, assign_launches=assign_launches)
+    return launches, times, os.path.join(run_dir, "model.ckpt"), host
+
+
+# ---------------------------------------------------------------- fused_step
+ASSIGN_SOURCE = "pagnerf_tpu_torch/ops/csrc/lap_assign.cu"
+
+
+def assignment_cases():
+    """(name, cost [K, M] float32, present [K] bool) of
+    ``tests/test_torch_assignment.py``, the 200 x 200 ones cut to sizes the
+    plain version (which reads the card back at every step) solves in about
+    a second: random shapes, separated costs, absent rows, more rows than
+    columns, rejection penalties, quantised near ties, plateaus, two-tier
+    ties with penalties, the deployed 20 labels of 200 against 200 slots, and
+    non-finite costs mapped as ``hungarian_assign`` maps them."""
+    import numpy as np
+    out = []
+    for k, m, seed in [(5, 5, 0), (8, 12, 1), (12, 8, 2), (30, 30, 3)]:
+        rng = np.random.default_rng(seed)
+        out.append((f"random_{k}x{m}", rng.uniform(-1, 0, (k, m)).astype(np.float32),
+                    rng.random(k) > 0.2))
+    out.append(("separated", np.array([[0.0, 5, 5, 5], [5, 5, 0, 5], [5, 0, 5, 5]],
+                                      np.float32), np.ones(3, bool)))
+    cost = np.zeros((4, 3), np.float32)
+    cost[1] = [-1, 0, 0]
+    out.append(("absent_rows", cost, np.array([False, True, False, False])))
+    rng = np.random.default_rng(4)
+    out.append(("more_rows", rng.uniform(-1, 0, (10, 4)).astype(np.float32),
+                np.ones(10, bool)))
+    n = 48
+    for seed in range(2):
+        rng = np.random.default_rng(100 + seed)
+        cost = rng.uniform(-1.0, 0.0, (n, n)).astype(np.float32)
+        penal = rng.random((n, n)) < 0.3
+        penal[np.arange(n), rng.integers(0, n, n)] = False
+        out.append((f"penalties_{seed}", np.where(penal, cost + 10000.0, cost).astype(
+            np.float32), rng.random(n) > 0.1))
+    for quant in (1.0, 0.1, 0.01):
+        rng = np.random.default_rng(7)
+        out.append((f"near_ties_{quant}", (np.round(rng.uniform(-1.0, 0.0, (n, n)) / quant)
+                                           * quant).astype(np.float32), np.ones(n, bool)))
+    for i, cost in enumerate((np.zeros((n, n), np.float32), np.full((n, n), -0.5, np.float32),
+                              (-np.outer(np.linspace(0, 1, n), np.linspace(0, 1, n))
+                               ).astype(np.float32))):
+        out.append((f"plateau_{i}", cost, np.ones(n, bool)))
+    rng = np.random.default_rng(11)
+    base = rng.choice([-1.0, -0.999999], size=(n, n))
+    penal = np.zeros((n, n), bool)
+    penal[:, :n // 2] = rng.random((n, n // 2)) < 0.5
+    out.append(("two_tier", np.where(penal, base + 10000.0, base).astype(np.float32),
+                np.ones(n, bool)))
+    rng = np.random.default_rng(13)
+    emb, slots = rng.normal(size=(200, 8)), rng.normal(size=(200, 8))
+    cost = ((emb[:, None] - slots[None]) ** 2).sum(-1).astype(np.float32)
+    present = np.zeros(200, bool)
+    present[rng.choice(200, 20, replace=False)] = True
+    penal = rng.random((200, 200)) < 0.85
+    penal[np.arange(200), cost.argmin(1)] = False
+    out.append(("deployed_20_of_200", np.where(penal, cost + 10000.0, cost).astype(
+        np.float32), present))
+    rng = np.random.default_rng(21)
+    cost = rng.uniform(-1, 0, (8, 20)).astype(np.float32)
+    cost[0, :10] = np.inf
+    cost[3, 5] = np.nan
+    out.append(("nonfinite", np.clip(np.nan_to_num(cost), -1e12, 1e12).astype(np.float32),
+                np.ones(8, bool)))
+    return out
+
+
+def lap_assign_bound(b, k, m, steps):
+    """Least time for the assignment: the cost read once, presence read and
+    columns written once, against the data's own work: each Dijkstra step
+    (``steps``, counted by the plain version) an argmin over M columns and a
+    relax of M columns (4 float operations each)."""
+    return _bound(4 * b * k * m + b * k + 8 * b * k, steps * m * 5)
+
+
+def phase_assign(dev, recorded):
+    """``lap_assign.cu`` against its plain version on the card, matchings
+    exactly equal: on ``assignment_cases`` and on ``recorded`` (the tuned
+    config's [B, K, M] costs and presence from the cli phase's first
+    panoptic microbatch); times of the kernel, the plain version and the
+    host ``scipy`` solve with its copies (the port's previous path)."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from pagnerf_tpu_torch.ops import assignment
+
+    cases = {}
+    for name, cost, present in assignment_cases():
+        c = torch.from_numpy(cost).to(dev)
+        p = torch.from_numpy(present).to(dev)
+        got = assignment.lap_assign(c, p)
+        want = assignment.lap_assign_plain(c[None], p[None])[0]
+        torch.cuda.synchronize()
+        cases[name] = {"shape": list(cost.shape), "equal": bool(torch.equal(got, want)),
+                       "steps": assignment.lap_assign_plain.steps}
+    cost, present = recorded["cost"].contiguous(), recorded["present"].contiguous()
+    b, k, m = cost.shape
+    got = assignment.lap_assign(cost, present)
+    want = assignment.lap_assign_plain(cost, present)
+    steps = assignment.lap_assign_plain.steps
+    torch.cuda.synchronize()
+
+    def host_scipy():
+        c = cost.cpu().numpy()
+        pres = present.cpu().numpy()
+        out = np.zeros((b, k), np.int64)
+        for i in range(b):
+            rows = np.nonzero(pres[i])[0][:m]
+            if rows.size:
+                r_idx, c_idx = linear_sum_assignment(c[i][rows])
+                out[i, rows[r_idx]] = c_idx
+        return torch.from_numpy(out).to(dev)
+
+    tuned_equal = bool(torch.equal(got, want))
+    pick = lambda a: torch.gather(cost, 2, a[..., None])[..., 0][present].sum()
+    cost_minus_scipy = float(pick(got) - pick(host_scipy()))
+    bound_ms, bound_by, nbytes, flops = lap_assign_bound(b, k, m, steps)
+    row = dict(
+        shape=[b, k, m], present_rows=int(present.sum()), dijkstra_steps=steps,
+        equal=tuned_equal, cost_minus_scipy=cost_minus_scipy,
+        ms=cuda_ms(lambda: assignment.lap_assign(cost, present), reps=20),
+        plain_ms=cuda_ms(lambda: assignment.lap_assign_plain(cost, present), reps=3),
+        host_scipy_ms=cuda_ms(host_scipy, reps=10),
+        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops,
+        max_abs_err=int((got - want).abs().max()) if got.numel() else 0)
+    fields = dict(cases=cases, tuned=row)
+    ok = tuned_equal and all(c["equal"] for c in cases.values())
+    emit("fused_step_assign", ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"lap_assign kernel differs from its plain version: {fields}")
+    return row
+
+
+def _step_state(trainer):
+    """Copies of what a step changes, by name: parameters, moments, counts."""
+    opt = trainer.opt
+    out = {f"param {n}": p.detach().clone() for n, p in trainer.params.items()}
+    for key in ("mu", "nu"):
+        out.update({f"{key} {n}": m.clone() for n, m in getattr(opt, key).items()})
+    out["counts"] = opt.counts.clone()
+    return out
+
+
+def _put_state(trainer, state) -> None:
+    """Write ``_step_state``'s copies back in place (a captured graph reads
+    the tensors themselves)."""
+    import torch
+    opt = trainer.opt
+    live = {f"param {n}": p for n, p in trainer.params.items()}
+    for key in ("mu", "nu"):
+        live.update({f"{key} {n}": m for n, m in getattr(opt, key).items()})
+    live["counts"] = opt.counts
+    with torch.no_grad():
+        for name, x in live.items():
+            x.copy_(state[name])
+
+
+# the path's kernels as the profiler names them: (index of the NT template
+# argument, which tells the single kernel from the dual, or None; the
+# launch counters' names for NT = 1 and NT = 2). A wrapper's call launches
+# one of each: the encode kernel, the scatter's finish_kernel, dbary_kernel,
+# lap_kernel.
+PROFILED_KERNELS = {"permuto_encode_kernel": (2, "encode", "dual_encode"),
+                    "finish_kernel": (1, "table_grad", "dual_table_grad"),
+                    "dbary_kernel": (None, "dbary", "dbary"),
+                    "lap_kernel": (None, "lap_assign", "lap_assign")}
+
+
+def profiled_launches(fn):
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity only) and count the
+    path's kernels that ran on the card, by name (``PROFILED_KERNELS``):
+    the launches of a CUDA graph's replay, which no wrapper counts. Returns
+    (fn's result, {counter name: kernels run})."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = "|".join(PROFILED_KERNELS)
+    counts = {}
+    for e in prof.key_averages():
+        m = re.search(rf"\b({names})\b(?:<([^>(]*)>)?", e.key)
+        if e.device_type != DeviceType.CUDA or not m:
+            continue
+        at, single, dual = PROFILED_KERNELS[m.group(1)]
+        nt = 1 if at is None else int(m.group(2).split(",")[at])
+        key = single if nt == 1 else dual
+        counts[key] = counts.get(key, 0) + e.count
+    return out, counts
+
+
+def graph_vs_host(trainer, stage, batch):
+    """One step from one state: through the host loop twice (the spread of
+    its float atomics), then through the fused step four times -- its eager
+    first step, its capture and replay, a replay, and a replay under the
+    profiler (the kernels it ran) -- the state (parameters, moments, counts,
+    the generator) put back before each. Returns each run's wall, state and
+    losses, and the profiled replay's kernels."""
+    import torch
+    # rate tables long enough for the runs below: a table that grows is a
+    # new tensor, and the fused step would start its key again
+    trainer.opt._grow_tables(trainer.opt._count_bound + 16)
+    gen = trainer.generator.get_state()
+    state0 = _step_state(trainer)
+    step0 = trainer.global_step
+    runs, profiled = {}, None
+    for mode in ("host_a", "host_b", "eager", "capture", "replay", "profiled"):
+        _put_state(trainer, state0)
+        trainer.generator.set_state(gen)
+        trainer.global_step = step0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = trainer.train_step if mode.startswith("host") else trainer.fused_train_step
+        if mode == "profiled":
+            losses, profiled = profiled_launches(lambda: step(stage, batch))
+        else:
+            losses = step(stage, batch)
+        torch.cuda.synchronize()
+        runs[mode] = dict(ms=(time.perf_counter() - t0) * 1e3, state=_step_state(trainer),
+                          losses={k_: v.clone() for k_, v in losses.items()},
+                          keys=len(trainer.fused_log))
+    _put_state(trainer, state0)
+    trainer.generator.set_state(gen)
+    trainer.global_step = step0
+    return runs, profiled
+
+
+def compare_runs(runs):
+    """The fused step's runs against the host loop's first: per tensor bit-equal,
+    or within the host loop's own spread (its second run against its
+    first: max |difference| of the tensor, or the largest spread of any
+    tensor relative to its largest entry, times this one's)."""
+    a, b = runs["host_a"]["state"], runs["host_b"]["state"]
+    diff = lambda x, y: float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+    scale = {n: max(float(t.double().abs().max()) if t.numel() else 0.0, 1e-30)
+             for n, t in a.items()}
+    spread = {n: diff(a[n], b[n]) for n in a}
+    rel_spread = max(spread[n] / scale[n] for n in a)
+    out = {"host_spread_max_rel": rel_spread,
+           "host_bit_equal": sum(spread[n] == 0 for n in a), "tensors": len(a)}
+    ok = True
+    for mode in ("eager", "capture", "replay", "profiled"):
+        g = runs[mode]["state"]
+        d = {n: diff(g[n], a[n]) for n in a}
+        worst = {n: d[n] for n in a if d[n] > max(spread[n], rel_spread * scale[n])}
+        losses_equal = all(torch_equal(runs[mode]["losses"][k], runs["host_a"]["losses"][k])
+                           for k in runs["host_a"]["losses"])
+        out[mode] = {"bit_equal": sum(d[n] == 0 for n in a),
+                     "max_rel": max(d[n] / scale[n] for n in a),
+                     "outside_spread": worst, "losses_bit_equal": losses_equal,
+                     "counts_equal": d["counts"] == 0}
+        ok = ok and not worst and losses_equal and d["counts"] == 0
+    return out, ok
+
+
+def torch_equal(x, y):
+    import torch
+    return bool(torch.equal(x, y))
+
+
+def fused_stage_checks(dev, ckpt):
+    """Graph against host loop at every stage of ``CLI_FLAGS`` at full width:
+    dense RGB on a fresh trainer (epoch 0), then from the cli phase's final
+    checkpoint (trained, pruned) the packed RGB stage of epoch 1, the voxel
+    packed panoptic stage of epoch 2 and the val-pose stage of epoch 3, each
+    on one batch of its split (``graph_vs_host``); the profiled replay's
+    kernels must be those the step implies (``fused_implied``)."""
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch.config.config import parse_options
+    from pagnerf_tpu_torch.config.factory import get_modules_from_config
+
+    out, ok = {}, True
+    fresh = get_modules_from_config(parse_options(APP_ARGV), dev)[2]
+    trained = restored_trainer(dev, ckpt)
+    for epoch, trainer in ((0, fresh), (1, trained), (2, trained), (3, trained)):
+        stage = trainer.stage_for_epoch(epoch)
+        split = "val" if stage.training_val_poses else "train"
+        batch = trainer.dataset.sample_batch(np.random.default_rng(epoch), trainer.cfg.batch_size,
+                                             trainer.cfg.num_rays_sampled_per_img, split)
+        runs, profiled = graph_vs_host(trainer, stage, batch)
+        cmp, ok_ = compare_runs(runs)
+        rec = trainer.fused_log[-1]
+        implied = fused_implied([rec])[0]
+        ok_ = ok_ and profiled == implied and (rec["steps"], rec["replays"]) == (4, 3)
+        out[stage.label] = dict(host_ms=[runs["host_a"]["ms"], runs["host_b"]["ms"]],
+                                eager_ms=runs["eager"]["ms"],
+                                capture_and_replay_ms=runs["capture"]["ms"],
+                                replay_ms=runs["replay"]["ms"], capture_ms=rec["capture_ms"],
+                                launches_per_replay_profiled=profiled,
+                                launches_per_step_implied=implied,
+                                steps_replays=[rec["steps"], rec["replays"]],
+                                keys_after={m: r["keys"] for m, r in runs.items()},
+                                all_anchor=rec["all_anchor"], ok=ok_, **cmp)
+        ok = ok and ok_
+        trainer._fused.clear()
+        del runs
+        torch.cuda.empty_cache()
+    del fresh, trained
+    torch.cuda.empty_cache()
+    return out, ok
+
+
+def fused_implied(log):
+    """The launches the fused run's captures imply: per capture, those its
+    stage and microbatches ask for per step (per microbatch an encode and a
+    table-gradient scatter, dual when a panoptic channel renders; dbary for
+    a microbatch with a camera that is not an anchor frame; an assignment
+    where the instance loss is on)."""
+    want = []
+    for rec in log:
+        dual = bool(set(rec["channels"]) & {"semantics", "inst_embedding"})
+        per = {"dual_encode" if dual else "encode": rec["micro"],
+               "dual_table_grad" if dual else "table_grad": rec["micro"],
+               "dbary": sum(not a for a in rec["all_anchor"]),
+               "lap_assign": rec["micro"] if rec["use_inst"] else 0}
+        want.append({k: v for k, v in per.items() if v})
+    return want
+
+
+def phase_fused_step(dev, cli_ckpt, host):
+    """Main path 6d: ``--fused-micro-step``. The assignment kernel against
+    its plain version; the graph against the host loop stage by stage at full
+    width; then ``cli.main`` on the cli phase's argv with
+    ``--fused-micro-step`` (full width, all 4 epochs): per-epoch losses and
+    the final metrics against the cli phase's host-loop run, the median
+    step wall per stage of both (``dispatch_ahead`` 4), the captures, the
+    replays, the peak memory, and the launches: counted by the wrappers
+    (each key's eager first step, the prunes, the validations; a capture
+    and its replays count none), run in the first replay of each capture as
+    ``torch.profiler`` saw them on the card (gated against what the step
+    implies), and implied on the card by all the replays (reported apart,
+    never as launches)."""
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import cli
+    from pagnerf_tpu_torch.quality_run import read_perf, summary
+
+    t_phase = time.perf_counter()
+    assign_row = phase_assign(dev, host["assign"])
+    stages, stages_ok = fused_stage_checks(dev, cli_ckpt)
+    fields = dict(stages=stages)
+    if not stages_ok:
+        emit("fused_step", ok=False, **fields)
+        raise AssertionError(f"the graph and the host loop differ beyond the host spread: "
+                             f"{stages}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log_root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "cli_fused")
+    shutil.rmtree(log_root, ignore_errors=True)
+    argv = ["--config", os.path.join(ROOT, CLI_CONFIG), "--device", "cuda",
+            "--log-dir", log_root, "--perf", "--exp-name", "fused",
+            "--fused-micro-step"] + CLI_FLAGS
+    trainers, renders = [], []
+    get_modules = cli.get_modules_from_config
+
+    def modules_spy(*args, **kwargs):
+        out = get_modules(*args, **kwargs)
+        trainers.append(out[2])
+        return out
+
+    from pagnerf_tpu_torch.train import trainer as trainer_mod
+    run = trainer_mod._FusedStep.run
+
+    def run_spy(self):
+        # the first replay of each graph, right after its capture, under the
+        # profiler: the kernels it ran on the card
+        if self.graph is not None or self.record["steps"] != 1:
+            return run(self)
+        graph_replay = torch.cuda.CUDAGraph.replay
+
+        def replay_spy(graph):
+            _, self.record["profiled"] = profiled_launches(lambda: graph_replay(graph))
+        with mock.patch.object(torch.cuda.CUDAGraph, "replay", replay_spy):
+            return run(self)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with render_spy(renders), mock.patch.object(cli, "get_modules_from_config", modules_spy), \
+            mock.patch.object(trainer_mod._FusedStep, "run", run_spy):
+        final = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, assign_launches = _launches(), _assign_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer = trainers[0]
+    _, records = read_perf(log_root, "fused")
+    summ = summary(records)
+    epochs = [{"epoch": r["epoch"], "losses": r["losses"]}
+              for r in records if r["name"] == "epoch"]
+    log = [dict(r) for r in trainer.fused_log]
+    prunes = [r for r in records if r["name"] == "prune"]
+    anchor = trainer.pipeline.anchor_host
+    # counted by the wrappers: each key's eager first step, the prunes, the
+    # validations; run on the card as the profiler saw them: the first
+    # replay of each capture; implied on the card: all the replays besides
+    counted = cli_launches([], anchor, renders, len(prunes),
+                           max(1, trainer.cfg.prune_samples_per_cell)
+                           * math.ceil(trainer.occ.res ** 3 / 65536))
+    counted["lap_assign"] = 0
+    implied, profiled = dict(counted), {}
+    for rec, per in zip(log, fused_implied(log)):
+        if rec["capture_ms"] is not None and rec.get("profiled") != per:
+            emit("fused_step", ok=False, **fields, captures=log)
+            raise AssertionError(f"a replay of {rec['stage']} ran {rec.get('profiled')}, "
+                                 f"its step implies {per}")
+        for k, v in per.items():
+            counted[k] += v                       # the eager first step
+            implied[k] += (1 + rec["replays"]) * v
+            if rec["capture_ms"] is not None:
+                profiled[k] = profiled.get(k, 0) + v
+    got = dict(launches, lap_assign=assign_launches)
+    on_card = {k: got.get(k, 0) + profiled.get(k, 0) for k in set(got) | set(profiled)}
+    steps = [r for r in records if r["name"] == "train_step"]
+    replays = sum(rec["replays"] for rec in log)
+    captured = [rec for rec in log if rec["capture_ms"] is not None]
+
+    loss_diff = {}
+    for e_h, e_f in zip(host["epochs"], epochs):
+        for k, v in e_h["losses"].items():
+            loss_diff[f"{e_h['epoch']} {k}"] = abs(e_f["losses"][k] - v) / max(abs(v), 1e-12)
+    metric_diff = {k: final[k] - v for k, v in host["final"].items()
+                   if k != "val/render_time_per_img"}
+    fields.update(
+        assign=assign_row, config=CLI_CONFIG, flags=" ".join(CLI_FLAGS) + " --fused-micro-step",
+        wall_s=wall, epochs=epochs, final_metrics=final,
+        loss_rel_diff_vs_host=loss_diff, metric_diff_vs_host=metric_diff,
+        step_median_ms={k: {"host": host["stages"].get(k, {}).get("median_ms"),
+                            "graph": v["median_ms"]} for k, v in summ["stages"].items()},
+        first_step_ms={k: {"host": host["stages"].get(k, {}).get("first_ms_max"),
+                           "graph": v["first_ms_max"]} for k, v in summ["stages"].items()},
+        keys=len(log), eager_steps=sum(rec["steps"] > 0 for rec in log),
+        captures=len(captured), capture_ms=[rec["capture_ms"] for rec in captured],
+        capture_stages=[rec["stage"] for rec in captured], replays=replays, steps=len(steps),
+        peak_allocated_gib={"graph": peak_gb, "host": host["peak_gib"]},
+        launches=on_card, counted=got, counted_expected=counted, profiled_replays=profiled,
+        implied_on_card=implied,
+        launches_per_profiled_replay=[rec["profiled"] for rec in captured],
+        phase_s=time.perf_counter() - t_phase)
+
+    def fail(msg):
+        emit("fused_step", ok=False, **fields)
+        raise AssertionError(msg)
+
+    if [sorted({s_["stage"] for s_ in steps if s_["epoch"] == e}) for e in range(4)] != \
+            [["ray_dense_rgb"], ["ray_packed_rgb"], ["voxel_packed_panoptic"], ["val_pose"]]:
+        fail("the fused run's epochs ran other stages than the cli phase's")
+    if sum(rec["steps"] for rec in log) != len(steps) or \
+            replays + sum(rec["steps"] > 0 for rec in log) != len(steps):
+        fail(f"{len(log)} eager steps and {replays} replays for {len(steps)} steps")
+    if got != counted:
+        fail(f"the fused run counted {got}, expected {counted}")
+    if not all(on_card.get(k) for k in ("encode", "dual_encode", "table_grad",
+                                        "dual_table_grad", "dbary", "lap_assign")):
+        fail("a kernel of the path was not launched by the fused run")
+    if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
+        fail("a loss of the fused run is not finite")
+    if sorted(final) != sorted(host["final"]) or not all(np.isfinite(v) for v in final.values()):
+        fail("the fused run's final metrics are incomplete or not finite")
+    if max(loss_diff.values()) > FUSED_LOSS_RTOL:
+        fail(f"per-epoch losses differ from the host loop's by more than {FUSED_LOSS_RTOL}")
+    far = {k: d for k, d in metric_diff.items() if abs(d) > FUSED_METRIC_ATOL.get(k, 0.01)}
+    if far:
+        fail(f"final metrics differ from the host loop's: {far}")
+    emit("fused_step", ok=True, **fields)
+    del trainer, trainers
+    torch.cuda.empty_cache()
+    return on_card, assign_row
+
+
+# the fused run against the cli phase's host run: the table-gradient
+# scatter's atomics may add a float sum in another order from run to run and
+# 48 steps would carry that forward (the runs PERF.md records were equal to
+# the bit); bounds on per-epoch losses (relative) and final metrics (absolute)
+FUSED_LOSS_RTOL = 1e-3
+FUSED_METRIC_ATOL = {"val/psnr": 0.05}
 
 
 # the apps restore the cli phase's final checkpoint at its flags; the viewer
@@ -2291,9 +2837,9 @@ def phase_optimizers(dev, trainer):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
         del opt.update
-        applied = host_opt.update({n: None if g is None else g.cpu()
-                                   for n, g in seen["grads"].items()},
-                                  seen["frozen"], seen["clip"])
+        applied = bool(host_opt.update({n: None if g is None else g.cpu()
+                                        for n, g in seen["grads"].items()},
+                                       seen["frozen"], seen["clip"]))
         errs = {"params": max(rel_err(p, host[n]) for n, p in trainer.params.items())}
         for key in keys:
             errs[key] = max(rel_err(t, getattr(host_opt, key)[n])
@@ -2304,11 +2850,11 @@ def phase_optimizers(dev, trainer):
         bad[first] = bad[first].clone()
         bad[first].view(-1)[0] = float("nan")
         before = ({n: p.clone() for n, p in trainer.params.items()}, dict(opt.count),
-                  {k: dict(getattr(opt, k)) for k in keys})
-        skipped = not opt.update(bad, seen["frozen"], seen["clip"])
+                  {k: {n: t.clone() for n, t in getattr(opt, k).items()} for k in keys})
+        skipped = not bool(opt.update(bad, seen["frozen"], seen["clip"]))
         unchanged = (all(torch.equal(p, before[0][n]) for n, p in trainer.params.items())
                      and opt.count == before[1]
-                     and all(getattr(opt, k)[n] is t for k in keys
+                     and all(torch.equal(getattr(opt, k)[n], t) for k in keys
                              for n, t in before[2][k].items()))
         fields["kinds"][name] = dict(
             kind=opt.kind, applied=applied, counts_equal=opt.count == host_opt.count,
@@ -3504,12 +4050,21 @@ def main() -> None:
     paths = {"render": phase_render(fn, pipe, origins, dirs, cam_idx)}
     del fn, pipe
     torch.cuda.empty_cache()
+    assign_paths = {}
     for stage_name in ("rgb", "panoptic"):
-        paths[f"train_{stage_name}"] = phase_train(dev, stage_name)
+        paths[f"train_{stage_name}"], assign_paths[f"train_{stage_name}"] = phase_train(
+            dev, stage_name)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
     paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
-    paths["cli"], cli_times, cli_ckpt = phase_cli(dev, flush_buf.zero_)
+    paths["cli"], cli_times, cli_ckpt, cli_host = phase_cli(dev, flush_buf.zero_)
+    assign_paths["cli"] = cli_host["assign_launches"]
+    # the fused run's launches: counted by the wrappers, and those the
+    # profiler saw in the first replay of each capture
+    fused_launches, assign_row = phase_fused_step(dev, cli_ckpt, cli_host)
+    assign_paths["fused_step"] = fused_launches.pop("lap_assign")
+    paths["fused_step"] = fused_launches
+    del cli_host
     paths["render_views"] = phase_render_views(dev, cli_ckpt)
     trainer = restored_trainer(dev, cli_ckpt)
     phase_optimizers(dev, trainer)
@@ -3615,6 +4170,16 @@ def main() -> None:
                 row[name_] = times_[key]
         rows.append(row)
     rows += hash_kernel_rows(slice_paths, slice_times["panoptic_nerf"], sources)
+    rows.append({
+        "name": "lap_assign", "route": "cuda", "source": ASSIGN_SOURCE,
+        "replaces": "pagnerf_tpu/ops/assignment.py:41 lap_assign (XLA, not a Pallas kernel)",
+        "launches": sum(assign_paths.values()), "launches_by_path": assign_paths,
+        "dtype": "float32 costs, int64 columns",
+        "shapes": "the tuned config's first panoptic microbatch [B, K, M] = "
+                  f"{assign_row['shape']}",
+        "max_abs_err": assign_row["max_abs_err"], "tol": 0,
+        **{k: assign_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "host_scipy_ms": assign_row["host_scipy_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 
 Per image: a (label x slot) cost from the mean rendered slot probability
 under each ground-truth label, a minimum-cost matching of labels to slots
-(``ops/assignment.lap_assign``, on the host), and an NLL toward the matched
-"virtual" labels wherever a pixel disagrees. In the 'things' variant slot 0
+(``ops/assignment.lap_assign``: the microbatch's [B, K, M] costs in one
+call, on the device, as the JAX package's ``vmap`` solves them), and an NLL
+toward the matched "virtual" labels wherever a pixel disagrees. In the 'things' variant slot 0
 is reserved for stuff and the optional repeated-ID rejection penalises
 slots outside a band that each instance's world-x position allows; the
 plain variant matches every label over all pixels.
@@ -25,8 +26,9 @@ def one_hot(labels: torch.Tensor, num: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 def hungarian_assign(cost: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``hungarian_assign`` contract on the host: NaN and
-    infinities mapped into [-1e12, 1e12], then the exact assignment."""
+    """The JAX package's ``hungarian_assign`` contract: NaN and infinities
+    mapped into [-1e12, 1e12], then the exact assignment of each image
+    (cost [B, K, M] or [K, M])."""
     cost = torch.clamp(torch.nan_to_num(cost.float()), -1e12, 1e12)
     return lap_assign(cost, present)
 
@@ -84,14 +86,15 @@ def lin_assignment_things_loss(probs: torch.Tensor, labels: torch.Tensor,
     rejection cost. Returns the per-pixel loss map [B, R]. The matching is
     made on detached probabilities (it is integer-valued); the NLL carries
     the gradient."""
-    out = []
-    for b in range(probs.shape[0]):
-        p, gt, stuff = probs[b], labels[b].to(torch.int64), stuff_mask[b]
-        in_range = gt < num_labels
-        things_mask = (gt > 0) & in_range
-        valid = (stuff | things_mask) & in_range
-        things_valid = things_mask.to(p.dtype)
-        with torch.no_grad():
+    gts = labels.to(torch.int64)
+    in_range = gts < num_labels
+    things_mask = (gts > 0) & in_range
+    valid = (stuff_mask | things_mask) & in_range
+    with torch.no_grad():
+        costs, presents = [], []
+        for b in range(probs.shape[0]):
+            p, gt = probs[b], gts[b]
+            things_valid = things_mask[b].to(p.dtype)
             cost, present = _label_slot_cost(p[:, 1:], gt, things_valid, num_labels)
             present = present & (torch.arange(num_labels, device=p.device) > 0)
             if outlier_rejection:
@@ -100,14 +103,14 @@ def lin_assignment_things_loss(probs: torch.Tensor, labels: torch.Tensor,
                 centers = centers_from_points_with_labels(
                     pts, gt, things_valid, num_labels)
                 cost = add_position_id_range_cost(cost, centers[:, 0], present)
-            assign = hungarian_assign(cost, present)                  # [K]
-            virt = torch.where(things_mask,
-                               assign[torch.clamp(gt, 0, num_labels - 1)] + 1, 0)
-            pred = torch.argmax(p, dim=-1)
-            any_wrong = torch.any((virt != pred) & valid)
-        nll = -torch.gather(safe_prob_log(p), 1, virt[:, None])[:, 0]
-        out.append(torch.where(valid & any_wrong, nll, 0.0))
-    return torch.stack(out)
+            costs.append(cost)
+            presents.append(present)
+        assign = hungarian_assign(torch.stack(costs), torch.stack(presents))   # [B, K]
+        virt = torch.where(things_mask, torch.gather(
+            assign, 1, torch.clamp(gts, 0, num_labels - 1)) + 1, 0)
+        any_wrong = torch.any((virt != torch.argmax(probs, dim=-1)) & valid, dim=1)
+    nll = -torch.gather(safe_prob_log(probs), 2, virt[..., None])[..., 0]
+    return torch.where(valid & any_wrong[:, None], nll, 0.0)
 
 
 def lin_assignment_loss(probs: torch.Tensor, labels: torch.Tensor,
@@ -119,17 +122,19 @@ def lin_assignment_loss(probs: torch.Tensor, labels: torch.Tensor,
     builds the cost from a second softmax of the probabilities (the NLL
     reads them as they are), which can move the optimum in near ties; it is
     kept."""
-    out = []
-    for p, gt in zip(probs, labels.to(torch.int64)):
-        in_range = gt < num_labels
-        with torch.no_grad():
+    gts = labels.to(torch.int64)
+    in_range = gts < num_labels
+    with torch.no_grad():
+        costs, presents = [], []
+        for p, gt, ok in zip(probs, gts, in_range):
             cost, present = _label_slot_cost(torch.softmax(p, dim=-1), gt,
-                                             in_range.to(p.dtype), num_labels)
-            assign = hungarian_assign(cost, present)                    # [K]
-            virt = assign[torch.clamp(gt, 0, num_labels - 1)].to(torch.int64)
-            any_wrong = torch.any((virt != torch.argmax(p, dim=-1)) & in_range)
-        nll = -torch.gather(safe_prob_log(p), 1, virt[:, None])[:, 0]
-        nll = torch.where(in_range, nll, 0.0)
-        denom = torch.clamp(in_range.sum(), min=1)
-        out.append(torch.where(any_wrong, nll.sum() / denom, 0.0))
-    return torch.stack(out).mean()
+                                             ok.to(p.dtype), num_labels)
+            costs.append(cost)
+            presents.append(present)
+        assign = hungarian_assign(torch.stack(costs), torch.stack(presents))   # [B, K]
+        virt = torch.gather(assign, 1, torch.clamp(gts, 0, num_labels - 1))
+        any_wrong = torch.any((virt != torch.argmax(probs, dim=-1)) & in_range, dim=1)
+    nll = -torch.gather(safe_prob_log(probs), 2, virt[..., None])[..., 0]
+    nll = torch.where(in_range, nll, 0.0)
+    denom = torch.clamp(in_range.sum(dim=1), min=1)
+    return torch.where(any_wrong, nll.sum(dim=1) / denom, 0.0).mean()

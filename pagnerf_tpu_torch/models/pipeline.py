@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import FrozenSet, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -79,36 +80,47 @@ class BAPipeline(Pipeline):
                              persistent=False)
         self.extrinsics = nn.Parameter(self._init_extrinsics.clone())
         self.num_cameras = int(view_matrices.shape[0])
-        anchor = torch.zeros((self.num_cameras,), dtype=torch.bool)
+        anchor = np.zeros((self.num_cameras,), dtype=bool)
         anchor[list(anchor_frame_idxs)] = True
-        self.register_buffer("anchor_mask", anchor, persistent=False)
+        # the host copy answers "is every camera of the batch an anchor"
+        # without a device read
+        self.anchor_host = anchor
+        self.register_buffer("anchor_mask", torch.from_numpy(anchor.copy()),
+                             persistent=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         super().reset_parameters(generator)
         with torch.no_grad():
             self.extrinsics.copy_(self._init_extrinsics)
 
-    def camera_params(self, cam_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def camera_params(self, cam_idx: Optional[torch.Tensor] = None,
+                      cam_idx_host: Optional[np.ndarray] = None) -> torch.Tensor:
         """Extrinsics with the anchor frames' rows detached. When every camera
-        of ``cam_idx`` is an anchor, the whole tensor is detached, so the rays
+        of the batch is an anchor, the whole tensor is detached, so the rays
         (and the samples' coordinates) carry no gradient at all and the
-        encode's backward skips ``dbary``; this reads ``cam_idx`` on the host."""
+        encode's backward skips ``dbary``. The cameras are read from
+        ``cam_idx_host`` (the batch's numpy array) against the host copy of
+        the anchor mask; without it, from ``cam_idx`` (a device read)."""
         p = self.extrinsics
-        if (cam_idx is not None and p.requires_grad and torch.is_grad_enabled()
-                and bool(self.anchor_mask[cam_idx].all())):
-            return p.detach()
+        if cam_idx is not None and p.requires_grad and torch.is_grad_enabled():
+            cams = (np.asarray(cam_idx_host) if cam_idx_host is not None
+                    else cam_idx.cpu().numpy())
+            if bool(self.anchor_host[cams.astype(np.int64)].all()):
+                return p.detach()
         return torch.where(self.anchor_mask[:, None], p.detach(), p)
 
-    def transform_rays(self, base_rays: Rays, cam_idx: torch.Tensor) -> Rays:
+    def transform_rays(self, base_rays: Rays, cam_idx: torch.Tensor,
+                       cam_idx_host: Optional[np.ndarray] = None) -> Rays:
         """Camera-space base rays [B, R] -> world rays [B*R]."""
-        return transform_rays(self.camera_params(cam_idx), base_rays,
+        return transform_rays(self.camera_params(cam_idx, cam_idx_host), base_rays,
                               cam_idx).reshape(-1)
 
     def forward(self, rays: Rays, channels: FrozenSet[str], occ: OccupancyGrid,
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
                 cam_idx: Optional[torch.Tensor] = None, jitter: Jitter = None,
-                tracer_cfg: Optional[TracerConfig] = None) -> RenderBuffer:
+                tracer_cfg: Optional[TracerConfig] = None,
+                cam_idx_host: Optional[np.ndarray] = None) -> RenderBuffer:
         if cam_idx is not None:
-            rays = self.transform_rays(rays, cam_idx)
+            rays = self.transform_rays(rays, cam_idx, cam_idx_host)
         return super().forward(rays, channels, occ, lod_weights, stage, jitter,
                                tracer_cfg)

@@ -101,6 +101,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
 
 namespace {
 
@@ -109,6 +110,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxLevels = 64;
 constexpr int kChunk = 1024;            // samples per block of the scatter kernels
 constexpr int kMaxProbes = 8;           // hash probes before an event goes straight out
+constexpr int kMaxDevices = 64;         // devices whose shared-memory limit is kept
 constexpr float kMaxAddends = 120.0f;   // float32 rows beyond this are summed again
 
 enum Mode : int32_t { kShared = 0, kFloat = 1, kGlobal = 2 };
@@ -1049,10 +1051,22 @@ cudaError_t launch_grad(const int32_t* idx, const float* bary, const float* ga,
   if (num_shared > 0) {
     const int lg = slots_log2_for(W);
     const size_t bytes = (size_t{1} << lg) * (W * 8 + 4);
-    err = cudaFuncSetAttribute(shared_grad_kernel<F, NT, V>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+    // raised once per device, instantiation and size, not at every launch: a
+    // CUDA graph capture of the training step then holds only the launch
+    static std::mutex lock;
+    static size_t allowed[kMaxDevices] = {};
+    int device = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    {
+      std::lock_guard<std::mutex> guard(lock);
+      if (device >= kMaxDevices || bytes > allowed[device]) {
+        err = cudaFuncSetAttribute(shared_grad_kernel<F, NT, V>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(bytes));
+        if (err != cudaSuccess) return err;
+        if (device < kMaxDevices) allowed[device] = bytes;
+      }
+    }
     shared_grad_kernel<F, NT, V><<<dim3(chunks, num_shared), kThreads, bytes, stream>>>(
         idx, bary, ga, gb, acc64, plan, n, lg);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -40,6 +40,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import constant
 from . import table_gather
 
 _D = 3            # input dimensionality
@@ -170,7 +171,7 @@ def _rank_from_el(el: torch.Tensor):
 def _rank_and_el(scaledT: torch.Tensor):
     """One level's (el, gr, rank) from scale-divided coords [3, N]: elevation
     ``el = E @ s``, then ``_rank_from_el``."""
-    e = torch.as_tensor(_E, dtype=scaledT.dtype, device=scaledT.device)
+    e = constant(_E, scaledT.dtype, scaledT.device)
     el = e @ scaledT                                              # [4, N]
     gr, rank = _rank_from_el(el)
     return el, gr, rank
@@ -183,14 +184,14 @@ def pack_rank(rank: torch.Tensor) -> torch.Tensor:
     """Ranks [..., 4, N] with entries in 0..3 -> one byte per sample [..., N]
     (uint8, 2 bits per coordinate, coordinate i at bits 2i), the layout the
     encode kernel writes."""
-    shifts = torch.tensor(_RANK_SHIFTS, dtype=torch.int32, device=rank.device)
+    shifts = constant(_RANK_SHIFTS, torch.int32, rank.device)
     return torch.sum(rank.to(torch.int32) << shifts[:, None],
                      dim=-2).to(torch.uint8)
 
 
 def unpack_rank(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of ``pack_rank``: uint8 [..., N] -> int32 ranks [..., 4, N]."""
-    shifts = torch.tensor(_RANK_SHIFTS, dtype=torch.int32, device=packed.device)
+    shifts = constant(_RANK_SHIFTS, torch.int32, packed.device)
     return (packed.to(torch.int32).unsqueeze(-2) >> shifts[:, None]) & 3
 
 
@@ -241,7 +242,7 @@ def _lattice_levels(x: torch.Tensor, log2_c: int, inv_scales, mm, dm, direct):
     uint8 (``pack_rank``) of coords x [3, N], one level at a time."""
     idx, bary, ranks = [], [], []
     for inv_s, mm_l, dm_l, dir_l in zip(inv_scales, mm, dm, direct):
-        scaled = x * torch.tensor(inv_s, dtype=torch.float32, device=x.device)
+        scaled = x * constant(inv_s, torch.float32, x.device)
         el, gr, rank = _rank_and_el(scaled)
         keys, b = _simplex_from_rank(el, gr, rank)
         idx.append(_index_keys_T(keys, log2_c, int(mm_l), int(dm_l), bool(dir_l)))
@@ -257,11 +258,11 @@ def _lattice_levels_dx(x: torch.Tensor, inv_scales, dbary: torch.Tensor,
     el = E @ (x * inv_s), dx += inv_s * E^T @ ddelta / 4. ``rank`` [L, N]
     (``pack_rank``) is the rank of the simplex the forward gathered, so dx is
     formed on that simplex whatever order another product would round el in."""
-    e_t = torch.as_tensor(_E, dtype=x.dtype, device=x.device).T   # [3, 4]
+    e_t = constant(_E, x.dtype, x.device).T                     # [3, 4]
     b5 = torch.arange(_VERTS + 1, dtype=torch.int32, device=x.device)[:, None, None]
     dx = torch.zeros_like(x)
     for inv_s, dbary_l, rank_l in zip(inv_scales, dbary, rank):
-        s = torch.tensor(inv_s, dtype=torch.float32, device=x.device)
+        s = constant(inv_s, torch.float32, x.device)
         rank_l = unpack_rank(rank_l)
         pm = (((_D - rank_l)[None] == b5).to(dbary_l.dtype)
               - ((_D + 1 - rank_l)[None] == b5).to(dbary_l.dtype))   # [5, 4, N]
@@ -415,7 +416,9 @@ def packed_tables(tables_a: torch.Tensor, tables_b: torch.Tensor) -> torch.Tenso
     returned again while both tables are the same tensors, unchanged: an
     in-place update (the optimizer's ``add_``, a checkpoint's ``copy_``)
     bumps a table's ``_version``, a new tensor fails the identity check,
-    and either rebuilds the copy. At most one copy lives at a time."""
+    and either rebuilds the copy. At most one copy lives at a time. (A CUDA
+    graph's replay writes the tables without the host code that bumps
+    their versions; the trainer bumps them around its captures and replays.)"""
     global _packed_copy
     keys = (_table_key(tables_a), _table_key(tables_b))
     if _packed_copy is not None:
@@ -489,8 +492,9 @@ class _Encode(torch.autograd.Function):
         else:
             outs, idx, bary, rank = _launch_encode(x, tables, st, keep, packed=True)
             wrapper = fused_encode if len(tables) == 1 else fused_encode_dual
-            wrapper.launches += 1
-            wrapper.launches_with_idx_bary += int(keep)
+            n = table_gather.launched()
+            wrapper.launches += n
+            wrapper.launches_with_idx_bary += n * int(keep)
         if keep:
             ctx.save_for_backward(x, idx, bary, tables[0])
             ctx.rank = rank

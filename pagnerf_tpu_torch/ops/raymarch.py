@@ -20,6 +20,7 @@ from typing import Optional, Union
 import torch
 
 from ..core.rays import Rays
+from ..device import constant
 from .occupancy import OccupancyGrid
 
 
@@ -88,8 +89,9 @@ def raymarch(rays: Rays, occ: OccupancyGrid, num_steps: int,
     if raymarch_type not in ("ray", "voxel"):
         raise ValueError(f"raymarch_type must be 'ray' or 'voxel', got {raymarch_type!r}")
     t_near, t_far, hit_aabb = aabb_intersect(rays)
-    dist_min = torch.as_tensor(rays.dist_min, dtype=torch.float32, device=t_near.device)
-    dist_max = torch.as_tensor(rays.dist_max, dtype=torch.float32, device=t_near.device)
+    dist_min, dist_max = (d.to(t_near.device, torch.float32) if isinstance(d, torch.Tensor)
+                          else constant(d, torch.float32, t_near.device)
+                          for d in (rays.dist_min, rays.dist_max))
     t0 = torch.maximum(t_near, dist_min)
     t1 = torch.maximum(torch.minimum(t_far, dist_max), t0)
     oT, dT = rays.origins.T, rays.dirs.T

@@ -66,7 +66,7 @@ def scatter_rows(row: torch.Tensor, vals: torch.Tensor, num_rows: int) -> torch.
         err = kernel(row.data_ptr(), vals.data_ptr(), out.data_ptr(), acc.data_ptr(),
                      m, num_rows, table_gather._stream(row.device))
     table_gather._raise_on(err, "permuto_scatter scatter_rows")
-    scatter_rows.launches += 1
+    scatter_rows.launches += table_gather.launched()
     return out
 
 

@@ -361,7 +361,7 @@ def multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor, g: torch.Tensor
         level_modes(live_rows(rows_used, idx.shape[0], capacity), capacity, modes)
         return table_grad_plain(idx, bary, g, capacity, rows_used)
     (out,) = _launch_grad(idx, bary, (g,), capacity, rows_used, modes)
-    KERNELS["table_grad"].launches += 1
+    KERNELS["table_grad"].launches += launched()
     return out
 
 
@@ -376,7 +376,7 @@ def dual_multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor,
         level_modes(live_rows(rows_used, idx.shape[0], capacity), capacity, modes)
         return dual_table_grad_plain(idx, bary, g_a, g_b, capacity, rows_used)
     out = _launch_grad(idx, bary, (g_a, g_b), capacity, rows_used, modes)
-    KERNELS["dual_table_grad"].launches += 1
+    KERNELS["dual_table_grad"].launches += launched()
     return out
 
 
@@ -398,7 +398,7 @@ def multilevel_gather_dbary(tables: torch.Tensor, idx: torch.Tensor,
         err = dbary(tables.data_ptr(), idx.data_ptr(), g.data_ptr(),
                     out.data_ptr(), l, c, n, f, v, _stream(idx.device))
     _raise_on(err, "permuto_scatter dbary")
-    KERNELS["dbary"].launches += 1
+    KERNELS["dbary"].launches += launched()
     return out
 
 
@@ -413,7 +413,7 @@ class _Gather(torch.autograd.Function):
         if tables.device.type == "cpu":
             return multilevel_gather_plain(tables, idx, bary)
         (out,) = _launch((tables,), idx, bary)
-        KERNELS["gather"].launches += 1
+        KERNELS["gather"].launches += launched()
         return out
 
     @staticmethod
@@ -443,7 +443,7 @@ class _DualGather(torch.autograd.Function):
         if tables_a.device.type == "cpu":
             return dual_gather_plain(tables_a, tables_b, idx, bary)
         out = _launch((tables_a, tables_b), idx, bary)
-        KERNELS["dual_gather"].launches += 1
+        KERNELS["dual_gather"].launches += launched()
         return out
 
     @staticmethod
@@ -506,6 +506,13 @@ KERNELS = {"gather": multilevel_table_gather,
            "table_grad": multilevel_table_grad,
            "dual_table_grad": dual_multilevel_table_grad,
            "dbary": multilevel_gather_dbary}
+
+
+def launched() -> int:
+    """What a wrapper adds to its count after it launched its kernel: 1, or
+    0 while a CUDA graph capture records the launch instead (the graph's
+    replays run the kernel without the wrapper)."""
+    return 0 if torch.cuda.is_current_stream_capturing() else 1
 
 
 def reset_launches() -> None:

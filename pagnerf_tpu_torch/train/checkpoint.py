@@ -135,10 +135,11 @@ def _restore_optimizer(trainer, opt_state: Mapping) -> None:
         log.warning("optimizer state incompatible; reinitialised")
         trainer.opt = MaskedOptimizer(trainer.opt_cfg, trainer.params)
         return
-    dev = trainer.device
-    for key in keys:
-        setattr(opt, key, {n: opt_state[key][n].to(dev, torch.float32)
-                           for n in getattr(opt, key)})
+    # in place: a captured training step keeps reading the same tensors
+    with torch.no_grad():
+        for key in keys:
+            for n, m in getattr(opt, key).items():
+                m.copy_(opt_state[key][n].to(torch.float32))
     opt.count = {g: int(opt_state["count"][g]) for g in opt.count}
 
 

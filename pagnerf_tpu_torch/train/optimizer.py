@@ -28,6 +28,17 @@ it is in JAX.
   freeze zeroing;
 - a step with any non-finite gradient changes nothing: parameters, moments
   and counts stay bit-identical.
+It reads nothing back from the device, so a CUDA graph can hold it (the
+trainer's fused step): the finiteness of the gradients is a device flag
+``ok``; every parameter and moment is written in place with
+``copy_(torch.where(ok, new, old))``; the counts are a device tensor
+advanced by ``ok``; the rate and Adam's bias corrections are read from
+device tables indexed by the counts. The tables are built once on the
+host with the schedules below and the float32 ``torch.tensor(0.9) ** t``
+of the CPU, so every update is bit-equal to one computed from host
+numbers; they cover ``num_epochs * steps_per_epoch`` updates and grow
+(new tensors) when a run goes past them. ``count`` reads the counts back
+(checkpoints, tests, logs).
 
 The learning rate of each group follows its schedule (``lr_schedule``):
 constant, or with ``use_lr_scheduler`` the ``step``, ``one_cycle`` and
@@ -40,7 +51,7 @@ step changes no count, so it moves no schedule either.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -99,6 +110,8 @@ def group_lr(cfg: OptimizerConfig, group: str) -> float:
             }[group]
 
 
+# a schedule is the rate at a count; its ``table(n)`` gives the rates at
+# counts 0..n-1 as float32, the same bits
 Schedule = Callable[[int], float]
 
 
@@ -116,6 +129,17 @@ def _staircase_decay(init: float, transition_steps: int, rate: float) -> Schedul
             return float(init32)
         p = np.floor(np.float32(count) * recip)
         return float(init32 * np.power(rate32, p))
+
+    def table(n: int) -> np.ndarray:
+        # the float32 product and floor are exact element by element; the
+        # power is taken once per stair with the scalar's own arithmetic
+        p = np.floor(np.arange(n).astype(np.float32) * recip)
+        out = np.empty(n, np.float32)
+        for v in np.unique(p):
+            out[p == v] = init32 * np.power(rate32, v)
+        out[:1] = init32
+        return out
+    lr.table = table
     return lr
 
 
@@ -144,7 +168,40 @@ def _linear_onecycle(transition_steps: int, peak: float, pct_start: float,
                 # one rounding of x * slope + start (x * slope is exact in float64)
                 return float(np.float32(x * float(slopes[i]) + float(starts[i])))
         return float(last) if count >= bounds[-1] else 0.0
+
+    def table(n: int) -> np.ndarray:
+        # the same float64 products and sums, element by element
+        count = np.arange(n)
+        out = np.full(n, last, np.float32)
+        for i in range(len(bounds) - 1):
+            sel = (bounds[i] <= count) & (count < bounds[i + 1])
+            x = (count[sel] - bounds[i]).astype(np.float32).astype(np.float64)
+            out[sel] = (x * float(slopes[i]) + float(starts[i])).astype(np.float32)
+        return out
+    lr.table = table
     return lr
+
+
+def _constant(value: float) -> Schedule:
+    def lr(count: int) -> float:
+        return value
+    lr.table = lambda n: np.full(n, value, np.float32)
+    return lr
+
+
+_BC_CACHE: Dict[float, List[float]] = {}
+
+
+def bias_correction_table(beta: float, n: int) -> torch.Tensor:
+    """``1 - torch.tensor(beta, dtype=float32) ** t`` for t in [0, n), each
+    a float32 0-d CPU power with an int exponent, as Adam's update computed
+    it from the host count (the vectorised power rounds some t otherwise).
+    Built once per process and extended."""
+    vals = _BC_CACHE.setdefault(beta, [])
+    b = torch.tensor(beta, dtype=torch.float32)
+    for t in range(len(vals), n):
+        vals.append(float(1 - b ** t))
+    return torch.tensor(vals[:n], dtype=torch.float32)
 
 
 def lr_schedule(cfg: OptimizerConfig, group: str) -> Schedule:
@@ -154,18 +211,18 @@ def lr_schedule(cfg: OptimizerConfig, group: str) -> Schedule:
     epochs; ``one_cycle`` runs over ``num_epochs + 1`` epochs; ``panoptic_step``
     decays only the sem, inst and delta_grid groups."""
     base = group_lr(cfg, group)
-    const = float(np.float32(base))
+    const = _constant(float(np.float32(base)))
     if not cfg.use_lr_scheduler:
-        return lambda count: const
+        return const
     spe = max(cfg.steps_per_epoch, 1)
     kind = cfg.lr_scheduler_type
     if kind == "step" or (kind == "panoptic_step"
                           and group in ("sem", "inst", "delta_grid")):
         if cfg.lr_step_size <= 0:
-            return lambda count: const
+            return const
         return _staircase_decay(base, cfg.lr_step_size * spe, cfg.lr_step_gamma)
     if kind == "panoptic_step":
-        return lambda count: const
+        return const
     if kind == "one_cycle":
         return _linear_onecycle((cfg.num_epochs + 1) * spe, base,
                                 cfg.lr_warmup_epochs / max(cfg.num_epochs, 1),
@@ -199,10 +256,53 @@ class MaskedOptimizer:
         self.params = dict(params)
         self.group = {name: label_for_path(name) for name in self.params}
         self.schedule = {g: lr_schedule(cfg, g) for g in GROUPS}
-        self.count = {g: 0 for g in GROUPS}
+        self.device = next(iter(self.params.values())).device if self.params else \
+            torch.device("cpu")
+        # per-group counts on the device, and a host bound on them: the
+        # number of updates since they were last set (each adds 0 or 1)
+        self.counts = torch.zeros(len(GROUPS), dtype=torch.int64, device=self.device)
+        self._count_bound = 0
+        self.lr_table = self.bc_table = None
+        self._grow_tables(max(cfg.num_epochs, 1) * max(cfg.steps_per_epoch, 1) + 2)
         self.mu: Dict[str, torch.Tensor] = {}
         self.nu: Dict[str, torch.Tensor] = {}
         self.reset_moments()
+
+    def _grow_tables(self, n: int) -> None:
+        """Device tables of at least ``n`` counts: ``lr_table`` [G, n] the
+        groups' rates, ``bc_table`` [2, n] Adam's bias corrections (new
+        tensors, so a graph that read the old ones must be captured anew)."""
+        if self.lr_table is not None and self.lr_table.shape[1] >= n:
+            return
+        if self.lr_table is not None:
+            n = max(n, 2 * self.lr_table.shape[1])
+        self.lr_table = torch.from_numpy(np.stack(
+            [self.schedule[g].table(n) for g in GROUPS])).to(self.device)
+        if self.cfg.optimizer_type == "adam":
+            self.bc_table = torch.stack([bias_correction_table(_B1, n),
+                                         bias_correction_table(_B2, n)]).to(self.device)
+
+    def reserve_update(self) -> None:
+        """Account for one more update on the device: the tables must reach
+        the highest count it can read. ``update`` does, except inside a CUDA
+        graph capture: the graph's replays run without its host code, so
+        whoever replays it does, once a replay (before, as a grown table is
+        a new tensor the graph would not read)."""
+        self._count_bound += 1
+        self._grow_tables(self._count_bound + 2)
+
+    @property
+    def count(self) -> Dict[str, int]:
+        """Each group's count, read back from the device."""
+        return dict(zip(GROUPS, (int(c) for c in self.counts.tolist())))
+
+    @count.setter
+    def count(self, value: Mapping[str, int]) -> None:
+        """Set the counts in place (a checkpoint's restore)."""
+        host = [int(value[g]) for g in GROUPS]
+        self.counts.copy_(torch.tensor(host, dtype=torch.int64))
+        self._count_bound = max(host)
+        self._grow_tables(self._count_bound + 2)
 
     def _decay(self, group: str) -> float:
         """The group's weight decay: adamw's, on the grid groups only."""
@@ -212,10 +312,12 @@ class MaskedOptimizer:
     @torch.no_grad()
     def update(self, grads: Mapping[str, Optional[torch.Tensor]],
                frozen_fn: Optional[Callable[[str], bool]] = None,
-               clip_norm: float = 0.0) -> bool:
-        """One masked step; returns False (and changes nothing) when a
-        gradient is not finite. A name missing from ``grads`` or mapped to
-        None has a zero gradient."""
+               clip_norm: float = 0.0) -> torch.Tensor:
+        """One masked step; returns the device flag ``ok`` (a 0-d bool), False
+        when a gradient is not finite, and then nothing changed. A name
+        missing from ``grads`` or mapped to None has a zero gradient."""
+        if not (self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            self.reserve_update()
         frozen = {n for n in self.params if frozen_fn is not None and frozen_fn(n)}
         g = {}
         for n, p in self.params.items():
@@ -226,51 +328,58 @@ class MaskedOptimizer:
             gnorm = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
             scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
             g = {n: x * scale for n, x in g.items()}
-        finite = all(bool(torch.isfinite(x).all()) for x in g.values())
-        if not finite:
-            return False
-        # the rate at the count before this update, as optax reads it
-        neg_lr = {grp: torch.tensor(-self.lr(grp), dtype=torch.float32)
-                  for grp in GROUPS}
-        for grp in GROUPS:
-            self.count[grp] += 1
+        live = [n for n in self.params if n not in frozen and grads.get(n) is not None]
+        ok = (torch.stack([torch.isfinite(g[n]).all() for n in live]).all() if live
+              else torch.ones((), dtype=torch.bool, device=self.device))
+        # the rate at the count before this update, as optax reads it; Adam's
+        # bias corrections at the count after it
+        neg_lr = -self.lr_table.gather(1, self.counts[:, None])[:, 0]
+        if self.bc_table is not None:
+            bc1, bc2 = self.bc_table.index_select(1, self.counts + 1)
+        gi = {grp: i for i, grp in enumerate(GROUPS)}
         for n, p in self.params.items():
             if n in frozen:
                 continue
-            grp = self.group[n]
+            i = gi[self.group[n]]
             if self.kind == "sgd":
                 step = g[n]
             elif self.kind == "rmsprop":
                 nu = (g[n] * g[n]) * (1 - _RMS_DECAY) + self.nu[n] * _RMS_DECAY
                 step = torch.rsqrt(nu + _RMS_EPS) * g[n]
-                self.nu[n] = nu
+                self.nu[n].copy_(torch.where(ok, nu, self.nu[n]))
             else:
-                t = self.count[grp]
                 mu = g[n] * (1 - _B1) + self.mu[n] * _B1
                 nu = (g[n] * g[n]) * (1 - _B2) + self.nu[n] * _B2
-                bc1 = 1 - torch.tensor(_B1, dtype=torch.float32) ** t
-                bc2 = 1 - torch.tensor(_B2, dtype=torch.float32) ** t
-                step = (mu / bc1.to(mu.device)) / (
-                    torch.sqrt(nu / bc2.to(nu.device)) + self.cfg.eps)
-                wd = self._decay(grp)
+                step = (mu / bc1[i]) / (torch.sqrt(nu / bc2[i]) + self.cfg.eps)
+                wd = self._decay(self.group[n])
                 if wd:
                     step = step + p * wd
-                self.mu[n], self.nu[n] = mu, nu
-            p.add_(step * neg_lr[grp].to(step.device))
-        return True
+                self.mu[n].copy_(torch.where(ok, mu, self.mu[n]))
+                self.nu[n].copy_(torch.where(ok, nu, self.nu[n]))
+            p.copy_(torch.where(ok, p + step * neg_lr[i], p))
+        self.counts.add_(ok.to(torch.int64))
+        return ok
 
     def lr(self, group: str) -> float:
-        """The group's learning rate for its next update."""
+        """The group's learning rate for its next update (reads the count)."""
         return self.schedule[group](self.count[group])
 
     def reset_moments(self) -> None:
         """Zero every moment and keep each group's count, as the JAX
         trainer's ``_reinit_opt_state`` does after a prune: a fresh optimizer
         would restart the counts, and with them any schedule read from them.
-        The moments take the parameters' current shapes (the TensoRF
-        upsampling replaces its factors)."""
+        A moment is zeroed in place; one whose parameter changed shape (the
+        TensoRF upsampling replaces its factors) is a new tensor."""
         for key in MOMENTS[self.cfg.optimizer_type]:
-            setattr(self, key, {n: torch.zeros_like(p) for n, p in self.params.items()})
+            old = getattr(self, key)
+            new = {}
+            for n, p in self.params.items():
+                m = old.get(n)
+                if m is not None and m.shape == p.shape:
+                    new[n] = m.zero_()
+                else:
+                    new[n] = torch.zeros_like(p)
+            setattr(self, key, new)
 
     def state(self) -> Dict:
         """The kind, the counts and the kind's moments (for tests and

@@ -28,20 +28,34 @@ instance embeddings over a random window (its vertex from
 ``maybe_seed_prune``, ``run_epoch`` and ``train``, with LoD annealing (the
 weights set once per epoch from the global step) and random LoD (a cut drawn
 from the numpy generator before each step's batch, so the sampled rays stay
-the JAX trainer's). ``run_epoch`` reads each step's losses back before the
-next step (the JAX package's ``dispatch_ahead`` is not ported) and times
+the JAX trainer's). ``run_epoch`` keeps up to ``dispatch_ahead`` steps'
+loss dicts on the device and reads the oldest when one more is queued (the
+JAX package's pipelined readback; 0 reads every step at once), and times
 its phases, each prune and each epoch on ``timer`` (``--perf``).
 ``batch_render`` is the chunked full-image render that validation and the
 point-cloud map call; ``maybe_upsample_tensorf`` the TensoRF grid's
 progressive resolution steps at the end of an epoch. A pipeline without
-extrinsics trains on the batch's world rays. Not ported yet: the fused
-micro-step, which ``stage_for_epoch`` refuses.
+extrinsics trains on the batch's world rays.
+
+The step reads nothing back from the device: the optimizer's skip is a
+device flag, the assignment of the instance losses runs on the device, and
+the anchor-frame check reads the batch's numpy cameras. With
+``fused_micro_step`` (or ``PAGNERF_FUSED_STEP``) the whole step -- every
+microbatch's forward and backward, the accumulation in microbatch order,
+the ``1 / num_micro`` scale and the masked update -- reads only static
+buffers (the batch, each microbatch's jitter and TV normals drawn in the
+host loop's order, ``lod_w``). On the card a key (the stage, the number
+of microbatches, which of them are all-anchor) runs eagerly at its first
+step, is captured into a ``torch.cuda.CUDAGraph`` at its second and
+replayed after; on the CPU the same function runs eagerly. It equals the
+host loop bit for bit, as the JAX package's fused step equals its own.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +64,7 @@ from ..core.camera import rays_to_3d_points
 from ..core.rays import Rays
 from ..core.render_buffer import RenderBuffer
 from ..data.multiview import MultiviewDataset
+from ..device import constant
 from ..losses.lin_assignment import lin_assignment_loss, lin_assignment_things_loss
 from ..losses.photometric import rgb_l1_loss, semantic_loss
 from ..losses.regularizers import (grid_tv_l1_loss, grid_tv_l2_loss,
@@ -60,7 +75,7 @@ from ..ops.occupancy import OccupancyGrid
 from ..ops.raymarch import raymarch
 from ..utils.lod_annealing import constant_lod_weights, lod_weights
 from ..utils.logging_utils import PerfTimer
-from .optimizer import MaskedOptimizer, OptimizerConfig
+from .optimizer import MOMENTS, MaskedOptimizer, OptimizerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +246,10 @@ class PanopticTrainer:
         self._occ_frac = 0.25
         # ``batch_render``'s chunks of its last call
         self.last_render: List[Dict[str, int]] = []
+        # the fused step: one entry per key, and a record of each capture
+        # (stage, microbatches, capture ms, launches per replay, replays)
+        self._fused: Dict[tuple, "_FusedStep"] = {}
+        self.fused_log: List[Dict] = []
 
         si = dataset.semantic_info
         self.num_classes = si["num_classes"]
@@ -243,8 +262,7 @@ class PanopticTrainer:
 
     # ------------------------------------------------------------- stages
     def stage_for_epoch(self, epoch: int) -> StageConfig:
-        """The JAX package's stage at ``epoch``; raises NotImplementedError
-        for ``fused_micro_step``, which is not ported yet."""
+        """The JAX package's stage at ``epoch``."""
         cfg = self.cfg
         training_val_poses = (cfg.optimize_val_extrinsics
                               and isinstance(self.pipeline, BAPipeline)
@@ -262,10 +280,6 @@ class PanopticTrainer:
             channels.add("inst_embedding")
         if cfg.inst_outlier_rejection and use_inst:
             channels.add("depth")
-        if cfg.fused_micro_step:
-            raise NotImplementedError(
-                f"the training stage at epoch {epoch} needs parts not ported yet: "
-                "fused_micro_step (ROADMAP.md Queue 1 item 8)")
         voxel = epoch > cfg.voxel_raymarch_epoch_start
         base = self.pipeline.tracer_cfg
         if voxel:
@@ -310,14 +324,21 @@ class PanopticTrainer:
 
     # --------------------------------------------------------------- loss
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """The batch on the trainer's device; on the card through pinned
+        host memory and copies that do not wait for the card."""
+        return {k: _host_to(np.asarray(v), self.device) for k, v in batch.items()}
 
     def compute_losses(self, batch: Dict[str, torch.Tensor], stage: StageConfig,
-                       jitter=None):
+                       jitter=None, normals=None, cam_idx_host=None, lod_w=None):
         """(total, {name: loss}) of one microbatch; ``jitter`` is a [B*R, S]
-        tensor of uniforms or a generator (the JAX package's ``key``)."""
+        tensor of uniforms or a generator (the JAX package's ``key``);
+        ``normals`` the TV windows' (grid, delta grid) normals (drawn here
+        when None); ``cam_idx_host`` the batch's numpy cameras (the anchor
+        check); ``lod_w`` replaces ``self.lod_w``."""
         cfg = self.cfg
+        lod_w = self.lod_w if lod_w is None else lod_w
+        if normals is None:
+            normals = self._draw_normals()
         tracer_cfg = dataclasses.replace(self.pipeline.tracer_cfg,
                                          raymarch_type=stage.raymarch_type,
                                          num_steps=stage.num_steps,
@@ -329,15 +350,15 @@ class PanopticTrainer:
         cam_idx = batch["cam_idx"].to(torch.int64)
         is_ba = isinstance(self.pipeline, BAPipeline)
         if is_ba:
-            rb = self.pipeline(base_rays, stage.channels, self.occ, self.lod_w,
+            rb = self.pipeline(base_rays, stage.channels, self.occ, lod_w,
                                stage="train", cam_idx=cam_idx, jitter=jitter,
-                               tracer_cfg=tracer_cfg)
+                               tracer_cfg=tracer_cfg, cam_idx_host=cam_idx_host)
         else:
             # a pipeline without extrinsics traces the batch's world rays
             rays_in = Rays(origins=batch["rays_origins"].reshape(-1, 3),
                            dirs=batch["rays_dirs"].reshape(-1, 3), dist_min=0.0,
                            dist_max=6.0)
-            rb = self.pipeline(rays_in, stage.channels, self.occ, self.lod_w,
+            rb = self.pipeline(rays_in, stage.channels, self.occ, lod_w,
                                stage="train", jitter=jitter, tracer_cfg=tracer_cfg)
 
         losses: Dict[str, torch.Tensor] = {}
@@ -376,8 +397,7 @@ class PanopticTrainer:
             inst_gts = batch.get("instance_pred", batch["instance"]).reshape(b, r)
             sem_gts = batch.get("semantics_pred", batch["semantics"]).reshape(b, r)
             inst_embed = rb.inst_embedding.reshape(b, r, -1)
-            stuff = torch.isin(sem_gts, torch.tensor(
-                self.stuff_ids, dtype=sem_gts.dtype, device=sem_gts.device))
+            stuff = torch.isin(sem_gts, constant(self.stuff_ids, sem_gts.dtype, sem_gts.device))
             if cfg.inst_loss == "sup_contrastive":
                 undetected = ~stuff & (inst_gts == 0)
                 iloss = sup_contrastive_loss(
@@ -390,7 +410,8 @@ class PanopticTrainer:
                 points_3d = None
                 if cfg.inst_outlier_rejection:
                     with torch.no_grad():
-                        world = (self.pipeline.transform_rays(base_rays, cam_idx)
+                        world = (self.pipeline.transform_rays(base_rays, cam_idx,
+                                                              cam_idx_host)
                                  if is_ba else rays_in)
                         points_3d = rays_to_3d_points(world, rb.depth).reshape(b, r, 3)
                 lmap = lin_assignment_things_loss(
@@ -413,7 +434,7 @@ class PanopticTrainer:
         if cfg.grid_tvl1_reg > 0.0 or cfg.grid_tvl2_reg > 0.0:
             def grid_enc(c):
                 return nef._grid_feats(nef.grid, c, None)
-            normal = self.draw_normal((3,))
+            normal = normals[0]
             if cfg.grid_tvl1_reg > 0.0:
                 total = total + cfg.grid_tvl1_reg * grid_tv_l1_loss(grid_enc, normal, **tv)
             if cfg.grid_tvl2_reg > 0.0:
@@ -424,7 +445,7 @@ class PanopticTrainer:
             # the reference's delta-grid L2 branch calls its L1 loss too, so
             # both weights feed one L1 term
             total = total + (cfg.delta_grid_tvl1_reg + cfg.delta_grid_tvl2_reg) * \
-                grid_tv_l1_loss(inst_enc, self.draw_normal((3,)), **tv)
+                grid_tv_l1_loss(inst_enc, normals[1], **tv)
 
         losses["total_loss"] = total
         return total, losses
@@ -449,13 +470,38 @@ class PanopticTrainer:
                          else v for k, v in batch.items()})
         return subs
 
+    def _draw_normals(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """The TV windows' vertex normals of one microbatch, in the order
+        ``compute_losses`` uses them: the grid's, then the delta grid's
+        (None where that TV is off)."""
+        cfg = self.cfg
+        grid = (self.draw_normal((3,)) if cfg.grid_tvl1_reg > 0.0 or cfg.grid_tvl2_reg > 0.0
+                else None)
+        delta = (self.draw_normal((3,)) if cfg.delta_grid_tvl1_reg > 0.0
+                 or cfg.delta_grid_tvl2_reg > 0.0 else None)
+        return grid, delta
+
+    def _draws(self, stage: StageConfig, subs: List[Dict[str, np.ndarray]],
+               jitters: Optional[List]) -> List[Tuple]:
+        """Each microbatch's (jitter, normals), drawn in the host loop's
+        order: the microbatch's [rays, steps] uniforms (unless ``jitters``
+        gives them), then its TV normals."""
+        out = []
+        for m, sub in enumerate(subs):
+            if jitters is None:
+                jitter = self.draw((sub["imgs"].shape[0] * sub["imgs"].shape[1],
+                                    stage.num_steps))
+            else:
+                jitter = jitters[m]
+            out.append((jitter, self._draw_normals()))
+        return out
+
     def _backward(self, sub: Dict[str, np.ndarray], stage: StageConfig, jitter):
         """Forward + backward of one microbatch; gradients add into .grad.
         Without ``jitter`` the microbatch's [rays, steps] uniforms are drawn."""
-        if jitter is None:
-            rays = sub["imgs"].shape[0] * sub["imgs"].shape[1]
-            jitter = self.draw((rays, stage.num_steps))
-        total, losses = self.compute_losses(self._to_device(sub), stage, jitter)
+        (jitter, normals), = self._draws(stage, [sub], None if jitter is None else [jitter])
+        total, losses = self.compute_losses(self._to_device(sub), stage, jitter, normals,
+                                            sub.get("cam_idx"))
         total.backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -473,18 +519,21 @@ class PanopticTrainer:
             p.grad = None
         return grads, losses
 
-    def train_step(self, stage: StageConfig, batch: Dict[str, np.ndarray],
-                   jitters: Optional[List] = None) -> Dict[str, torch.Tensor]:
-        """One optimisation step with image-axis gradient accumulation; returns
-        the losses averaged over the microbatches. ``jitters`` (one [R, S]
-        tensor per microbatch) replaces the generator's draws."""
-        subs = self._micro_batches(batch)
+    def _step_body(self, stage: StageConfig, subs: List[Dict[str, torch.Tensor]],
+                   draws: List[Tuple], cams: List[np.ndarray],
+                   lod_w: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The step's device work: each microbatch's forward and backward
+        (gradients add into .grad in microbatch order), the summed gradients
+        scaled by ``1 / num_micro``, the masked update. Returns the losses
+        summed over the microbatches. Reads nothing back from the device."""
         num_micro = len(subs)
         for p in self.params.values():
             p.grad = None
         acc_l = None
-        for m, sub in enumerate(subs):
-            losses = self._backward(sub, stage, None if jitters is None else jitters[m])
+        for sub, (jitter, normals), cams_m in zip(subs, draws, cams):
+            total, losses = self.compute_losses(sub, stage, jitter, normals, cams_m, lod_w)
+            total.backward()
+            losses = {k: v.detach() for k, v in losses.items()}
             acc_l = losses if acc_l is None else {k: acc_l[k] + v
                                                   for k, v in losses.items()}
         grads = {n: None if p.grad is None else p.grad * (1.0 / num_micro)
@@ -492,8 +541,88 @@ class PanopticTrainer:
         for p in self.params.values():
             p.grad = None
         self.opt.update(grads, self.frozen_fn(stage), self.opt_cfg.clip_grad_norm)
+        return acc_l
+
+    def _fused_step_enabled(self) -> bool:
+        """``fused_micro_step``, or the ``PAGNERF_FUSED_STEP`` environment
+        variable where set (true for 1, true, yes, on, y in any case; false
+        otherwise), as the JAX package reads it."""
+        env = os.environ.get("PAGNERF_FUSED_STEP")
+        if env is not None:
+            return env.strip().lower() in ("1", "true", "yes", "on", "y")
+        return self.cfg.fused_micro_step
+
+    def train_step(self, stage: StageConfig, batch: Dict[str, np.ndarray],
+                   jitters: Optional[List] = None) -> Dict[str, torch.Tensor]:
+        """One optimisation step with image-axis gradient accumulation; returns
+        the losses averaged over the microbatches (device tensors). ``jitters``
+        (one [R, S] tensor per microbatch) replaces the generator's draws.
+        With the fused step enabled, ``fused_train_step``."""
+        if self._fused_step_enabled():
+            return self.fused_train_step(stage, batch, jitters)
+        subs = self._micro_batches(batch)
+        draws = self._draws(stage, subs, jitters)
+        acc_l = self._step_body(stage, [self._to_device(sub) for sub in subs], draws,
+                                [sub.get("cam_idx") for sub in subs], self.lod_w)
         self.global_step += 1
-        return {k: v / num_micro for k, v in acc_l.items()}
+        return {k: v / len(subs) for k, v in acc_l.items()}
+
+    def fused_train_step(self, stage: StageConfig, batch: Dict[str, np.ndarray],
+                         jitters: Optional[List] = None) -> Dict[str, torch.Tensor]:
+        """The step as one unit over static buffers (the JAX package's
+        ``fused_step``): the batch, the draws and ``lod_w`` are copied into
+        the key's buffers, then the step runs (``_FusedStep.run``: on the
+        card eagerly at the key's first step, captured into a CUDA graph at
+        its second, replayed after; on the CPU eagerly). A key's buffers and
+        graph are dropped when a tensor they read was replaced: a prune's
+        occupancy, new moments, grown tables, a restored optimizer. The
+        same bits as ``train_step``'s host loop."""
+        subs = self._micro_batches(batch)
+        draws = self._draws(stage, subs, jitters)
+        cams = [sub.get("cam_idx") for sub in subs]
+        anchors = tuple(self._all_anchor(c) for c in cams)
+        key = (stage, len(subs), anchors, _signature(batch),
+               tuple(tuple(x is not None for x in n) for _, n in draws))
+        entry, state = self._fused_entry(key)
+        if entry is not None and self.device.type == "cuda":
+            # the update of its capture or replay reserves no count
+            # (``MaskedOptimizer.update``); a table this grows is a new
+            # tensor, and the key starts again (its eager step reserves once
+            # more: the bound stays an upper bound)
+            self.opt.reserve_update()
+            entry, state = self._fused_entry(key)
+        if entry is None:
+            entry = self._fused[key] = _FusedStep(self, stage, batch, draws, cams, state)
+        entry.load(batch, draws, self.lod_w)
+        acc_l = entry.run()
+        self.global_step += 1
+        return {k: v / len(subs) for k, v in acc_l.items()}
+
+    def _fused_entry(self, key: tuple):
+        """(the key's ``_FusedStep`` or None, the graph state), the entries
+        of another state dropped first (which frees their graphs' pools)."""
+        state = self._graph_state()
+        for k in [k for k, e in self._fused.items() if e.state != state]:
+            del self._fused[k]
+        return self._fused.get(key), state
+
+    def _all_anchor(self, cams) -> bool:
+        anchor = getattr(self.pipeline, "anchor_host", None)
+        return bool(cams is not None and anchor is not None
+                    and anchor[np.asarray(cams).astype(np.int64)].all())
+
+    def _graph_state(self) -> tuple:
+        """What a captured step read by address: the parameters, the
+        optimizer's moments, counts and tables, the occupancy grid. A change
+        here (a new tensor, not new values) makes a capture stale."""
+        opt = self.opt
+        ts = list(self.params.values()) + [opt.counts, opt.lr_table, self.occ.mask,
+                                           self.occ.occupancy]
+        if opt.bc_table is not None:
+            ts.append(opt.bc_table)
+        for key in MOMENTS[opt.cfg.optimizer_type]:
+            ts += list(getattr(opt, key).values())
+        return (id(opt), id(self.occ)) + tuple(t.data_ptr() for t in ts)
 
     # -------------------------------------------------------------- prune
     @torch.no_grad()
@@ -567,36 +696,48 @@ class PanopticTrainer:
         ``lod_annel_epochs``), ``steps_per_epoch`` steps of the epoch's stage
         (a val-pose stage samples the 'val' split; with ``random_lod`` each
         step first draws the levels it keeps), then the prune if due.
-        Returns the epoch's mean losses; each step's losses are read back
-        before the next step starts, so the timer's host clock sees each
-        step's device work."""
+        Returns the epoch's mean losses. Up to ``dispatch_ahead`` steps'
+        loss dicts stay on the device; the oldest is read back when one more
+        is queued (0: each step's as it ends), so the host samples and
+        dispatches the next steps while the card runs; the totals add the
+        steps in order whatever the depth. The timer's ``train_step`` is the
+        step's dispatch plus the amortised readback."""
         t0 = time.perf_counter()
         cfg = self.cfg
         self.maybe_seed_prune(epoch)
         stage = self.stage_for_epoch(epoch)
         grid = self.pipeline.nef.grid_cfg
         if cfg.lod_anneling and epoch >= cfg.lod_annel_epoch_start:
-            self.lod_w = torch.from_numpy(lod_weights(
+            self.lod_w = _host_to(lod_weights(
                 self.global_step, grid.num_lods, grid.feature_dim,
-                cfg.lod_annel_epochs, self.steps_per_epoch)).to(self.device)
+                cfg.lod_annel_epochs, self.steps_per_epoch), self.device)
         split = "val" if stage.training_val_poses else "train"
         totals: Dict[str, float] = {}
+        pending: List[Dict[str, torch.Tensor]] = []
+
+        def drain(losses: Dict[str, torch.Tensor]) -> None:
+            for k, v in losses.items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+
         for _ in range(self.steps_per_epoch):
             if cfg.random_lod:
                 cut = int(self.rng.integers(1, grid.num_lods + 1))
                 w = np.zeros(grid.num_lods, np.float32)
                 w[:cut] = 1.0
-                self.lod_w = torch.from_numpy(np.repeat(w, grid.feature_dim)).to(self.device)
+                self.lod_w = _host_to(np.repeat(w, grid.feature_dim), self.device)
             self.timer.reset()
             batch = self.dataset.sample_batch(self.rng, cfg.batch_size,
                                               cfg.num_rays_sampled_per_img, split)
             self.timer.check("data_sample")
-            for k, v in self.train_step(stage, batch).items():
-                totals[k] = totals.get(k, 0.0) + float(v)
+            pending.append(self.train_step(stage, batch))
+            while len(pending) > max(cfg.dispatch_ahead, 0):
+                drain(pending.pop(0))
             self.timer.check("train_step", epoch=epoch, stage=stage.label,
                              channels=sorted(stage.channels), pack_steps=stage.pack_steps,
                              rays=cfg.num_rays_sampled_per_img,
                              cam_idx=batch["cam_idx"].tolist())
+        for losses in pending:
+            drain(losses)
         totals = {k: v / self.steps_per_epoch for k, v in totals.items()}
         if self.should_prune(epoch):
             self.prune()
@@ -706,3 +847,114 @@ class PanopticTrainer:
             outs.append(self.pipeline(chunk, channels, self.occ, self.lod_w,
                                       stage="val", tracer_cfg=chunk_cfg))
         return RenderBuffer.concatenate(outs)
+
+
+def _pinned(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array as a host tensor to copy to ``device``: pinned for the
+    card, so the copy need not wait for it (the caching host allocator keeps
+    the pinned block until the copy has run)."""
+    t = torch.as_tensor(arr)
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _host_to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array on ``device``, the copy not waiting for the card."""
+    return _pinned(arr, device).to(device, non_blocking=True)
+
+
+def _signature(batch: Dict[str, np.ndarray]) -> tuple:
+    return tuple(sorted((k, np.shape(v), np.asarray(v).dtype.str) for k, v in batch.items()))
+
+
+class _FusedStep:
+    """One key's fused step: static buffers for its inputs, on the card its
+    CUDA graph, and its ``record`` in the trainer's ``fused_log`` (stage,
+    microbatches, steps, capture ms, replays)."""
+
+    def __init__(self, trainer: PanopticTrainer, stage: StageConfig,
+                 batch: Dict[str, np.ndarray], draws: List[Tuple], cams: List,
+                 state: tuple):
+        dev = trainer.device
+        self.trainer, self.stage, self.cams, self.state = trainer, stage, cams, state
+        self.batch = {k: torch.empty(np.shape(v), dtype=torch.as_tensor(np.asarray(v)).dtype,
+                                     device=dev) for k, v in batch.items()}
+        self.subs = trainer._micro_batches(self.batch)
+        self.jitters = [torch.empty(tuple(j.shape), dtype=torch.float32, device=dev)
+                        for j, _ in draws]
+        self.normals = [tuple(None if x is None else torch.empty(3, device=dev) for x in n)
+                        for _, n in draws]
+        self.lod_w = torch.empty_like(trainer.lod_w, device=dev)
+        self.graph = self.out = None
+        self.record = {"stage": stage.label, "micro": len(self.subs),
+                       "all_anchor": [trainer._all_anchor(c) for c in cams],
+                       "channels": sorted(stage.channels), "use_inst": stage.use_inst,
+                       "steps": 0, "capture_ms": None, "replays": 0}
+        trainer.fused_log.append(self.record)
+
+    @torch.no_grad()
+    def load(self, batch: Dict[str, np.ndarray], draws: List[Tuple],
+             lod_w: torch.Tensor) -> None:
+        """Copy a step's inputs into the buffers (on the card, in stream
+        order after the previous replay that read them)."""
+        for k, v in batch.items():
+            self.batch[k].copy_(_pinned(np.asarray(v), self.batch[k].device),
+                                non_blocking=True)
+        for buf, (jitter, normals) in zip(self.jitters, draws):
+            buf.copy_(torch.as_tensor(jitter), non_blocking=True)
+        for bufs, (_, normals) in zip(self.normals, draws):
+            for buf, x in zip(bufs, normals):
+                if buf is not None:
+                    buf.copy_(x, non_blocking=True)
+        self.lod_w.copy_(lod_w, non_blocking=True)
+
+    def body(self) -> Dict[str, torch.Tensor]:
+        return self.trainer._step_body(self.stage, self.subs,
+                                       list(zip(self.jitters, self.normals)), self.cams,
+                                       self.lod_w)
+
+    def run(self) -> Dict[str, torch.Tensor]:
+        """The step on the buffers. On the CPU the body. On the card: at the
+        key's first step the body on a side stream under
+        ``set_sync_debug_mode("error")``, which raises on any host read (the
+        warm-up a capture needs, and a real step); at its second the capture
+        of the body, then its replay; after that replays."""
+        t = self.trainer
+        self.record["steps"] += 1
+        if t.device.type != "cuda":
+            return self.body()
+        dev = t.device
+        params = list(t.params.values())
+        if self.record["steps"] == 1:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = self.body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            return out
+        if self.graph is None:
+            t0 = time.perf_counter()
+            # the capture must not read what host code derived from the
+            # parameters before it (the dual encode's packed copy)
+            _bump_versions(params)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.out = self.body()
+            torch.cuda.synchronize(dev)
+            self.graph = graph
+            self.record["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        self.graph.replay()
+        # the replay wrote the parameters in place, as ``update`` does
+        _bump_versions(params)
+        self.record["replays"] += 1
+        return self.out
+
+
+def _bump_versions(tensors) -> None:
+    """Move the version counters of ``tensors``, as an in-place write does."""
+    for x in tensors:
+        torch.autograd.graph.increment_version(x)

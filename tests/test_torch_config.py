@@ -243,16 +243,19 @@ def test_factory_refuses_what_is_not_ported(extra, what):
 @pytest.mark.parametrize("extra", [("--grid-tvl1-reg", "0.1"), ("--fused-micro-step",),
                                    ("--inst-loss", "sup_contrastive")])
 def test_trainer_still_refuses_unported_stages(extra):
-    """Only the fused micro-step is refused; the TV regularisers and the
-    contrastive loss are ported (this slice) and their stage builds."""
+    """Nothing is refused since the fused micro-step is ported (the name is
+    kept): the TV regularisers and the contrastive loss build their stage,
+    and ``--fused-micro-step`` trains through the fused step."""
     _, _, trainer = factory_t.get_modules_from_config(_args(*extra), "cpu")
     epoch = trainer.cfg.inst_epoch_start
+    stage = trainer.stage_for_epoch(epoch)
+    assert stage.use_inst
     if extra[0] == "--fused-micro-step":
-        with pytest.raises(NotImplementedError, match="fused_micro_step.*not ported|"
-                                                      "not ported.*fused_micro_step"):
-            trainer.stage_for_epoch(epoch)
-    else:
-        assert trainer.stage_for_epoch(epoch).use_inst
+        assert trainer.cfg.fused_micro_step and trainer._fused_step_enabled()
+        batch = trainer.dataset.sample_batch(np.random.default_rng(0), trainer.cfg.batch_size,
+                                             trainer.cfg.num_rays_sampled_per_img)
+        losses = trainer.train_step(stage, batch)
+        assert np.isfinite(float(losses["total_loss"])) and len(trainer._fused) == 1
 
 
 @pytest.mark.parametrize("extra", [("--optimizer-type", "sgd"), ("--weight-decay", "0.1")])

@@ -1198,3 +1198,95 @@ def test_viewer_frame_on_card_matches_cpu(dev, tmp_path):
     finally:
         server.shutdown()
         server.server_close()
+
+
+def _assign_inputs(b, k, m, seed, quant=None, frac=0.8):
+    g = torch.Generator().manual_seed(seed)
+    cost = -torch.rand((b, k, m), generator=g)
+    if quant:
+        cost = torch.round(cost / quant) * quant
+    present = torch.rand((b, k), generator=g) < frac
+    return cost, present
+
+
+@pytest.mark.parametrize("b,k,m,quant,frac", [(1, 5, 5, None, 1.0), (3, 12, 8, None, 0.8),
+                                              (2, 8, 30, 0.25, 0.8), (4, 40, 40, 0.1, 1.0),
+                                              (1, 60, 60, None, 0.9), (2, 200, 200, None, 0.1),
+                                              (1, 40, 40, 1.0, 1.0)])
+def test_lap_assign_kernel_matches_plain(dev, b, k, m, quant, frac):
+    """The assignment kernel against its plain version on the same card
+    tensors: the same columns exactly, ties included (random, quantised
+    and all-equal costs, absent rows, more rows than columns)."""
+    from pagnerf_tpu_torch.ops import assignment
+    cost, present = _assign_inputs(b, k, m, k + m, quant, frac)
+    cost, present = cost.to(dev), present.to(dev)
+    before = assignment.lap_assign.launches
+    got = assignment.lap_assign(cost, present)
+    torch.cuda.synchronize()
+    assert assignment.lap_assign.launches == before + 1
+    want = assignment.lap_assign_plain(cost, present)
+    assert torch.equal(got, want)
+    # [K, M] as a batch of one
+    assert torch.equal(assignment.lap_assign(cost[0], present[0]), want[0])
+
+
+def test_fused_step_graph_replay_matches_host_loop(dev):
+    """The tiny flagship's panoptic step on the card: the fused step's
+    eager first step, its capture and replay, and a second replay, each
+    from the same state, against the host loop: parameters and moments
+    within the host loop's own spread of two runs (its scatter's float
+    atomics), losses and counts equal; then the voxel packed stage after a
+    prune. The wrappers count no launch at the capture or the replays."""
+    import dataclasses
+
+    from pagnerf_tpu_torch import entry
+    from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.train.trainer import PanopticTrainer
+    pipe, ds = entry.flagship(tiny=True, device=dev, compute_dtype=torch.float32)
+    pipe.requires_grad_(True)
+    cfg = dataclasses.replace(entry.train_config("panoptic", tiny=True), batch_size=3,
+                              voxel_raymarch_epoch_start=1)
+    t = PanopticTrainer(pipe, ds, cfg, occ_level=5)
+
+    def snapshot():
+        return ([p.detach().clone() for p in t.params.values()],
+                [m.clone() for m in list(t.opt.mu.values()) + list(t.opt.nu.values())],
+                t.opt.counts.clone())
+
+    def restore(snap):
+        with torch.no_grad():
+            for x, v in zip(list(t.params.values()) + list(t.opt.mu.values())
+                            + list(t.opt.nu.values()) + [t.opt.counts],
+                            snap[0] + snap[1] + [snap[2]]):
+                x.copy_(v)
+
+    for epoch in (0, 2):
+        if epoch:
+            t.prune(seed=True)
+        stage = t.stage_for_epoch(epoch)
+        batch = ds.sample_batch(np.random.default_rng(epoch), 3, 32)
+        gen, snap = t.generator.get_state(), snapshot()
+        runs = []
+        for i, fused in enumerate((False, False, True, True, True)):
+            restore(snap)
+            t.generator.set_state(gen)
+            if i == 3:        # the capture and replay, then a replay
+                before = {k: f.launches for k, f in tg.KERNELS.items()}
+            losses = (t.fused_train_step if fused else t.train_step)(stage, batch)
+            torch.cuda.synchronize()
+            runs.append(({n: p.detach().clone() for n, p in t.params.items()},
+                         {n: m.clone() for n, m in t.opt.mu.items()},
+                         {k: v.clone() for k, v in losses.items()}, t.opt.count))
+        rec = t.fused_log[-1]
+        assert (rec["steps"], rec["replays"]) == (3, 2) and rec["capture_ms"] > 0
+        assert {k: f.launches for k, f in tg.KERNELS.items()} == before
+        host, host2 = runs[0], runs[1]
+        for graph in runs[2:]:
+            assert graph[3] == host[3]
+            assert all(torch.equal(graph[2][k], host[2][k]) for k in host[2])
+            for i in (0, 1):
+                for n in host[i]:
+                    spread = float((host2[i][n] - host[i][n]).abs().max())
+                    scale = float(host[i][n].abs().max())
+                    d = float((graph[i][n] - host[i][n]).abs().max())
+                    assert d <= max(spread, 1e-6 * scale), (stage.label, n, d, spread)

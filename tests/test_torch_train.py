@@ -147,8 +147,13 @@ def test_stage_for_epoch_refuses_unported_parts():
                {"inst_loss": "sup_contrastive", "sem_epoch_start": 0,
                 "inst_epoch_start": 0}):
         PanopticTrainer(pipe, ds, TrainerConfig(**kw)).stage_for_epoch(0)
-    with pytest.raises(NotImplementedError, match="fused_micro_step"):
-        PanopticTrainer(pipe, ds, TrainerConfig(fused_micro_step=True)).stage_for_epoch(0)
+    # ported since: the fused micro-step, which trains
+    fused = PanopticTrainer(pipe, ds, TrainerConfig(fused_micro_step=True, batch_size=2,
+                                                    num_rays_sampled_per_img=8))
+    stage = fused.stage_for_epoch(0)
+    losses = fused.train_step(stage, ds.sample_batch(np.random.default_rng(0), 2, 8))
+    assert np.isfinite(float(losses["total_loss"])) and fused.opt.count["grid"] == 1
+    assert len(fused._fused) == 1
 
 
 def _data():
