@@ -25,7 +25,10 @@ Phases, each printing one JSON line as it ends:
    x 512 steps = 1,572,864 samples), idx/bary from the port's lattice at the
    render's sample coordinates: single and dual kernels against their plain
    PyTorch versions in float32 (the flagship's gather dtype) and bfloat16,
-   timed beside ``torch.nn.functional.embedding_bag``.
+   timed beside ``torch.nn.functional.embedding_bag``; the dual kernel reads
+   one packed [L, C, 2F] row a vertex (``ops/table_pack.py``), timed on the
+   kept copy and with a fresh pack a call (a table's version bumped first,
+   as an update does).
 4. kernels_bwd -- the backward kernels at the flagship training shapes
    (N = 4096 rays x 512 steps = 2,097,152 samples of one microbatch), idx/bary
    from the port's lattice at a real training microbatch's jittered samples:
@@ -136,12 +139,18 @@ Phases, each printing one JSON line as it ends:
    launches the assignment kernel once per microbatch of the instance
    loss's stage (its count checked apart from the other kernels').
    fused_step -- main path 6d, ``--fused-micro-step``: the assignment
-   kernel (``ops/csrc/lap_assign.cu``) against its plain version on the
-   card, the same columns exactly, on the cases of
+   kernel (``ops/csrc/lap_assign.cu``, one warp per image) against its
+   plain version on the card, the same columns exactly, on the cases of
    ``tests/test_torch_assignment.py`` (the 200 x 200 ones at 48 x 48, which
-   the plain version solves in about a second) and on the cli run's first
-   panoptic microbatch's own costs, with the kernel's, the plain version's
-   and the host ``scipy`` solve's times (copies included); then the graph
+   the plain version solves in about a second), on small-integer ties
+   across a warp's 32-column chunks (K, M of 33 to 70) and on the cli run's
+   first panoptic microbatch's own costs (saved to
+   ``pagnerf_tpu_torch/_build/assign_recorded.pt``); on the uncut 200 x 200
+   cases the matched cost against ``scipy``'s optimum; every case's kernel
+   time (launches back to back in a CUDA graph), the empty kernel's at the
+   same plan (the floor of a launch) and the wrapper's time; on the
+   microbatch also the plain version's and the host ``scipy`` solve's
+   (copies included); then the graph
    against the host loop at each stage of ``CLI_FLAGS`` at full width (a
    fresh trainer's dense RGB step; from the cli run's checkpoint the packed
    RGB, voxel packed panoptic and val-pose steps): one step from one state
@@ -259,7 +268,8 @@ Phases, each printing one JSON line as it ends:
    dbary at V = 8 once each; another microbatch's gradients through the
    kernels against the plain backward), and each V = 8 kernel on the
    path's own idx, bary, cotangents and tables at each N the path gave it
-   (the gathers single and dual, also at the validation chunks' N without
+   (the gathers single and dual -- the dual on packed rows, also with a
+   fresh pack a call --, also at the validation chunks' N without
    a gradient; the scatters single and dual with the path's per-level
    modes (GLOBAL, then the window merge), timed in turns with the previous
    per-level plan on the same tensors, and each level's scatter under each
@@ -380,6 +390,17 @@ def dbary_bound(l, c, f, n, rows_used, v=4):
     return _bound(nbytes, l * v * n * f * 2)
 
 
+def fresh_pack(kern, table):
+    """``kern`` (a dual gather) after ``table``'s version is bumped, as an
+    update bumps it: the call makes the packed copy of its tables again."""
+    import torch
+
+    def call():
+        torch.autograd.graph.increment_version(table)
+        return kern()
+    return call
+
+
 def _kernel_wrappers():
     """Every kernel wrapper of the port, by name, with its launch count."""
     # importing permuto_encoding registers the fused encodes in KERNELS
@@ -425,7 +446,7 @@ def phase_build():
     permuto_encoding._encode_kernel()
     table_gather._kernel()
     table_gather._scatter_kernels()
-    assignment._kernel()
+    assignment._kernels()
     emit("build", wall_seconds=time.perf_counter() - t,
          seconds={n: s for n, (_, s) in built.items()},
          libraries={n: p for n, (p, _) in built.items()},
@@ -594,8 +615,10 @@ def phase_kernels_fwd(dev, pipe, coordsT, flush):
             del got, ref, lib_out
             bound_ms, bound_by, nbytes, flops = gather_bound(
                 l, c, f, n, num_tables, ta.element_size(), rows_used)
+            pack = dict(ms_with_pack=cuda_ms(fresh_pack(kern, ta), flush=flush)) \
+                if num_tables == 2 else {}
             results[(name, dtype)] = dict(
-                max_abs_err=err, tol=tol,
+                max_abs_err=err, tol=tol, **pack,
                 ms=cuda_ms(kern, flush=flush), plain_ms=cuda_ms(plain, flush=flush),
                 library_ms=cuda_ms(lambda: F.embedding_bag(
                     bag_idx, bag_table, mode="sum", per_sample_weights=bag_w),
@@ -1990,68 +2013,6 @@ def phase_cli(dev, flush):
 ASSIGN_SOURCE = "pagnerf_tpu_torch/ops/csrc/lap_assign.cu"
 
 
-def assignment_cases():
-    """(name, cost [K, M] float32, present [K] bool) of
-    ``tests/test_torch_assignment.py``, the 200 x 200 ones cut to sizes the
-    plain version (which reads the card back at every step) solves in about
-    a second: random shapes, separated costs, absent rows, more rows than
-    columns, rejection penalties, quantised near ties, plateaus, two-tier
-    ties with penalties, the deployed 20 labels of 200 against 200 slots, and
-    non-finite costs mapped as ``hungarian_assign`` maps them."""
-    import numpy as np
-    out = []
-    for k, m, seed in [(5, 5, 0), (8, 12, 1), (12, 8, 2), (30, 30, 3)]:
-        rng = np.random.default_rng(seed)
-        out.append((f"random_{k}x{m}", rng.uniform(-1, 0, (k, m)).astype(np.float32),
-                    rng.random(k) > 0.2))
-    out.append(("separated", np.array([[0.0, 5, 5, 5], [5, 5, 0, 5], [5, 0, 5, 5]],
-                                      np.float32), np.ones(3, bool)))
-    cost = np.zeros((4, 3), np.float32)
-    cost[1] = [-1, 0, 0]
-    out.append(("absent_rows", cost, np.array([False, True, False, False])))
-    rng = np.random.default_rng(4)
-    out.append(("more_rows", rng.uniform(-1, 0, (10, 4)).astype(np.float32),
-                np.ones(10, bool)))
-    n = 48
-    for seed in range(2):
-        rng = np.random.default_rng(100 + seed)
-        cost = rng.uniform(-1.0, 0.0, (n, n)).astype(np.float32)
-        penal = rng.random((n, n)) < 0.3
-        penal[np.arange(n), rng.integers(0, n, n)] = False
-        out.append((f"penalties_{seed}", np.where(penal, cost + 10000.0, cost).astype(
-            np.float32), rng.random(n) > 0.1))
-    for quant in (1.0, 0.1, 0.01):
-        rng = np.random.default_rng(7)
-        out.append((f"near_ties_{quant}", (np.round(rng.uniform(-1.0, 0.0, (n, n)) / quant)
-                                           * quant).astype(np.float32), np.ones(n, bool)))
-    for i, cost in enumerate((np.zeros((n, n), np.float32), np.full((n, n), -0.5, np.float32),
-                              (-np.outer(np.linspace(0, 1, n), np.linspace(0, 1, n))
-                               ).astype(np.float32))):
-        out.append((f"plateau_{i}", cost, np.ones(n, bool)))
-    rng = np.random.default_rng(11)
-    base = rng.choice([-1.0, -0.999999], size=(n, n))
-    penal = np.zeros((n, n), bool)
-    penal[:, :n // 2] = rng.random((n, n // 2)) < 0.5
-    out.append(("two_tier", np.where(penal, base + 10000.0, base).astype(np.float32),
-                np.ones(n, bool)))
-    rng = np.random.default_rng(13)
-    emb, slots = rng.normal(size=(200, 8)), rng.normal(size=(200, 8))
-    cost = ((emb[:, None] - slots[None]) ** 2).sum(-1).astype(np.float32)
-    present = np.zeros(200, bool)
-    present[rng.choice(200, 20, replace=False)] = True
-    penal = rng.random((200, 200)) < 0.85
-    penal[np.arange(200), cost.argmin(1)] = False
-    out.append(("deployed_20_of_200", np.where(penal, cost + 10000.0, cost).astype(
-        np.float32), present))
-    rng = np.random.default_rng(21)
-    cost = rng.uniform(-1, 0, (8, 20)).astype(np.float32)
-    cost[0, :10] = np.inf
-    cost[3, 5] = np.nan
-    out.append(("nonfinite", np.clip(np.nan_to_num(cost), -1e12, 1e12).astype(np.float32),
-                np.ones(8, bool)))
-    return out
-
-
 def lap_assign_bound(b, k, m, steps):
     """Least time for the assignment: the cost read once, presence read and
     columns written once, against the data's own work: each Dijkstra step
@@ -2060,28 +2021,37 @@ def lap_assign_bound(b, k, m, steps):
     return _bound(4 * b * k * m + b * k + 8 * b * k, steps * m * 5)
 
 
+ASSIGN_RECORDED = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "assign_recorded.pt")
+
+
 def phase_assign(dev, recorded):
-    """``lap_assign.cu`` against its plain version on the card, matchings
-    exactly equal: on ``assignment_cases`` and on ``recorded`` (the tuned
-    config's [B, K, M] costs and presence from the cli phase's first
-    panoptic microbatch); times of the kernel, the plain version and the
-    host ``scipy`` solve with its copies (the port's previous path)."""
+    """``lap_assign.cu`` (one warp per image) against its plain version on
+    the card, matchings exactly equal, on ``profile_assign``'s cases
+    (``tests/test_torch_assignment.py``'s, the 200 x 200 ones at 48 x 48,
+    which the plain version solves in about a second), its tie cases
+    (small-integer costs, K and M of 33 to 70: ties across a warp's
+    32-column chunks) and ``recorded`` (the tuned config's [B, K, M] costs
+    and presence from the cli phase's first panoptic microbatch); on the
+    uncut 200 x 200 cases, too slow for the plain version, the kernel's
+    matched cost against ``scipy``'s optimum. On every case the kernel's
+    device time (``profile_assign.graph_ms``: launches back to back in a
+    CUDA graph), the empty kernel's at the same plan (the floor of a
+    launch), and the wrapper's time with CUDA events around one call (host
+    time included); on ``recorded`` also the plain version's and the host
+    ``scipy`` solve's with its copies (the port's path before the kernel).
+    ``recorded`` is saved to ``ASSIGN_RECORDED`` (``profile_assign
+    --recorded``)."""
     import numpy as np
     import torch
     from scipy.optimize import linear_sum_assignment
 
+    from pagnerf_tpu_torch import profile_assign
     from pagnerf_tpu_torch.ops import assignment
 
-    cases = {}
-    for name, cost, present in assignment_cases():
-        c = torch.from_numpy(cost).to(dev)
-        p = torch.from_numpy(present).to(dev)
-        got = assignment.lap_assign(c, p)
-        want = assignment.lap_assign_plain(c[None], p[None])[0]
-        torch.cuda.synchronize()
-        cases[name] = {"shape": list(cost.shape), "equal": bool(torch.equal(got, want)),
-                       "steps": assignment.lap_assign_plain.steps}
+    cases = dict(profile_assign.cases_on_card(dev))
     cost, present = recorded["cost"].contiguous(), recorded["present"].contiguous()
+    os.makedirs(os.path.dirname(ASSIGN_RECORDED), exist_ok=True)
+    torch.save({"cost": cost.cpu(), "present": present.cpu()}, ASSIGN_RECORDED)
     b, k, m = cost.shape
     got = assignment.lap_assign(cost, present)
     want = assignment.lap_assign_plain(cost, present)
@@ -2103,19 +2073,26 @@ def phase_assign(dev, recorded):
     pick = lambda a: torch.gather(cost, 2, a[..., None])[..., 0][present].sum()
     cost_minus_scipy = float(pick(got) - pick(host_scipy()))
     bound_ms, bound_by, nbytes, flops = lap_assign_bound(b, k, m, steps)
+    warps, staged, per_warp = assignment.launch_geometry(b, k, m)
     row = dict(
         shape=[b, k, m], present_rows=int(present.sum()), dijkstra_steps=steps,
         equal=tuned_equal, cost_minus_scipy=cost_minus_scipy,
-        ms=cuda_ms(lambda: assignment.lap_assign(cost, present), reps=20),
+        plan=dict(warps=warps, staged=staged, smem_per_warp=per_warp),
+        ms=profile_assign.graph_ms(lambda: assignment.lap_assign(cost, present)),
+        launch_floor_ms=profile_assign.graph_ms(lambda: assignment.empty_launch(cost, present)),
+        wrapper_ms=cuda_ms(lambda: assignment.lap_assign(cost, present), reps=20),
         plain_ms=cuda_ms(lambda: assignment.lap_assign_plain(cost, present), reps=3),
         host_scipy_ms=cuda_ms(host_scipy, reps=10),
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops,
         max_abs_err=int((got - want).abs().max()) if got.numel() else 0)
     fields = dict(cases=cases, tuned=row)
-    ok = tuned_equal and all(c["equal"] for c in cases.values())
+    ok = tuned_equal and all(c["ok"] for c in cases.values())
     emit("fused_step_assign", ok=ok, **fields)
     if not ok:
-        raise AssertionError(f"lap_assign kernel differs from its plain version: {fields}")
+        raise AssertionError(f"lap_assign kernel differs from its plain version or "
+                             f"scipy's optimum: {fields}")
+    row["cases_ms"] = {n: {k_: c[k_] for k_ in ("ms", "floor_ms", "wrapper_ms")}
+                       for n, c in cases.items()}
     return row
 
 
@@ -3623,7 +3600,9 @@ def hash_kernel_checks(calls, resolutions, dev, flush):
                 lib = lambda: F.embedding_bag(bag_idx, bag_table, mode="sum",
                                               per_sample_weights=bag_w)
                 bound_ms, bound_by, _, _ = gather_bound(l, c, f, n, num, 4, rows, v=8)
-                tm = dict(with_grad=kind == "gather", max_abs_err=err,
+                pack = dict(ms_with_pack=cuda_ms(fresh_pack(kern, ta), flush=flush)) \
+                    if num == 2 else {}
+                tm = dict(with_grad=kind == "gather", max_abs_err=err, **pack,
                           ms=cuda_ms(kern, flush=flush),
                           plain_ms=cuda_ms(plain, reps=5, flush=flush),
                           library_ms=cuda_ms(lib, reps=5, flush=flush),
@@ -3997,6 +3976,9 @@ def hash_kernel_rows(slice_paths, hash_times, sources):
         }
         if name + "_val" in hash_times:
             row["validation"] = hash_times[name + "_val"]
+        if "ms_with_pack" in r:
+            row["redesigned"] = "one packed [L, C, 2F] row a vertex (ms: the kept copy)"
+            row["ms_with_pack"] = r["ms_with_pack"]
         if "per_level_ms" in r:
             row["per_level_ms"] = r["per_level_ms"]
         if "previous_design" in r:
@@ -4139,6 +4121,9 @@ def main() -> None:
                                     "bound_ms", "bound_by", "library_ms")},
             "bf16": {k: r16[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                          "bound_ms", "library_ms")},
+            **({"redesigned": "one packed [L, C, 2F] row a vertex (ms: the kept copy)",
+                "ms_with_pack": r32["ms_with_pack"],
+                "bf16_ms_with_pack": r16["ms_with_pack"]} if name == "dual" else {}),
         })
     for name, key, replaces, shapes in (
             ("table_grad_single", "table_grad", "pagnerf_tpu/ops/pallas_scatter.py:339",
@@ -4179,7 +4164,10 @@ def main() -> None:
                   f"{assign_row['shape']}",
         "max_abs_err": assign_row["max_abs_err"], "tol": 0,
         **{k: assign_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None, "host_scipy_ms": assign_row["host_scipy_ms"]})
+        "library_ms": None, "host_scipy_ms": assign_row["host_scipy_ms"],
+        "redesigned": "one warp per image, the present rows' costs staged in shared memory",
+        "plan": assign_row["plan"], "launch_floor_ms": assign_row["launch_floor_ms"],
+        "wrapper_ms": assign_row["wrapper_ms"], "cases_ms": assign_row["cases_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

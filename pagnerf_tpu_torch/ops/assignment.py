@@ -16,9 +16,10 @@ JAX package's, ties included.
 a [K, M] cost is a batch of one) and returns [B, K] int64 columns, 0 for a
 row that takes no part; at most M present rows take part, the lowest-indexed
 ones. For CUDA tensors it launches the kernel ``pagnerf_lap_assign`` of
-``csrc/lap_assign.cu`` (one thread block per image; counted in
-``.launches``), which reads nothing back to the host, so the trainer's
-fused step can hold it in a CUDA graph. CPU tensors take
+``csrc/lap_assign.cu`` (one warp per image, up to ``MAX_WARPS`` images a
+block, the present rows' costs staged in shared memory where they fit:
+``launch_geometry``; counted in ``.launches``), which reads nothing back to
+the host, so the trainer's fused step can hold it in a CUDA graph. CPU tensors take
 ``lap_assign_plain``, the same algorithm with Python loops (it reads the
 argmin and the path back at every step).
 """
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -104,27 +106,56 @@ lap_assign_plain.steps = 0
 
 
 @functools.cache
-def _kernel():
+def _kernels():
+    """(solve, empty) C entries of ``csrc/lap_assign.cu``."""
     from . import _build
-    fn = _build.load("lap_assign").pagnerf_lap_assign
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("lap_assign")
+    solve, empty = lib.pagnerf_lap_assign, lib.pagnerf_lap_assign_empty
+    solve.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    empty.argtypes = [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    solve.restype = empty.restype = ctypes.c_int
+    return solve, empty
 
 
-def smem_bytes(k: int, m: int) -> int:
-    """Dynamic shared memory of one block: u, col4row [K]; v, sp, row4col,
-    path, settled [M] (4 bytes each)."""
-    return 8 * k + 20 * m
+# The kernel's limits (``csrc/lap_assign.cu``): shared memory of one block,
+# images a block holds, columns a warp keeps in registers (8 a lane).
+SMEM_MAX = 232448
+MAX_WARPS = 4
+REG_COLUMNS = 256
 
 
-def lap_assign(cost: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
-    """Minimum-cost assignment of each image's present rows of ``cost``
-    [B, K, M] float32 (finite; callers map non-finite costs first) to
-    distinct columns; ``present`` [B, K] bool. Returns [B, K] int64 (0 for
-    rows that take no part). A [K, M] cost and [K] present give [K]. CUDA
-    tensors launch the kernel (counted in ``.launches``); CPU tensors take
-    ``lap_assign_plain``."""
+def smem_bytes(k: int, m: int, staged: bool) -> int:
+    """Shared memory of one image's warp: u, col4row and the present rows'
+    indices (4 bytes each) for min(K, M) rows; sp, v, path, row4col and the
+    settled flags (4 bytes each) of M columns rounded up to 32 when M is
+    above ``REG_COLUMNS`` (else they live in registers); and, staged, the
+    min(K, M) x M float32 cost rows."""
+    p = min(k, m)
+    cols = 20 * (-(-m // 32) * 32) if m > REG_COLUMNS else 0
+    return 12 * p + cols + (4 * p * m if staged else 0)
+
+
+def launch_geometry(b: int, k: int, m: int) -> Tuple[int, bool, int]:
+    """The kernel's plan for B images of [K, M] costs: (images a block holds,
+    whether the present rows' costs are staged in shared memory, shared
+    bytes of one image's warp). The rows are staged wherever one image's
+    fit in ``SMEM_MAX``; a block holds as many images (at most
+    ``MAX_WARPS``, at most B) as fit with theirs. Raises ``ValueError``
+    where one image's state alone does not fit."""
+    if k <= 0 or m <= 0:
+        raise ValueError(f"lap_assign: K and M must be positive, got K = {k}, M = {m}")
+    staged = smem_bytes(k, m, True) <= SMEM_MAX
+    per_warp = smem_bytes(k, m, staged)
+    if per_warp > SMEM_MAX:
+        raise ValueError(f"lap_assign: K = {k}, M = {m} need {per_warp} bytes of "
+                         f"shared memory for one image (at most {SMEM_MAX})")
+    warps = max(1, min(MAX_WARPS, b, SMEM_MAX // max(per_warp, 1)))
+    return warps, staged, per_warp
+
+
+def _checked(cost: torch.Tensor, present: torch.Tensor):
+    """The wrapper's checks; (cost, present) as [B, K, M] / [B, K],
+    contiguous, and whether a [K, M] cost was given."""
     single = cost.dim() == 2
     if single:
         cost, present = cost[None], present[None]
@@ -137,21 +168,45 @@ def lap_assign(cost: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"present must be bool, got {present.dtype}")
     cost, present = cost.contiguous(), present.contiguous()
     table_gather._check_device((cost, present))
+    return cost, present, single
+
+
+def lap_assign(cost: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
+    """Minimum-cost assignment of each image's present rows of ``cost``
+    [B, K, M] float32 (finite; callers map non-finite costs first) to
+    distinct columns; ``present`` [B, K] bool. Returns [B, K] int64 (0 for
+    rows that take no part). A [K, M] cost and [K] present give [K]. CUDA
+    tensors launch the kernel at ``launch_geometry``'s plan (counted in
+    ``.launches``); CPU tensors take ``lap_assign_plain``."""
+    cost, present, single = _checked(cost, present)
     if cost.device.type == "cpu":
         out = lap_assign_plain(cost, present)
     else:
         b, k, m = cost.shape
-        if smem_bytes(k, m) > 48 * 1024:
-            raise ValueError(f"lap_assign: K = {k}, M = {m} need "
-                             f"{smem_bytes(k, m)} bytes of shared memory (at most 49152)")
+        warps, staged, _ = launch_geometry(b, k, m)
         out = torch.empty((b, k), dtype=torch.int64, device=cost.device)
         if b:
             with torch.cuda.device(cost.device):
-                err = _kernel()(cost.data_ptr(), present.data_ptr(), out.data_ptr(),
-                                b, k, m, table_gather._stream(cost.device))
+                err = _kernels()[0](cost.data_ptr(), present.data_ptr(), out.data_ptr(),
+                                    b, k, m, warps, int(staged),
+                                    table_gather._stream(cost.device))
             table_gather._raise_on(err, "lap_assign")
             lap_assign.launches += table_gather.launched()
     return out[0] if single else out
 
 
 lap_assign.launches = 0
+
+
+def empty_launch(cost: torch.Tensor, present: torch.Tensor) -> None:
+    """The floor under ``lap_assign``'s time: an empty kernel launched
+    through the same checks at the same plan (blocks, threads, shared
+    memory), on CUDA tensors. Counted nowhere."""
+    cost, present, _ = _checked(cost, present)
+    if cost.device.type != "cuda":
+        raise ValueError("empty_launch needs CUDA tensors")
+    b, k, m = cost.shape
+    warps, staged, _ = launch_geometry(b, k, m)
+    with torch.cuda.device(cost.device):
+        err = _kernels()[1](b, k, m, warps, int(staged), table_gather._stream(cost.device))
+    table_gather._raise_on(err, "lap_assign empty")

@@ -3,18 +3,23 @@
 //   out_t[l, f, n] = sum_v bary[l, v, n] * table_t[l, idx[l, v, n], f]
 //
 // for t in {a} (single) or {a, b} (dual: the main grid and the delta grid read
-// at the same indices and weights). Tables are [L, C, F], idx and bary
-// [L, V, N], outputs [L, F, N]; V is 4 (the permutohedral lattice's simplex
-// vertices) or 8 (the hash grid's voxel corners). Tables, bary and outputs
-// share one dtype, float32 or bfloat16. Products and sums run in float32
-// registers, in vertex order, and round once at the store.
+// at the same indices and weights). The single gather reads tables [L, C, F];
+// the dual gather reads one packed [L, C, 2F] copy whose row c is table a's
+// row c followed by table b's (ops/table_pack.py packed_tables). idx and
+// bary are [L, V, N], outputs [L, F, N]; V is 4 (the permutohedral
+// lattice's simplex vertices) or 8 (the hash grid's voxel corners). Tables,
+// bary and outputs share one dtype, float32 or bfloat16. Products and sums
+// run in float32 registers, in vertex order (one fmaf a vertex and
+// feature), and round once at the store, so the dual outputs are bit-equal
+// to two single gathers.
 //
 // Replaces the TPU kernels pagnerf_tpu/ops/pallas_gather.py
 // multilevel_gather_fwd (_fwd_kernel) and multilevel_gather_dual_fwd, which
-// read V from the index block's shape. Those
-// lane-pack tables into [R, 128] rows and lane-select with an iota compare;
-// both are devices of the TPU's vector layout and have no counterpart here:
-// a thread reads its F features of one vertex as one F*sizeof(T)-byte load.
+// read V from the index block's shape. Those lane-pack tables into [R, 128]
+// rows and lane-select with an iota compare; both are devices of the TPU's
+// vector layout and have no counterpart here: a thread reads the features
+// of one vertex as one vector load. The JAX dual gather's [C, 2F] rows (one
+// lookup a vertex for both tables) are kept: they are the packed rows.
 //
 // What bounds it on an H100: bytes. At flagship shapes (L=24, C=2^18, F=2,
 // N=2^21, bf16) the kernel must read idx (805 MB) and bary (403 MB) once and
@@ -26,10 +31,21 @@
 // and table) is far below the card's rate. Design against that bound: one
 // thread per (level, sample) so the idx/bary reads and the output writes are
 // coalesced along N, and the table reads are one vector load per vertex,
-// which hits L2. Fusing the lattice math in, so that idx/bary never touch
-// device memory, moves the bound: that is permuto_encode.cu, which the
+// which hits L2. Those rows are random: each is a separate L2 sector, of
+// which a row of F = 2 uses 8 bytes (float32). Two tables read as two rows
+// cost two random sectors a vertex; the packed row (16 bytes at F = 2,
+// float32) costs one, which is what the dual gather's design buys (the
+// fused encode's fine levels are bound by the same random-row rate,
+// permuto_encode.cu). Fusing the lattice math in, so that idx/bary never
+// touch device memory, moves the bound: that is permuto_encode.cu, which the
 // permutohedral encodes run; this kernel serves callers that bring their own
 // indices and weights (the hash encode).
+//
+// Measured (profile_gather.py, H100, float32, F = 2, the kernel alone, in
+// turns with the two-table dual kernel it replaced): 0.880 against 1.319 ms
+// at V = 4 and the render's N = 1,572,864; 0.420 against 0.432 ms at V = 8
+// and N = 1,048,576, where the idx and bary bytes, not the table rows, bound
+// the kernel.
 //
 // Plain C interface for ctypes (no PyTorch headers): the caller passes raw
 // device pointers and the CUDA stream, and reads back a cudaError_t.
@@ -89,27 +105,34 @@ struct Vec<16> {
   using type = uint4;
 };
 
-// Widen the F features of one table row to float32 with a single load.
-template <typename T, int F>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, float (&out)[F]) {
+// Widen the W entries of one table row to float32, in loads of at most 16
+// bytes: one load for every row but float32 F = 4's packed 32 bytes (two).
+template <typename T, int W>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, float (&out)[W]) {
   using E = Elem<T>;
-  using V = typename Vec<F * sizeof(T)>::type;
-  union {
-    V v;
-    typename E::Bits b[F];
-  } u;
-  u.v = __ldg(reinterpret_cast<const V*>(row));
+  constexpr int kBytes = W * static_cast<int>(sizeof(T));
+  constexpr int kChunk = kBytes < 16 ? kBytes : 16;
+  constexpr int kPer = kChunk / static_cast<int>(sizeof(T));
+  using V = typename Vec<kChunk>::type;
 #pragma unroll
-  for (int f = 0; f < F; ++f) out[f] = E::to_float(u.b[f]);
+  for (int c = 0; c < W / kPer; ++c) {
+    union {
+      V v;
+      typename E::Bits b[kPer];
+    } u;
+    u.v = __ldg(reinterpret_cast<const V*>(row) + c);
+#pragma unroll
+    for (int f = 0; f < kPer; ++f) out[c * kPer + f] = E::to_float(u.b[f]);
+  }
 }
 
-// grid = (ceil(N / kThreads), L); one thread per (level, sample).
+// grid = (ceil(N / kThreads), L); one thread per (level, sample). NT = 1:
+// tables [L, C, F]; NT = 2: the packed [L, C, 2F] rows, one load a vertex.
 template <typename T, int F, int NT, int V>
 __global__ void __launch_bounds__(kThreads)
-    permuto_gather_kernel(const T* __restrict__ table_a, const T* __restrict__ table_b,
-                          const int32_t* __restrict__ idx, const T* __restrict__ bary,
-                          T* __restrict__ out_a, T* __restrict__ out_b, int64_t capacity,
-                          int64_t n) {
+    permuto_gather_kernel(const T* __restrict__ tables, const int32_t* __restrict__ idx,
+                          const T* __restrict__ bary, T* __restrict__ out_a,
+                          T* __restrict__ out_b, int64_t capacity, int64_t n) {
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (s >= n) return;
   const int64_t l = blockIdx.y;
@@ -127,15 +150,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int v = 0; v < V; ++v) {
     const int64_t row = level_off + __ldg(idx_l + v * n);
     const float w = Elem<T>::load(bary_l + v * n);
-    float feat[F];
-    load_row<T, F>(table_a + row * F, feat);
+    float feat[NT * F];
+    load_row<T, NT * F>(tables + row * (NT * F), feat);
 #pragma unroll
-    for (int f = 0; f < F; ++f) acc[0][f] = fmaf(w, feat[f], acc[0][f]);
-    if constexpr (NT == 2) {
-      load_row<T, F>(table_b + row * F, feat);
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int f = 0; f < F; ++f) acc[1][f] = fmaf(w, feat[f], acc[1][f]);
-    }
+      for (int f = 0; f < F; ++f) acc[t][f] = fmaf(w, feat[t * F + f], acc[t][f]);
   }
 
   T* out_l = out_a + l * F * n + s;
@@ -149,77 +169,76 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int F, int V>
-cudaError_t launch(const void* ta, const void* tb, const void* idx, const void* bary,
-                   void* oa, void* ob, int64_t levels, int64_t capacity, int64_t n,
-                   int64_t num_tables, cudaStream_t stream) {
+cudaError_t launch(const void* tables, const void* idx, const void* bary, void* oa, void* ob,
+                   int64_t levels, int64_t capacity, int64_t n, int64_t num_tables,
+                   cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
                   static_cast<unsigned>(levels));
-  const auto* a = static_cast<const T*>(ta);
-  const auto* b = static_cast<const T*>(tb);
+  const auto* t = static_cast<const T*>(tables);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* w = static_cast<const T*>(bary);
   if (num_tables == 2) {
     permuto_gather_kernel<T, F, 2, V><<<grid, kThreads, 0, stream>>>(
-        a, b, i, w, static_cast<T*>(oa), static_cast<T*>(ob), capacity, n);
+        t, i, w, static_cast<T*>(oa), static_cast<T*>(ob), capacity, n);
   } else {
     permuto_gather_kernel<T, F, 1, V><<<grid, kThreads, 0, stream>>>(
-        a, nullptr, i, w, static_cast<T*>(oa), nullptr, capacity, n);
+        t, i, w, static_cast<T*>(oa), nullptr, capacity, n);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int V>
-cudaError_t dispatch_feat(const void* ta, const void* tb, const void* idx, const void* bary,
-                          void* oa, void* ob, int64_t levels, int64_t capacity, int64_t n,
-                          int64_t feat, int64_t num_tables, cudaStream_t stream) {
+cudaError_t dispatch_feat(const void* tables, const void* idx, const void* bary, void* oa,
+                          void* ob, int64_t levels, int64_t capacity, int64_t n, int64_t feat,
+                          int64_t num_tables, cudaStream_t stream) {
   switch (feat) {
     case 1:
-      return launch<T, 1, V>(ta, tb, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
+      return launch<T, 1, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
     case 2:
-      return launch<T, 2, V>(ta, tb, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
+      return launch<T, 2, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
     case 4:
-      return launch<T, 4, V>(ta, tb, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
+      return launch<T, 4, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_verts(const void* ta, const void* tb, const void* idx, const void* bary,
-                           void* oa, void* ob, int64_t levels, int64_t capacity, int64_t n,
-                           int64_t feat, int64_t num_tables, int64_t verts,
-                           cudaStream_t stream) {
+cudaError_t dispatch_verts(const void* tables, const void* idx, const void* bary, void* oa,
+                           void* ob, int64_t levels, int64_t capacity, int64_t n, int64_t feat,
+                           int64_t num_tables, int64_t verts, cudaStream_t stream) {
   if (verts == 4)
-    return dispatch_feat<T, 4>(ta, tb, idx, bary, oa, ob, levels, capacity, n, feat,
+    return dispatch_feat<T, 4>(tables, idx, bary, oa, ob, levels, capacity, n, feat,
                                num_tables, stream);
   if (verts == 8)
-    return dispatch_feat<T, 8>(ta, tb, idx, bary, oa, ob, levels, capacity, n, feat,
+    return dispatch_feat<T, 8>(tables, idx, bary, oa, ob, levels, capacity, n, feat,
                                num_tables, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. num_tables: 1 or 2 (table_b/out_b unused
-// for 1). verts: 4 or 8, the V of idx and bary. Returns the launch's
-// cudaError_t (0 on success); nothing is launched for an argument the kernel
-// does not take.
-extern "C" int pagnerf_permuto_gather(const void* table_a, const void* table_b,
-                                      const void* idx, const void* bary, void* out_a,
-                                      void* out_b, int64_t levels, int64_t capacity,
-                                      int64_t n, int64_t feat, int64_t num_tables,
-                                      int64_t dtype, int64_t verts, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. num_tables: 1 (tables [L, C, F], out_b
+// unused) or 2 (tables the packed [L, C, 2F] rows of both; out_a and out_b
+// [L, F, N] each). verts: 4 or 8, the V of idx and bary. Returns the
+// launch's cudaError_t (0 on success); nothing is launched for an argument
+// the kernel does not take.
+extern "C" int pagnerf_permuto_gather(const void* tables, const void* idx, const void* bary,
+                                      void* out_a, void* out_b, int64_t levels,
+                                      int64_t capacity, int64_t n, int64_t feat,
+                                      int64_t num_tables, int64_t dtype, int64_t verts,
+                                      void* stream) {
   if (levels <= 0 || levels > 65535 || capacity <= 0 || n <= 0 ||
       (n + kThreads - 1) / kThreads > 2147483647LL || (num_tables != 1 && num_tables != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_verts<float>(table_a, table_b, idx, bary, out_a, out_b, levels, capacity,
-                                n, feat, num_tables, verts, s);
+    err = dispatch_verts<float>(tables, idx, bary, out_a, out_b, levels, capacity, n, feat,
+                                num_tables, verts, s);
   else if (dtype == 1)
-    err = dispatch_verts<__nv_bfloat16>(table_a, table_b, idx, bary, out_a, out_b, levels,
-                                        capacity, n, feat, num_tables, verts, s);
+    err = dispatch_verts<__nv_bfloat16>(tables, idx, bary, out_a, out_b, levels, capacity, n,
+                                        feat, num_tables, verts, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

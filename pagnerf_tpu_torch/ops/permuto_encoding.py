@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -42,6 +41,7 @@ import torch
 
 from ..device import constant
 from . import table_gather
+from .table_pack import packed_tables
 
 _D = 3            # input dimensionality
 _VERTS = _D + 1   # simplex vertices
@@ -399,37 +399,6 @@ def encode_level_order(levels: int):
     order = (ctypes.c_int32 * levels)()
     group = fn(levels, order)
     return group, list(order)
-
-
-# The one packed [L, C, 2F] copy of a dual encode's tables: (weak references
-# to the two tables, their keys at the copy, the copy).
-_packed_copy = None
-
-
-def _table_key(t: torch.Tensor):
-    return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device)
-
-
-def packed_tables(tables_a: torch.Tensor, tables_b: torch.Tensor) -> torch.Tensor:
-    """``torch.cat((tables_a, tables_b), dim=2)`` [L, C, 2F], the rows the
-    packed dual kernel reads with one load a vertex. One copy is kept and
-    returned again while both tables are the same tensors, unchanged: an
-    in-place update (the optimizer's ``add_``, a checkpoint's ``copy_``)
-    bumps a table's ``_version``, a new tensor fails the identity check,
-    and either rebuilds the copy. At most one copy lives at a time. (A CUDA
-    graph's replay writes the tables without the host code that bumps
-    their versions; the trainer bumps them around its captures and replays.)"""
-    global _packed_copy
-    keys = (_table_key(tables_a), _table_key(tables_b))
-    if _packed_copy is not None:
-        refs, old_keys, packed = _packed_copy
-        if (old_keys == keys and refs[0]() is tables_a and refs[1]() is tables_b):
-            return packed
-    _packed_copy = None                  # frees the old copy before the new one
-    with torch.no_grad():
-        packed = torch.cat((tables_a, tables_b), dim=2)
-    _packed_copy = ((weakref.ref(tables_a), weakref.ref(tables_b)), keys, packed)
-    return packed
 
 
 def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],

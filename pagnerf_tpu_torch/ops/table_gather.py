@@ -63,6 +63,8 @@ from typing import Tuple
 
 import torch
 
+from . import table_pack
+
 VERTS = (4, 8)     # the vertex counts V the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FEATS = (1, 2, 4)
@@ -83,13 +85,18 @@ def _gather_rows(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return feats.reshape(*idx.shape, f).float()
 
 
+def _weighted_sum(feats: torch.Tensor, bary: torch.Tensor, dtype) -> torch.Tensor:
+    """feats [L, V, N, F] float32 (contiguous), bary [L, V, N] -> [L, F, N]:
+    weight in float32, sum over V, round once to ``dtype``."""
+    out = torch.sum(feats * bary.float()[..., None], dim=1)         # [L, N, F]
+    return out.permute(0, 2, 1).contiguous().to(dtype)
+
+
 def multilevel_gather_plain(tables: torch.Tensor, idx: torch.Tensor,
                             bary: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: gather, weight in float32, sum over V, round
     once. tables [L, C, F], idx/bary [L, V, N] -> [L, F, N]."""
-    feats = _gather_rows(tables, idx)                                # [L, V, N, F]
-    out = torch.sum(feats * bary.float()[..., None], dim=1)         # [L, N, F]
-    return out.permute(0, 2, 1).contiguous().to(tables.dtype)
+    return _weighted_sum(_gather_rows(tables, idx), bary, tables.dtype)
 
 
 def dual_gather_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
@@ -97,6 +104,21 @@ def dual_gather_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
     """Plain PyTorch dual version: two single gathers at shared idx/bary."""
     return (multilevel_gather_plain(tables_a, idx, bary),
             multilevel_gather_plain(tables_b, idx, bary))
+
+
+def dual_gather_packed_plain(packed: torch.Tensor, idx: torch.Tensor,
+                             bary: torch.Tensor):
+    """Plain PyTorch version of the dual kernel on its packed rows: packed
+    [L, C, 2F] (``table_pack.packed_tables``), idx/bary [L, V, N] -> (out_a,
+    out_b), each [L, F, N]; one row gathered a vertex, each table's half
+    weighted in float32, summed over V and rounded once as
+    ``multilevel_gather_plain`` does, on the same layout, so the outputs
+    are bit-equal to ``dual_gather_plain`` on the two tables (the sum's
+    order over V may depend on the layout it is given)."""
+    f = packed.shape[2] // 2
+    feats = _gather_rows(packed, idx)                                # [L, V, N, 2F]
+    return tuple(_weighted_sum(feats[..., half].contiguous(), bary, packed.dtype)
+                 for half in (slice(0, f), slice(f, 2 * f)))
 
 
 def live_rows(rows_used, levels: int, capacity: int) -> Tuple[int, ...]:
@@ -234,7 +256,7 @@ def _check_dbary(tables: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> No
 def _kernel():
     from . import _build
     fn = _build.load("permuto_gather").pagnerf_permuto_gather
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -270,20 +292,22 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
-def _launch(tables: Tuple[torch.Tensor, ...], idx: torch.Tensor,
+def _launch(src: torch.Tensor, num_tables: int, idx: torch.Tensor,
             bary: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    l, c, f = tables[0].shape
+    """The gather kernel on ``src``: one table stack [L, C, F]
+    (``num_tables`` 1) or the packed rows [L, C, 2F] of two (2)."""
+    l, c, w = src.shape
+    f = w // num_tables
     n = idx.shape[2]
-    outs = tuple(torch.empty((l, f, n), dtype=tables[0].dtype,
-                             device=idx.device) for _ in tables)
+    outs = tuple(torch.empty((l, f, n), dtype=src.dtype, device=idx.device)
+                 for _ in range(num_tables))
     if n == 0:
         return outs
     fn = _kernel()
     with torch.cuda.device(idx.device):
-        err = fn(tables[0].data_ptr(), tables[-1].data_ptr(), idx.data_ptr(),
-                 bary.data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
-                 l, c, n, f, len(tables), _DTYPE_CODE[tables[0].dtype], idx.shape[1],
-                 _stream(idx.device))
+        err = fn(src.data_ptr(), idx.data_ptr(), bary.data_ptr(), outs[0].data_ptr(),
+                 outs[-1].data_ptr(), l, c, n, f, num_tables, _DTYPE_CODE[src.dtype],
+                 idx.shape[1], _stream(idx.device))
     _raise_on(err, "permuto_gather")
     return outs
 
@@ -412,7 +436,7 @@ class _Gather(torch.autograd.Function):
         ctx.plan = (rows_used, modes)
         if tables.device.type == "cpu":
             return multilevel_gather_plain(tables, idx, bary)
-        (out,) = _launch((tables,), idx, bary)
+        (out,) = _launch(tables, 1, idx, bary)
         KERNELS["gather"].launches += launched()
         return out
 
@@ -441,8 +465,11 @@ class _DualGather(torch.autograd.Function):
         ctx.capacity = tables_b.shape[1]
         ctx.dtype_b = tables_b.dtype
         if tables_a.device.type == "cpu":
-            return dual_gather_plain(tables_a, tables_b, idx, bary)
-        out = _launch((tables_a, tables_b), idx, bary)
+            # a fresh pack: the kept copy sees a table's in-place writes only
+            # through its version counter, which writes through ``.data``
+            # (as gradcheck's perturbations) do not move
+            return dual_gather_packed_plain(torch.cat((tables_a, tables_b), dim=2), idx, bary)
+        out = _launch(table_pack.packed_tables(tables_a, tables_b), 2, idx, bary)
         KERNELS["dual_gather"].launches += launched()
         return out
 
@@ -483,10 +510,12 @@ def dual_multilevel_table_gather(tables_a: torch.Tensor, tables_b: torch.Tensor,
                                  rows_used=None, modes=None):
     """Two same-shape table stacks at shared idx/bary -> (out_a, out_b), each
     [L, F, N], bit-identical to two single gathers. One kernel launch reads
-    both tables' entries of a vertex in one pass (counted in ``.launches``);
-    CPU tensors take ``dual_gather_plain``. Differentiable in both tables and
-    in bary, whose gradient comes from the A side only; ``rows_used`` and
-    ``modes`` as in ``multilevel_table_gather``."""
+    both tables' entries of a vertex with one load from the packed [L, C,
+    2F] rows of ``table_pack.packed_tables`` (kept while the tables are
+    unchanged; counted in ``.launches``); CPU tensors take
+    ``dual_gather_packed_plain`` on a packed copy made for the call. Differentiable in both tables and in bary,
+    whose gradient comes from the A side only; ``rows_used`` and ``modes``
+    as in ``multilevel_table_gather``."""
     _check((tables_a, tables_b), idx, bary)
     return _DualGather.apply(tables_a, tables_b, idx, bary, rows_used, modes)
 

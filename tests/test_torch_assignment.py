@@ -10,9 +10,11 @@ of 200 against 200 slots, and non-finite costs through
 The plain version (what ``lap_assign`` runs on CPU tensors) follows the
 JAX algorithm's float32 operations in their order, so the matchings are
 identical, ties included; the matched cost also equals scipy's optimum
-within float32 rounding (the bound of ``tests/test_assignment.py``). The
-batched entry equals per-image calls; the wrapper's checks refuse what the
-kernel does not take.
+within float32 rounding (the bound of ``tests/test_assignment.py``). So
+are small-integer ties across the kernel's 32-column warp chunks (K and M
+of 33 to 70). The batched entry equals per-image calls; the wrapper's
+checks refuse what the kernel does not take, and its launch plan
+(``launch_geometry``: staging, images a block, shared memory) is pinned.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ import torch
 from pagnerf_tpu.losses.lin_assignment import hungarian_assign as hungarian_j
 from pagnerf_tpu.losses.lin_assignment import hungarian_host
 from pagnerf_tpu.ops.assignment import lap_assign as lap_j
+from pagnerf_tpu_torch import profile_assign
 from pagnerf_tpu_torch.losses.lin_assignment import hungarian_assign as hungarian_t
 from pagnerf_tpu_torch.ops import assignment as as_t
 
@@ -144,4 +147,57 @@ def test_wrapper_refusals():
         as_t.lap_assign(cost, torch.ones((2, 3)))
     with pytest.raises(ValueError, match=r"\[B, K, M\]"):
         as_t.lap_assign(cost, torch.ones((2, 4), dtype=torch.bool))
-    assert as_t.smem_bytes(200, 200) < 48 * 1024
+    # the deployed head's 200 x 200 costs are staged whole, one image a block
+    assert as_t.launch_geometry(5, 200, 200) == (1, True, 12 * 200 + 4 * 200 * 200)
+
+
+TIES = {name: (cost, present) for name, cost, present in profile_assign.tie_cases()}
+
+
+@pytest.mark.parametrize("name", list(TIES))
+def test_plain_jv_equals_jax_on_ties_across_warp_chunks(name):
+    """Small-integer costs with K and M at and past the kernel's 32-column
+    chunks: the minimum of a row is tied among columns of different chunks,
+    and the plain version still takes the JAX package's columns, the lowest
+    tied one at every step; the matched cost is scipy's, exactly."""
+    cost, present = TIES[name]
+    k, m = cost.shape
+    lo = cost.min(axis=1, keepdims=True) == cost
+    assert m <= 32 or (lo[:, :32].any(1) & lo[:, 32:].any(1)).any()
+    want = np.asarray(lap_j(jnp.asarray(cost), jnp.asarray(present)))
+    got = as_t.lap_assign(torch.from_numpy(cost), torch.from_numpy(present)).numpy()
+    np.testing.assert_array_equal(got, want, err_msg=name)
+    rows = np.nonzero(present)[0][:m]
+    assert len(set(got[rows])) == len(rows)
+    assert matched_cost(cost, present, got) == matched_cost(
+        cost, present, hungarian_host(cost, present))
+
+
+@pytest.mark.parametrize("b,k,m,want", [
+    (1, 11, 10, (1, True, 12 * 10 + 4 * 10 * 10)),          # the tuned microbatch
+    (7, 40, 40, (4, True, 12 * 40 + 4 * 40 * 40)),          # 2 blocks, one part full
+    (4, 150, 150, (2, True, 12 * 150 + 4 * 150 * 150)),     # two images' rows fit a block
+    (3, 8, 30, (3, True, 12 * 8 + 4 * 8 * 30)),              # K < M: K rows
+    (4, 1000, 240, (4, False, 12 * 240)),                   # 240 rows do not fit
+    (2, 300, 300, (2, False, 12 * 300 + 20 * 320)),         # columns in shared memory
+    (0, 5, 5, (1, True, 12 * 5 + 4 * 5 * 5)),
+])
+def test_launch_geometry(b, k, m, want):
+    """The kernel's plan: staged wherever one image's min(K, M) cost rows fit
+    the 227 KB of a block, as many images a block (at most 4, at most B)
+    as fit, the columns in registers up to 256 and in shared memory above."""
+    assert as_t.launch_geometry(b, k, m) == want
+    warps, staged, per_warp = want
+    assert per_warp == as_t.smem_bytes(k, m, staged) and warps * per_warp <= as_t.SMEM_MAX
+    if not staged:
+        assert as_t.smem_bytes(k, m, True) > as_t.SMEM_MAX
+    if 0 < b and warps < min(b, as_t.MAX_WARPS):
+        assert (warps + 1) * per_warp > as_t.SMEM_MAX
+
+
+@pytest.mark.parametrize("k,m", [(8000, 8000), (12000, 7500), (0, 5), (5, 0)])
+def test_launch_geometry_refuses_what_the_kernel_cannot_take(k, m):
+    """One image's state alone beyond 227 KB (u, col4row and row indices of
+    min(K, M) rows, the 5 column arrays of M > 256), or an empty side."""
+    with pytest.raises(ValueError):
+        as_t.launch_geometry(1, k, m)

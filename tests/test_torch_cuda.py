@@ -35,7 +35,16 @@ contract on ray-ordered hash events (rays in random directions and along
 +x, N odd or below a segment, F in 1, 2, 4) and on patterns at its bounds
 (hot rows past their count, every event on one row, no row repeated, rows
 continued in other slots), at V = 8 and 4, with live-row bounds; the V = 4
-default plan keeps its contract beside window levels."""
+default plan keeps its contract beside window levels.
+
+The dual gather reads one packed [L, C, 2F] row a vertex: bit-equal to two
+single gathers, within the gathers' bound of the two-table plain version,
+at V = 4 and 8, F = 1, 2, 4, both dtypes, and again after a table changed.
+The assignment kernel (one warp per image) gives its plain version's
+columns exactly on ``chip_smoke.py``'s cases, on small-integer ties across
+its 32-column chunks and under every launch plan (images a block, staged
+or not, columns in registers or shared memory), and scipy's optimal cost
+on the uncut 200 x 200 cases."""
 import contextlib
 
 import numpy as np
@@ -1290,3 +1299,89 @@ def test_fused_step_graph_replay_matches_host_loop(dev):
                     scale = float(host[i][n].abs().max())
                     d = float((graph[i][n] - host[i][n]).abs().max())
                     assert d <= max(spread, 1e-6 * scale), (stage.label, n, d, spread)
+
+
+def _assign_case_names():
+    from pagnerf_tpu_torch import profile_assign as pa
+    return [n for n, _, _ in pa.assignment_cases() + pa.tie_cases()]
+
+
+@pytest.mark.parametrize("name", _assign_case_names())
+def test_lap_assign_kernel_on_the_cases_and_ties(dev, name):
+    """The warp-per-image kernel against its plain version, column for
+    column, on ``chip_smoke.py``'s assignment cases and on small-integer
+    ties across the 32-column chunks of a warp (K, M of 33 to 70)."""
+    from pagnerf_tpu_torch import profile_assign as pa
+    from pagnerf_tpu_torch.ops import assignment
+    cost, present = {n: (c, p) for n, c, p in pa.assignment_cases() + pa.tie_cases()}[name]
+    c, p = torch.from_numpy(cost).to(dev), torch.from_numpy(present).to(dev)
+    got = assignment.lap_assign(c, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, assignment.lap_assign_plain(c[None], p[None])[0])
+
+
+@pytest.mark.parametrize("name", ["penalties_0", "near_ties_0.01", "plateau_2", "two_tier"])
+def test_lap_assign_kernel_uncut_200_matches_scipy(dev, name):
+    """The uncut 200 x 200 cases (the plain version is too slow there): a
+    valid matching of scipy's optimal cost, within ``cost_tolerance``."""
+    from pagnerf_tpu_torch import profile_assign as pa
+    from pagnerf_tpu_torch.ops import assignment
+    cost, present = {n: (c, p) for n, c, p in pa.large_cases()}[name]
+    got = assignment.lap_assign(torch.from_numpy(cost).to(dev),
+                                torch.from_numpy(present).to(dev)).cpu().numpy()
+    rows = np.nonzero(present)[0][:200]
+    assert len(set(got[rows].tolist())) == len(rows)
+    assert (pa.matched_cost(cost, present, got) - pa.scipy_cost(cost, present)
+            <= pa.cost_tolerance(name, cost, present))
+
+
+@pytest.mark.parametrize("b,k,m,quant,frac", [(9, 40, 40, 0.25, 0.9),
+                                              (2, 300, 300, 0.25, 0.1),
+                                              (3, 1000, 240, 0.1, 0.05),
+                                              (5, 33, 65, 1.0, 1.0)])
+def test_lap_assign_kernel_plans_match_plain(dev, b, k, m, quant, frac):
+    """Every plan of ``launch_geometry``: four images a block with a part
+    block, columns in shared memory (M > 256) unstaged, unstaged rows with
+    register columns, and M past two chunks; quantised ties."""
+    from pagnerf_tpu_torch.ops import assignment
+    cost, present = _assign_inputs(b, k, m, 7 * k + m, quant, frac)
+    cost, present = cost.to(dev), present.to(dev)
+    got = assignment.lap_assign(cost, present)
+    torch.cuda.synchronize()
+    assert torch.equal(got, assignment.lap_assign_plain(cost, present))
+    assignment.empty_launch(cost, present)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("v", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_packed_dual_gather_matches_plain(dev, v, dtype, f):
+    """The dual gather on packed [L, C, 2F] rows: within the gathers' bound
+    of the two-table plain version (bit-equal to the plain version on the
+    packed rows' tolerance alike), bit-equal to two single gathers, and
+    after a table's in-place update the copy is made again and the outputs
+    follow."""
+    from pagnerf_tpu_torch.ops import table_pack
+    g = torch.Generator(device=dev).manual_seed(v + f)
+    l, c, n = 5, 1 << 12, 4097
+    ta = torch.randn((l, c, f), generator=g, device=dev).to(dtype)
+    tb = torch.randn((l, c, f), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, c, (l, v, n), generator=g, device=dev, dtype=torch.int32)
+    bary = torch.rand((l, v, n), generator=g, device=dev).to(dtype)
+    for _ in range(2):
+        before = tg.dual_multilevel_table_gather.launches
+        oa, ob = tg.dual_multilevel_table_gather(ta, tb, idx, bary)
+        torch.cuda.synchronize()
+        assert tg.dual_multilevel_table_gather.launches == before + 1
+        assert torch.equal(table_pack._packed_copy[2], torch.cat((ta, tb), dim=2))
+        assert torch.equal(oa, tg.multilevel_table_gather(ta, idx, bary))
+        assert torch.equal(ob, tg.multilevel_table_gather(tb, idx, bary))
+        ref = tg.dual_gather_plain(ta, tb, idx, bary)
+        packed_ref = tg.dual_gather_packed_plain(table_pack._packed_copy[2], idx, bary)
+        tol = (v // 2) * _tol((ta, tb), ref[0], dtype)
+        for got, want, want_p in zip((oa, ob), ref, packed_ref):
+            assert torch.equal(want, want_p)
+            assert float((got.float() - want.float()).abs().max()) <= tol
+        with torch.no_grad():
+            tb.mul_(-2)

@@ -23,6 +23,7 @@ import torch
 from pagnerf_tpu.ops import permuto_encoding as pe_j
 from pagnerf_tpu_torch.ops import permuto_encoding as pe_t
 from pagnerf_tpu_torch.ops import table_gather as tg_t
+from pagnerf_tpu_torch.ops import table_pack
 
 
 def _inputs(seed, f=2, n=2000, levels=6, log2_c=14, finest=1e-3):
@@ -307,7 +308,7 @@ def test_packed_tables_rebuilt_after_a_change(how):
     assert torch.equal(again, torch.cat((a.detach(), b.detach()), dim=2))
     assert pe_t.packed_tables(a, b) is again
     # one copy at most: the first is no longer held
-    assert pe_t._packed_copy[2] is again
+    assert table_pack._packed_copy[2] is again
 
 
 def test_packed_tables_rebuilt_for_a_new_tensor_at_a_freed_address():
@@ -323,4 +324,4 @@ def test_packed_tables_rebuilt_for_a_new_tensor_at_a_freed_address():
     got = pe_t.packed_tables(a16, b16)
     assert torch.equal(got, torch.cat((a16, b16), dim=2))
     assert not torch.equal(got, first)
-    assert pe_t._packed_copy[0][0]() is a16
+    assert table_pack._packed_copy[0][0]() is a16

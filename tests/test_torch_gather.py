@@ -1,8 +1,11 @@
 """Table-gather parity: the port's plain single and dual gathers against the
 JAX Pallas kernels (interpret mode, as tests/test_pallas_gather.py runs
 them) and against the XLA table gathers, float32, atol 1e-6; dual equals two
-singles bit for bit; the wrapper's contract checks; and the permutohedral
-encodes against the JAX encodes in float32."""
+singles bit for bit; the dual kernel's plain version on packed [L, C, 2F]
+rows equals the two-table one bit for bit at V = 4 and 8, float32 and
+bfloat16, and the packed copy is kept once per table version; the wrapper's
+contract checks; and the permutohedral encodes against the JAX encodes in
+float32."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ from pagnerf_tpu.ops import pallas_gather, table_gather as tg_j
 from pagnerf_tpu.ops import permuto_encoding as pe_j
 from pagnerf_tpu_torch.ops import permuto_encoding as pe_t
 from pagnerf_tpu_torch.ops import table_gather as tg_t
+from pagnerf_tpu_torch.ops import table_pack
 
 L, C, F, V = 3, 512, 2, 4
 ROWS = (C * F) // pallas_gather.LANES
@@ -123,6 +127,65 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         args = [idx, bary, torch.zeros((L, F, idx.shape[2]), dtype=torch.bfloat16), C]
     with pytest.raises((TypeError, ValueError, RuntimeError)):
         fn(*args)
+
+
+@pytest.mark.parametrize("v", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_dual_plain_matches_two_tables_and_pallas_interpret(v, dtype):
+    """The dual kernel's plain version on the packed [L, C, 2F] rows equals
+    the two-table plain version bit for bit (and is what the wrapper takes
+    on the CPU); against the JAX dual kernel in interpret mode, which packs
+    the same rows: float32 within the 1e-6 of the gathers' JAX tests,
+    bfloat16 within (2V + 1) bf16 roundings of sum_v |bary * T| (the JAX
+    kernel rounds each product and sum to bfloat16, the port once)."""
+    rng = np.random.default_rng(20 + v)
+    n = 4 * 2 * ROWS
+    ta, tb, _, _ = _rand(20 + v)
+    idx = rng.integers(0, C, size=(L, v, n)).astype(np.int32)
+    bary = rng.uniform(0, 1, size=(L, v, n)).astype(np.float32)
+    ta_t, tb_t, idx_t, bary_t = _t(ta, tb, idx, bary)
+    ta_t, tb_t, bary_t = ta_t.to(dtype), tb_t.to(dtype), bary_t.to(dtype)
+    packed = table_pack.packed_tables(ta_t, tb_t)
+    assert packed.shape == (L, C, 2 * F) and torch.equal(packed[..., F:], tb_t)
+    pa, pb = tg_t.dual_gather_packed_plain(packed, idx_t, bary_t)
+    oa, ob = tg_t.dual_gather_plain(ta_t, tb_t, idx_t, bary_t)
+    assert pa.dtype == dtype and pa.shape == (L, F, n)
+    assert torch.equal(pa, oa) and torch.equal(pb, ob)
+    wa, wb = tg_t.dual_multilevel_table_gather(ta_t, tb_t, idx_t, bary_t)
+    assert torch.equal(wa, pa) and torch.equal(wb, pb)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    as_j = lambda x: jnp.asarray(x.float().numpy()).astype(jdt)
+    ra, rb = pallas_gather.multilevel_gather_dual_fwd(
+        as_j(ta_t).reshape(L, ROWS, -1), as_j(tb_t).reshape(L, ROWS, -1),
+        jnp.asarray(idx), as_j(bary_t), F, interpret=True)
+    for got, ref, tab in ((pa, ra, ta_t), (pb, rb, tb_t)):
+        ref = np.asarray(ref.astype(jnp.float32))
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+        else:
+            mag = tg_t.multilevel_gather_plain(tab.float().abs(), idx_t, bary_t.float())
+            bound = (2 * v + 1) * 2.0 ** -8 * mag.numpy()
+            assert np.all(np.abs(got.float().numpy() - ref) <= bound)
+
+
+def test_packed_tables_one_copy_per_table_version():
+    """The dual gather's kernel and the dual encode's share ``table_pack``'s
+    one packed copy: kept while both tables are unchanged, made again once
+    after an in-place update. The CPU dual gather packs for each call, so
+    its outputs follow any write to a table, also one through ``.data``
+    that moves no version counter."""
+    ta, tb, idx, bary = _t(*_rand(8))
+    assert pe_t.packed_tables is table_pack.packed_tables
+    first = table_pack.packed_tables(ta, tb)
+    assert table_pack.packed_tables(ta, tb) is first
+    with torch.no_grad():
+        tb.add_(1.0)
+    again = table_pack.packed_tables(ta, tb)
+    assert again is not first and torch.equal(again, torch.cat((ta, tb), dim=2))
+    assert table_pack.packed_tables(ta, tb) is again and table_pack._packed_copy[2] is again
+    tb.data.mul_(-2.0)
+    _, out_b = tg_t.dual_multilevel_table_gather(ta, tb, idx, bary)
+    assert torch.equal(out_b, tg_t.multilevel_gather_plain(tb, idx, bary))
 
 
 def _encode_inputs(seed=7, n=3000):
