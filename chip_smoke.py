@@ -1410,8 +1410,13 @@ def phase_train_post_prune(dev, flush):
         plain_ms=cuda_ms(lambda: tg.gather_dbary_plain(ta, idx, g_a), flush=flush),
         bound_ms=bound_ms, bound_by=bound_by)
     fields["kernel_times"] = times
+    windowed, windowed_launches = windowed_probe_check(trainer, stage, rays, jitter, anchor)
+    fields["windowed_probe"] = windowed
+    if not windowed["ok"]:
+        fail(f"the windowed probe: {windowed}")
     emit("train_post_prune", **fields)
-    all_launches = {k: launches[k] + info["prune_launches"][k] for k in launches}
+    all_launches = {k: launches[k] + info["prune_launches"][k] + windowed_launches[k]
+                    for k in launches}
     del trainer, idx, bary, g_a, g_b, x_b, ps, rm, a, b, ta, tb
     torch.cuda.empty_cache()
     return all_launches, times
@@ -1433,6 +1438,54 @@ def _flips(rb_a, rb_b, stuff_ids):
     inst = things & (rb_a.inst_embedding[:, 1:].argmax(-1)
                      != rb_b.inst_embedding[:, 1:].argmax(-1))
     return int((sem_a != sem_b).sum()), int(inst.sum())
+
+
+def windowed_probe_check(trainer, stage, rays, jitter, anchor):
+    """The two-stage voxel probe (``PAGNERF_WINDOWED_PROBE=1``) at this
+    path's voxel stage: the march's device ms single-stage and windowed
+    on one microbatch's rays, how many rays the window refits otherwise and
+    how many valid samples each keeps, the gate at the tuned config's
+    ray_max_travel of 4.0, then one voxel step with the switch on (its
+    losses finite, its kernels launched). Returns (record, launches)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch.ops import raymarch as rmod
+
+    cfg, travel = trainer.cfg, trainer.pipeline.tracer_cfg.ray_max_travel
+    march = lambda: rmod.raymarch(rays, trainer.occ, stage.num_steps, "voxel", jitter, travel)
+    with torch.no_grad():
+        off = march()
+        off_ms = cuda_ms(march)
+        with mock.patch.dict(os.environ, {"PAGNERF_WINDOWED_PROBE": "1"}):
+            plan = rmod._window_plan(trainer.occ, travel)
+            tuned_plan = rmod._window_plan(trainer.occ, 4.0)
+            on = march()
+            on_ms = cuda_ms(march)
+    rec = {"occ_level": trainer.occ.level, "ray_max_travel": travel,
+           "num_steps": stage.num_steps, "rays": int(rays.origins.shape[0]),
+           "plan": None if plan is None else dict(zip(("coarse_level", "pn1", "pn2", "w_max"),
+                                                      plan)),
+           "single_stage_probes": int(math.ceil(math.sqrt(3.0) * trainer.occ.res)),
+           "tuned_travel_4_windowed": tuned_plan is not None,
+           "single_ms": off_ms, "windowed_ms": on_ms,
+           "rays_refit_otherwise": int((on.t0 != off.t0).sum()),
+           "valid_single": int(off.mask.sum()), "valid_windowed": int(on.mask.sum())}
+    batch = trainer.dataset.sample_batch(np.random.default_rng(5), cfg.batch_size,
+                                         cfg.num_rays_sampled_per_img)
+    _reset_launches()
+    with mock.patch.dict(os.environ, {"PAGNERF_WINDOWED_PROBE": "1"}):
+        losses = {k: float(v) for k, v in trainer.train_step(stage, batch).items()}
+    torch.cuda.synchronize()
+    launches = _launches()
+    micro = batch["imgs"].shape[0]
+    rec.update(step_losses=losses, step_launches=launches,
+               ok=(plan is not None and all(math.isfinite(v) for v in losses.values())
+                   and launches["dual_encode"] == micro
+                   and launches["dual_table_grad"] == micro))
+    return rec, launches
 
 
 def phase_validate(dev, flush):
@@ -3988,6 +4041,254 @@ def hash_kernel_rows(slice_paths, hash_times, sources):
     return rows
 
 
+DP_ARGV = ["--config", CLI_CONFIG] + CLI_FLAGS
+# The stages of the data-parallel phase, each from the same start (a
+# snapshot of the fresh trainer, restored), so the ranks' first gradients
+# and losses of each stage meet the single process's on the same state:
+# epoch 0 dense RGB, epoch 1 after the seed prune (ray march, packed RGB),
+# epoch 2 after the real prune and the scene fixture (voxel march, packed
+# layout, panoptic heads), epoch 3 a val-pose epoch.
+DP_BLOCKS = (("dense_rgb", [], 0, 2), ("seed_prune", [{"do": "seed_prune"}], 1, 1),
+             ("voxel_packed_panoptic", [{"do": "prune"}, {"do": "fixture"}], 2, 2),
+             ("val_pose", [{"do": "prune"}, {"do": "fixture"}], 3, 1))
+# Bounds of the ranks against one process on the card: the losses of each
+# stage's first step, from the shared state (rtol, atol), and of the steps
+# after an all-reduced update (rtol); one microbatch's summed gradients (a
+# share of each tensor's largest entry). Four NCCL ranks on H100s read at
+# most 1.8e-7 (first losses), 2.2e-4 (later losses) and 3.4e-4
+# (gradients); the control below (the RGB term without its 1/world share)
+# read 0.076 (total_loss) and 0.60 (gradients), and must fail the bounds.
+# The fused step must give the host loop's bits.
+DP_LOSS_RTOL, DP_LOSS_ATOL, DP_STEP_RTOL, DP_GRAD_SHARE = 1e-5, 1e-6, 2e-3, 2e-3
+# the kernels each stage's microbatches must launch on every rank: the
+# encode and its table-gradient scatter (dual once the panoptic heads
+# render), dbary for the cameras that are not anchors, the assignment in a
+# panoptic stage; a val-pose step trains the extrinsics only
+DP_NEED = {"dense_rgb": ("encode", "table_grad", "dbary"),
+           "seed_prune": ("encode", "table_grad", "dbary"),
+           "voxel_packed_panoptic": ("dual_encode", "dual_table_grad", "dbary", "lap_assign"),
+           "val_pose": ("encode", "dbary")}
+
+
+def dp_actions() -> list:
+    acts = [{"do": "snapshot"}]
+    for name, prelude, epoch, steps in DP_BLOCKS:
+        acts += [{"do": "restore", "block": name}] + prelude + [
+            {"do": "grads", "epoch": epoch, "block": name},
+            {"do": "step", "epoch": epoch, "block": name, "repeat": steps}]
+    return acts
+
+
+def phase_data_parallel(dev, smi_line):
+    """The ray-axis data-parallel step (``parallel/sharding.py``) at the
+    tuned config's full width (24 LoDs x 2^18 x F=2, hidden 64, 4096 rays x
+    5 images): on min(4, cards) cards over NCCL, or two gloo ranks on a
+    lone card (the host loop). Every stage of ``DP_BLOCKS`` on every rank
+    against one process on the card (``DP_*`` bounds, which a control with
+    one term mis-weighted must fail), no rank's packed buffer overflowed,
+    each kernel of the path launched on every rank; under NCCL the fused
+    step's every step and parameters against the host loop's, its graph
+    captured once and replayed; the dryrun's collective audit, the scaling
+    sweep, and the host sampler's time."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pagnerf_tpu_torch import entry
+    from pagnerf_tpu_torch.data import native
+    from pagnerf_tpu_torch.parallel.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    world, rpd = (min(4, cards), 1) if cards >= 2 else (2, 2)
+    backend = "nccl" if rpd == 1 else "gloo"
+    work = tempfile.mkdtemp(prefix="dp_", dir=os.path.join(ROOT, "pagnerf_tpu_torch", "_build"))
+    fields = {"card": smi_line, "world": world, "backend": backend,
+              "ranks_per_card": rpd, "argv": DP_ARGV}
+
+    def fail(msg):
+        emit("data_parallel", ok=False, error=msg, **fields)
+        raise SystemExit(f"data_parallel: {msg}")
+
+    # the host sampler: the C++ draw against numpy's at 5 x 4096 of 96x72
+    pool, reps = 96 * 72, 20
+    native.sample_ray_indices(5, 4096, pool, 1)
+    t = time.perf_counter()
+    for i in range(reps):
+        native.sample_ray_indices(5, 4096, pool, i)
+    sampler_ms = (time.perf_counter() - t) * 1e3 / reps
+    t = time.perf_counter()
+    for i in range(reps):
+        rng = np.random.default_rng(i)
+        np.stack([rng.choice(pool, 4096, replace=False) for _ in range(5)])
+    numpy_ms = (time.perf_counter() - t) * 1e3 / reps
+    fields["sampler"] = {"batch": [5, 4096], "pool": pool, "native_ms": sampler_ms,
+                         "numpy_ms": numpy_ms, "clock": "host, mean of 20"}
+
+    spec = {"argv": DP_ARGV, "device": "cuda", "actions": dp_actions()}
+    t = time.perf_counter()
+    single = entry.data_parallel_run(None, dict(spec, device=str(dev)))
+    fields["single_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = run_ranks(world, "pagnerf_tpu_torch.entry:data_parallel_run", spec, "cuda",
+                      os.path.join(work, "stages"), rpd, timeout_s=600)
+    fields["ranks_s"] = time.perf_counter() - t
+    fields["devices"] = [r["device"] for r in ranks]
+    fields["backends"] = [r["backend"] for r in ranks]
+
+    def by(run, do):
+        return [a for a in run["actions"] if a["do"] == do]
+
+    def held(tag, got_steps, want_steps):
+        """The largest relative differences of the first step's losses and
+        of the later steps' from the reference's; fails on a missing step or
+        key or one out of bounds."""
+        if len(got_steps) != len(want_steps):
+            fail(f"{tag}: {len(got_steps)} steps against {len(want_steps)}")
+        rel = [0.0, 0.0]
+        for i, (got, want) in enumerate(zip(got_steps, want_steps)):
+            if sorted(got) != sorted(want):
+                fail(f"{tag} step {i}: losses {sorted(got)} against {sorted(want)}")
+            rtol = DP_LOSS_RTOL if i == 0 else DP_STEP_RTOL
+            for k, v in want.items():
+                d = abs(got[k] - v)
+                if not (math.isfinite(got[k]) and d <= DP_LOSS_ATOL + rtol * abs(v)):
+                    fail(f"{tag} step {i}: {k} {got[k]} against {v}")
+                rel[min(i, 1)] = max(rel[min(i, 1)], d / max(abs(v), 1e-30))
+        return rel
+
+    def share_of(got, want, base=None):
+        """max over tensors of max |got - want| over max |want - base|
+        (base 0: the tensor's largest entry)."""
+        share = 0.0
+        for pname, w in want.items():
+            scale = float((w if base is None else w - base[pname]).abs().max())
+            if scale > 0:
+                share = max(share, float((got[pname] - w).abs().max()) / scale)
+        return share
+
+    stages, worst = {}, {"loss_rel": 0.0, "later_loss_rel": 0.0, "grad_share": 0.0}
+    for i, (name, _, epoch, _) in enumerate(DP_BLOCKS):
+        ref_g, ref_s = by(single, "grads")[i], by(single, "step")[i]
+        rec = {"stage": ref_s["stage"], "single_losses": ref_s["losses"],
+               "single_step_ms": [ref_s["ms"]], "ranks": []}
+        for r in ranks:
+            g, st = by(r, "grads")[i], by(r, "step")[i]
+            if st["stage"] != ref_s["stage"]:
+                fail(f"{name}: rank {r['rank']} ran {st['stage']}, one process {ref_s['stage']}")
+            # every step: the first from the shared start, the next after
+            # the all-reduced masked update
+            rel = held(f"{name}: rank {r['rank']} grads", g["losses"], ref_g["losses"])[0]
+            rel, later = held(f"{name}: rank {r['rank']}", st["losses"], ref_s["losses"])
+            share = share_of(g["grads"], ref_g["grads"])
+            if share > DP_GRAD_SHARE:
+                fail(f"{name}: rank {r['rank']} gradients off by {share} of their largest entry")
+            launches = {k: g["launches"][k] + st["launches"][k] for k in st["launches"]}
+            missing = [k for k in DP_NEED[name] if not launches.get(k)]
+            if missing:
+                fail(f"{name}: rank {r['rank']} launched no {missing}: {launches}")
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            worst["later_loss_rel"] = max(worst["later_loss_rel"], later)
+            worst["grad_share"] = max(worst["grad_share"], share)
+            rec["ranks"].append({"rank": r["rank"], "losses": st["losses"],
+                                 "step_ms": st["ms"], "launches": launches,
+                                 "max_loss_rel": rel, "later_loss_rel": later,
+                                 "max_grad_share": share,
+                                 "pack_overflows": st["pack_overflows"],
+                                 "pack_share_max": st["pack_share_max"],
+                                 "collectives": len(st["collectives"])})
+        stages[name] = rec
+    for r in ranks:
+        if r["actions"][-1]["pack_overflows"]:
+            fail(f"rank {r['rank']}: {r['actions'][-1]['pack_overflows']} packed layout(s) "
+                 f"overflowed the rank's buffer and cut rays unlike one process")
+    fields["stages"] = stages
+    fields["worst"] = worst
+    fields["bounds"] = {"loss_rtol": DP_LOSS_RTOL, "loss_atol": DP_LOSS_ATOL,
+                        "later_rtol": DP_STEP_RTOL, "grad_share": DP_GRAD_SHARE}
+    # the control: one process with the RGB term at world x its weight, the
+    # voxel stage's first microbatch against the sound one process's; the
+    # bounds must fail it
+    ctrl = entry.data_parallel_run(None, {
+        "argv": DP_ARGV + ["--rgb-weight", str(float(world))], "device": str(dev),
+        "actions": [{"do": "prune"}, {"do": "fixture"}, {"do": "grads", "epoch": 2}]})
+    torch.cuda.empty_cache()
+    cg, rg = by(ctrl, "grads")[0], by(single, "grads")[2]
+    fields["control"] = {
+        "term": f"rgb_weight x {world}",
+        "loss_rel": max(abs(cg["losses"][0][k] - v) / max(abs(v), 1e-30)
+                        for k, v in rg["losses"][0].items()),
+        "grad_share": share_of(cg["grads"], rg["grads"])}
+    if (fields["control"]["loss_rel"] <= max(DP_LOSS_RTOL, DP_STEP_RTOL)
+            or fields["control"]["grad_share"] <= DP_GRAD_SHARE):
+        fail(f"the bounds do not see a term without its 1/world share: {fields['control']}")
+    # collectives of the voxel panoptic step, per rank's first step
+    coll = by(ranks[0], "step")[2]["collectives"]
+    fields["step_collectives"] = {"calls": len(coll),
+                                  "elements": sum(n for _, n in coll)}
+    path = {k: 0 for k in _launches()}
+    for r in ranks:
+        for a in r["actions"]:
+            if a["do"] in ("step", "grads", "seed_prune", "prune"):
+                for k, v in a["launches"].items():
+                    path[k] = path.get(k, 0) + v
+    emit("data_parallel_stages", **fields)
+    if backend == "nccl":
+        # the host loop, then the fused step, from the same state on one
+        # batch (so the key's second step captures and its next two replay
+        # the graph with the NCCL collectives in it): every step's losses
+        # and the parameters after them equal to the host loop's
+        steps = 4
+        block = [{"do": "restore"}, {"do": "prune"}, {"do": "fixture"}]
+        run = {"do": "step", "epoch": 2, "same_batch": True, "repeat": steps}
+        fused = run_ranks(world, "pagnerf_tpu_torch.entry:data_parallel_run",
+                          dict(spec, actions=[{"do": "snapshot"}] + block + [
+                              {"do": "params"}, run, {"do": "params"}] + block + [
+                              dict(run, fused=True), {"do": "params"}]), "cuda",
+                          os.path.join(work, "fused"), rpd, timeout_s=300)
+        fields["fused"] = {"steps": steps, "ranks": []}
+        for r in fused:
+            host_s, fused_s = by(r, "step")
+            p0, p_host, p_fused = (a["params"] for a in by(r, "params"))
+            if fused_s["losses"] != host_s["losses"]:
+                fail(f"fused step: rank {r['rank']} losses {fused_s['losses']}, the host "
+                     f"loop's {host_s['losses']}")
+            upd = share_of(p_fused, p_host, p0)
+            if upd != 0.0:
+                fail(f"fused step: rank {r['rank']} parameters off by {upd} of the steps' update")
+            rec = [e for e in r["fused_log"] if e["stage"] == "voxel_packed_panoptic"]
+            if len(rec) != 1 or rec[0]["capture_ms"] is None or rec[0]["replays"] != steps - 1:
+                fail(f"fused step: rank {r['rank']} did not capture once and replay: "
+                     f"{r['fused_log']}")
+            if r["actions"][-1]["pack_overflows"]:
+                fail(f"fused step: rank {r['rank']} packed layouts overflowed")
+            fields["fused"]["ranks"].append({
+                "rank": r["rank"], "losses": fused_s["losses"], "host_losses": host_s["losses"],
+                "param_update_share": upd, "log": rec[0],
+                "step_ms": fused_s["ms"], "host_step_ms": host_s["ms"]})
+        emit("data_parallel_fused", world=world, backend=backend, **fields["fused"])
+        for r in fused:
+            for a in r["actions"]:
+                if a["do"] in ("step", "grads", "seed_prune", "prune"):
+                    for k, v in a["launches"].items():
+                        path[k] = path.get(k, 0) + v
+    try:
+        dry = entry.dryrun_multichip(world, device=dev, ranks_per_device=rpd,
+                                     workdir=os.path.join(work, "dryrun"))
+    except AssertionError as e:
+        fail(f"dryrun_multichip: {e}")
+    fields.pop("stages")
+    fields.update(dryrun={k: dry[k] for k in ("n", "backend", "devices", "losses",
+                                             "losses_sharded", "audit")},
+                  sweep=dry["sweep"], launches=path)
+    emit("data_parallel", ok=True, **fields)
+    shutil.rmtree(work, ignore_errors=True)
+    assign = path.pop("lap_assign", 0)
+    return path, assign
+
+
 def main() -> None:
     # import the port first: without it (or without a card) nothing is printed
     import shutil
@@ -4038,6 +4339,7 @@ def main() -> None:
             dev, stage_name)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     paths["train_post_prune"], post = phase_train_post_prune(dev, flush_buf.zero_)
+    paths["data_parallel"], assign_paths["data_parallel"] = phase_data_parallel(dev, smi_line)
     paths["validate"], val_times, val_launches = phase_validate(dev, flush_buf.zero_)
     paths["cli"], cli_times, cli_ckpt, cli_host = phase_cli(dev, flush_buf.zero_)
     assign_paths["cli"] = cli_host["assign_launches"]

@@ -1,13 +1,13 @@
 """Multiview dataset wrapper (counterpart of ``pagnerf_tpu/data/multiview.py``).
 
 Ported: the data dict, its ``semantic_info``, the interleaved train/val
-split, and ``sample_batch`` (random images x random rays per image), as a
-numpy copy. The JAX package samples distinct pixels with its C++ helper when
-that is built; the port takes the helper's numpy fallback (the same
-distribution, other numbers). When an image has fewer pixels than the rays
-asked for -- the flagship's 4096 rays of a 64x48 image -- both sample with
-replacement from one ``np.random.default_rng`` and give the same batch bit
-for bit.
+split, and ``sample_batch`` (random images x random rays per image). The
+distinct pixels of each image come from ``data/native.py``'s C++ sampler,
+the stream the JAX package's batches come from, and the pixel modes from its
+gathers; when an image has fewer pixels than the rays asked for -- the
+flagship's 4096 rays of a 64x48 image -- both packages sample with
+replacement from one ``np.random.default_rng``. The same ``rng`` gives the
+JAX package's batch bit for bit.
 
 ``get_images`` serves whole images for validation at a mip level. The JAX
 package resizes with ``cv2``; the port resizes by the whole factor 2^mip in
@@ -24,21 +24,11 @@ import torch
 
 from ..core.camera import (extrinsics_params_from_view_matrix, generate_pinhole_rays,
                            inv_transform_rays)
+from . import native
 
 # Pixel modes that get flattened and ray-sampled.
 PIXEL_MODES = ("imgs", "semantics", "instance", "semantics_pred", "instance_pred",
                "sem_conf", "inst_conf", "depths", "rays_origins", "rays_dirs")
-
-
-def sample_ray_indices(batch: int, num_rays: int, num_pixels: int,
-                       seed: int) -> np.ndarray:
-    """[batch, num_rays] pixel indices per image: distinct while the pool
-    allows, with replacement when ``num_rays`` exceeds it."""
-    rng = np.random.default_rng(seed)
-    if num_rays > num_pixels:
-        return rng.integers(0, num_pixels, (batch, num_rays)).astype(np.int64)
-    return np.stack([rng.choice(num_pixels, num_rays, replace=False)
-                     for _ in range(batch)]).astype(np.int64)
 
 
 def _resize_stack(arr: np.ndarray, s: int, nearest: bool) -> np.ndarray:
@@ -117,8 +107,8 @@ class MultiviewDataset:
         idxs = self.train_idxs if split == "train" else self.val_idxs
         img_idx = rng.choice(idxs, size=min(batch_size, len(idxs)), replace=False)
         pool = self.num_pixels if self._valid_pixels is None else len(self._valid_pixels)
-        ray_idx = sample_ray_indices(len(img_idx), num_rays, pool,
-                                     int(rng.integers(2 ** 62)))
+        ray_idx = native.sample_ray_indices(len(img_idx), num_rays, pool,
+                                            int(rng.integers(2 ** 62)))
         if self._valid_pixels is not None:
             ray_idx = self._valid_pixels[ray_idx]
         batch = {"cam_idx": img_idx.astype(np.int32)}
@@ -126,7 +116,8 @@ class MultiviewDataset:
             if mode in self.data:
                 arr = self.data[mode]
                 flat = arr.reshape(arr.shape[0], self.num_pixels, *arr.shape[3:])
-                batch[mode] = flat[img_idx[:, None], ray_idx]
+                batch[mode] = native.gather_pixels(flat, img_idx.astype(np.int64),
+                                                   ray_idx)
         bo = self.data["base_rays_origins"].reshape(self.num_pixels, 3)
         bd = self.data["base_rays_dirs"].reshape(self.num_pixels, 3)
         batch["base_rays_origins"] = bo[ray_idx]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, FrozenSet, Optional
 
@@ -314,3 +315,279 @@ def validate_flagship(device="cuda", tiny: bool = False, steps: int = 3,
     results["map"] = {"seconds": seconds, "points": points}
     done("map", trainer)
     return trainer, results
+
+
+# ------------------------------------------------------ data parallelism
+def _launch_counts() -> dict:
+    """The kernel wrappers' launch counts (they count on the card only)."""
+    from .ops import assignment, permuto_encoding, table_gather  # noqa: F401
+    counts = {k: fn.launches for k, fn in table_gather.KERNELS.items()}
+    counts["lap_assign"] = assignment.lap_assign.launches
+    return counts
+
+
+def _reset_launch_counts() -> None:
+    from .ops import assignment, permuto_encoding, table_gather  # noqa: F401
+    table_gather.reset_launches()
+    assignment.lap_assign.launches = 0
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def data_parallel_run(group, spec: dict) -> dict:
+    """Build a trainer from ``spec["argv"]`` (the command line's flags,
+    through the port's factory, on ``spec["device"]``) or, without
+    ``argv``, of the flagship (``tiny``, ``compute_dtype``, ``occ_level``,
+    TrainerConfig fields ``cfg``), make it rank
+    ``group.rank`` of ``group`` (or a single process with ``group=None``),
+    optionally load ``spec["params"]`` (a state dict), then run ``spec["actions"]`` in order. Every rank runs the same actions
+    on the same global batches, so a single process's run is the
+    reference of a group's. Actions (dicts with ``do``):
+
+    - ``step``: ``train_step`` of the stage of ``epoch`` on ``batch`` (or a
+      batch sampled from the trainer's generator; ``local_batches[rank]``
+      through ``shard_ray_batch_host_local``), with ``jitters`` if given
+      (global, one per microbatch); ``fused`` runs ``fused_train_step``;
+      ``repeat`` times (``same_batch``: on one batch sampled before the
+      first, so a fused step's key replays);
+    - ``grads``: ``grad_step`` of ``batch``'s first microbatch (global
+      gradients under a group);
+    - ``epoch``: ``run_epoch(epoch)`` (its batches from the trainer's
+      generator), its mean losses;
+    - ``seed_prune``, ``prune``, ``fixture`` (``apply_scene_fixture``, the
+      prune flag set, ``occ_frac`` to size the packed budget);
+    - ``params``: a host copy of the parameters;
+    - ``snapshot`` / ``restore``: keep the trainer's state (and its
+      generators' states) in memory / put it back;
+    - ``validate``: ``validate`` at ``epoch`` on rank 0 only;
+    - ``save`` / ``load``: a checkpoint at ``path`` (written by rank 0).
+
+    Returns per action: its ``losses`` (floats), ``grads`` (host tensors),
+    the collectives it made (``collectives``: tag, elements), its ``ms``
+    (host clock to a device sync), the kernels' ``launches``, and the
+    group's ``pack_overflows`` so far; plus the parameters' element count."""
+    from .config import factory
+    from .config.config import parse_options
+    import copy
+
+    from .train.checkpoint import load_checkpoint, load_state, save_checkpoint, trainer_state
+    from .train.validation import validate as run_validate
+
+    dev = resolve_device(spec["device"])
+    if "argv" in spec:
+        pipe, ds, trainer = factory.get_modules_from_config(parse_options(list(spec["argv"])),
+                                                            str(dev))
+    else:
+        # the flagship (``flagship``) under a TrainerConfig of ``cfg``
+        pipe, ds = flagship(tiny=spec.get("tiny", True), device=dev,
+                            compute_dtype=getattr(torch, spec.get("compute_dtype",
+                                                                  "bfloat16")))
+        pipe.requires_grad_(True)
+        trainer = PanopticTrainer(pipe, ds, TrainerConfig(**spec.get("cfg", {})),
+                                  OptimizerConfig(), occ_level=spec.get("occ_level", 7))
+    if spec.get("params") is not None:
+        pipe.load_state_dict(spec["params"])
+    if group is not None:
+        trainer.set_group(group)
+    rank = 0 if group is None else group.rank
+    out = {"rank": rank, "world": 1 if group is None else group.world,
+           "device": str(dev if group is None else group.device),
+           "backend": None if group is None else group.backend,
+           "param_elements": {n: p.numel() for n, p in trainer.params.items()},
+           "actions": []}
+    snapshot = None
+    for act in spec["actions"]:
+        do = act["do"]
+        rec = {"do": do}
+        if group is not None:
+            group.log.clear()
+        _reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        if do in ("step", "grads"):
+            stage = trainer.stage_for_epoch(act.get("epoch", 0))
+            split = "val" if stage.training_val_poses else "train"
+            rec["stage"] = stage.label
+            rec["losses"] = []
+            fixed = act.get("batch")
+            if fixed is None and act.get("same_batch"):
+                fixed = ds.sample_batch(trainer.rng, trainer.cfg.batch_size,
+                                        trainer.cfg.num_rays_sampled_per_img, split)
+            for _ in range(act.get("repeat", 1)):
+                batch = fixed
+                if act.get("local_batches") is not None:
+                    # each rank's own share of the rays (``shard_ray_batch_host_local``)
+                    from .parallel.sharding import shard_ray_batch_host_local
+                    batch = shard_ray_batch_host_local(act["local_batches"][rank], group)
+                elif batch is None:
+                    batch = ds.sample_batch(trainer.rng, trainer.cfg.batch_size,
+                                            trainer.cfg.num_rays_sampled_per_img, split)
+                if do == "grads":
+                    sub = trainer._micro_batches(batch)[0]
+                    grads, losses = trainer.grad_step(stage, sub, act.get("jitter"))
+                    rec["grads"] = {n: g.detach().float().cpu() for n, g in grads.items()}
+                elif act.get("fused"):
+                    losses = trainer.fused_train_step(stage, batch, act.get("jitters"))
+                else:
+                    losses = trainer.train_step(stage, batch, act.get("jitters"))
+                rec["losses"].append({k: float(v) for k, v in losses.items()})
+            trainer.epoch = act.get("epoch", 0)
+        elif do == "epoch":
+            rec["losses"] = [trainer.run_epoch(act["epoch"])]
+            rec["stage"] = trainer.stage_for_epoch(act["epoch"]).label
+        elif do == "seed_prune":
+            trainer.prune(seed=True)
+        elif do == "prune":
+            trainer.prune()
+        elif do == "fixture":
+            apply_scene_fixture(trainer)
+            trainer._pruned = True
+            if act.get("occ_frac") is not None:
+                trainer._occ_frac = act["occ_frac"]      # sizes the packed budget
+        elif do == "snapshot":
+            snapshot = (trainer_state(trainer), copy.deepcopy(trainer.rng),
+                        trainer.generator.get_state())
+        elif do == "restore":
+            load_state(trainer, snapshot[0])
+            trainer.rng = copy.deepcopy(snapshot[1])
+            trainer.generator.set_state(snapshot[2])
+        elif do == "params":
+            rec["params"] = {n: p.detach().float().cpu().clone()
+                             for n, p in trainer.params.items()}
+        elif do == "validate":
+            if rank == 0:
+                rec["metrics"] = run_validate(trainer, act.get("epoch", 0))
+        elif do == "save":
+            if rank == 0:
+                trainer.epoch = act.get("epoch", trainer.epoch)
+                save_checkpoint(act["path"], trainer)
+            if group is not None:
+                from .parallel.sharding import all_reduce
+                all_reduce(torch.zeros(1, device=dev), group, "barrier")
+        elif do == "load":
+            load_checkpoint(act["path"], trainer)
+        else:
+            raise ValueError(f"unknown action {do!r}")
+        _sync(dev)
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        rec["launches"] = _launch_counts()
+        rec["collectives"] = list(group.log) if group is not None else []
+        rec["pack_overflows"] = 0 if group is None else int(group.pack_overflows)
+        rec["pack_share_max"] = 0.0 if group is None else float(group.pack_share_max)
+        rec["occupied_share"] = float(trainer.occ.mask.float().mean())
+        out["actions"].append(rec)
+    out["fused_log"] = list(trainer.fused_log)
+    return out
+
+
+DRYRUN_ARGV_TINY = ["--config", "configs/synthetic/tiny.yaml", "--num-lods", "4",
+                    "--capacity-log-2", "8", "--delta-capacity-log-2", "8",
+                    "--hidden-dim", "16", "--num-steps", "16",
+                    "--synthetic-num-views", "8", "--synthetic-res", "16", "16"]
+
+
+def audit_collectives(record: dict, param_elements: dict) -> dict:
+    """The collective audit of one step's record: the gradient sums carry
+    each parameter's elements at most once, and every other collective has
+    fewer than 4096 elements. Raises otherwise."""
+    coll = record["collectives"]
+    grad = sum(n for tag, n in coll if tag == "grad")
+    small = [(tag, n) for tag, n in coll if tag != "grad"]
+    big = [(tag, n) for tag, n in small if n >= 4096]
+    total = sum(param_elements.values())
+    if big:
+        raise AssertionError(f"collectives of 4096 elements or more besides the "
+                             f"gradient sum: {big}")
+    if grad > total:
+        raise AssertionError(f"the gradient sums carry {grad} elements, the "
+                             f"parameters hold {total}")
+    tags = {}
+    for tag, n in small:
+        tags.setdefault(tag, [0, 0])
+        tags[tag][0] += 1
+        tags[tag][1] += n
+    return {"grad_elements": grad, "param_elements": total,
+            "grad_calls": sum(1 for tag, _ in coll if tag == "grad"),
+            "small": {t: {"calls": c, "elements": e} for t, (c, e) in sorted(tags.items())},
+            "largest_small": max((n for _, n in small), default=0)}
+
+
+def dryrun_multichip(n: int, device="cuda", tiny: bool = False,
+                     ranks_per_device: int = 1, workdir: Optional[str] = None,
+                     sweep_steps: int = 3) -> dict:
+    """One full step of the flagship's panoptic stage (the JAX dryrun's:
+    semantic and instance heads from epoch 0, outlier rejection, no
+    prune) on the tuned config at full width (``tiny``: 4 LoDs x 2^8, 16x16
+    images, 16 rays a rank, on the CPU a few seconds), sharded over an
+    ``n``-rank group and in one process, from the same seed: every loss
+    must agree within rtol 1e-4 / atol 1e-5. Prints and returns the
+    losses, the collective audit of the sharded step
+    (``audit_collectives``) and the scaling sweep: step ms at a fixed
+    global workload for n in {1, 2, 4} up to the devices present
+    (``ranks_per_device`` > 1 puts several gloo ranks on one card; best of
+    ``sweep_steps``)."""
+    import tempfile
+
+    from .parallel.launch import run_ranks
+
+    dev = resolve_device(device)
+    rays = 16 * n if tiny else 4096
+    argv = (DRYRUN_ARGV_TINY if tiny else [
+        "--config", "configs/synthetic/schedule_preds_flagship_tuned_60ep.yaml"]) + [
+        "--num-rays-sampled-per-img", str(rays), "--sem-epoch-start", "0",
+        "--inst-epoch-start", "0"]
+    workdir = workdir or tempfile.mkdtemp(prefix="dryrun_multichip_")
+    spec = {"argv": argv, "device": dev.type,
+            "actions": [{"do": "step", "epoch": 0}]}
+    single = data_parallel_run(None, dict(spec, device=str(dev)))
+    ranks = run_ranks(n, "pagnerf_tpu_torch.entry:data_parallel_run", spec, dev.type,
+                      os.path.join(workdir, f"dryrun{n}"), ranks_per_device)
+    ref = single["actions"][0]["losses"][0]
+    for r in ranks:
+        got = r["actions"][0]["losses"][0]
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"rank {r['rank']} logs {sorted(got)}, one process {sorted(ref)}")
+        for k, v in ref.items():
+            if not (math.isfinite(got[k]) and abs(got[k] - v) <= 1e-5 + 1e-4 * abs(v)):
+                raise AssertionError(f"{k}: {n}-rank step {got[k]} != one process {v}")
+    audit = audit_collectives(ranks[0]["actions"][0], ranks[0]["param_elements"])
+    result = {"n": n, "backend": ranks[0]["backend"],
+              "devices": [r["device"] for r in ranks], "losses": ref,
+              "losses_sharded": ranks[0]["actions"][0]["losses"][0], "audit": audit}
+    print(f"dryrun_multichip({n}): ok - sharded == unsharded, losses "
+          + ", ".join(f"{k}={v:.6g}" for k, v in sorted(ref.items())))
+    print(f"collective audit: {audit['grad_calls']} gradient bucket(s) of "
+          f"{audit['grad_elements']} elements (parameters: {audit['param_elements']}), "
+          f"other collectives {audit['small']}, the largest {audit['largest_small']} "
+          f"elements (< 4096)")
+    result["sweep"] = scaling_sweep(spec, dev, workdir, ranks_per_device, sweep_steps)
+    print("scaling sweep (fixed global workload): " + ", ".join(
+        f"n={s['n']}: {s['step_ms']:.1f} ms/step" for s in result["sweep"]))
+    return result
+
+
+def scaling_sweep(spec: dict, dev, workdir: str, ranks_per_device: int = 1,
+                  steps: int = 3) -> list:
+    """Step ms (best of ``steps`` timed steps after one warm-up step) at the
+    same global batch for n in {1, 2, 4}, as many as the devices present
+    (times ``ranks_per_device``) allow; n = 1 is a one-rank group."""
+    from .parallel.launch import run_ranks
+    from .parallel.sharding import devices_present
+
+    limit = devices_present(torch.device(dev).type) * ranks_per_device
+    out = []
+    for n in (1, 2, 4):
+        if n > limit:
+            break
+        run = dict(spec, actions=[{"do": "step", "epoch": 0}] * (steps + 1))
+        ranks = run_ranks(n, "pagnerf_tpu_torch.entry:data_parallel_run", run,
+                          torch.device(dev).type, os.path.join(workdir, f"sweep{n}"),
+                          ranks_per_device)
+        timed = [max(r["actions"][i]["ms"] for r in ranks) for i in range(1, steps + 1)]
+        coll = ranks[0]["actions"][-1]["collectives"]
+        out.append({"n": n, "step_ms": min(timed), "steps_ms": timed,
+                    "collectives": len(coll)})
+    return out

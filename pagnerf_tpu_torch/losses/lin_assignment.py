@@ -9,10 +9,17 @@ toward the matched "virtual" labels wherever a pixel disagrees. In the 'things' 
 is reserved for stuff and the optional repeated-ID rejection penalises
 slots outside a band that each instance's world-x position allows; the
 plain variant matches every label over all pixels.
+
+Under ray-axis data parallelism (a ``group``, ``parallel/sharding.py``)
+each image's label x slot sums and counts, and the rejection's centre
+sums, are summed over the ranks before the division (one collective a
+microbatch), so every rank solves the same assignment on the same costs;
+``any_wrong`` is reduced by max, and the plain variant's per-image
+denominators are global.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -33,14 +40,19 @@ def hungarian_assign(cost: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
     return lap_assign(cost, present)
 
 
+def _slot_sums(probs: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+               num_labels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums [K, M] of probs over each label's valid pixels, counts [K])."""
+    oh = one_hot(labels, num_labels, probs.dtype) * valid[:, None]
+    return oh.T @ probs, oh.sum(0)
+
+
 def centers_from_points_with_labels(points: torch.Tensor, labels: torch.Tensor,
                                     weights: torch.Tensor,
                                     num_labels: int) -> torch.Tensor:
     """Mean 3-D position per label id. points [N, 3], labels [N], weights [N]
     validity -> centers [K, 3]."""
-    oh = one_hot(labels, num_labels, points.dtype) * weights[:, None]
-    counts = oh.sum(0)
-    sums = oh.T @ points
+    sums, counts = _slot_sums(points, labels, weights, num_labels)
     return sums / torch.clamp(counts[:, None], min=1e-6)
 
 
@@ -71,16 +83,33 @@ def _label_slot_cost(probs: torch.Tensor, labels: torch.Tensor,
                      valid: torch.Tensor, num_labels: int):
     """cost[l, m] = -mean over pixels of label l of probs[., m]; returns
     (cost [K, M], present [K])."""
-    oh = one_hot(labels, num_labels, probs.dtype) * valid[:, None]
-    counts = oh.sum(0)
-    cost = -(oh.T @ probs) / (counts[:, None] + 1e-4)
-    return cost, counts > 0
+    sums, counts = _slot_sums(probs, labels, valid, num_labels)
+    return -sums / (counts[:, None] + 1e-4), counts > 0
+
+
+def _reduce(parts: List[torch.Tensor], group, tag: str) -> List[torch.Tensor]:
+    """``parts`` summed over the ranks in one collective (as they are
+    without a group)."""
+    if group is None:
+        return parts
+    from ..parallel.sharding import all_reduce
+    flat = all_reduce(torch.cat([p.reshape(-1) for p in parts]), group, tag)
+    return [x.view(p.shape).to(p.dtype)
+            for x, p in zip(torch.split(flat, [p.numel() for p in parts]), parts)]
+
+
+def _any_wrong(wrong: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return wrong
+    from ..parallel.sharding import all_reduce
+    import torch.distributed as dist
+    return all_reduce(wrong.to(torch.int32), group, "any_wrong", dist.ReduceOp.MAX) > 0
 
 
 def lin_assignment_things_loss(probs: torch.Tensor, labels: torch.Tensor,
                                stuff_mask: torch.Tensor, num_labels: int,
                                points_3d: Optional[torch.Tensor] = None,
-                               outlier_rejection: bool = False) -> torch.Tensor:
+                               outlier_rejection: bool = False, group=None) -> torch.Tensor:
     """probs [B, R, M] softmaxed slot probabilities; labels [B, R] instance
     ids; stuff_mask [B, R] bool; points_3d [B, R, 3] world points for the
     rejection cost. Returns the per-pixel loss map [B, R]. The matching is
@@ -91,50 +120,67 @@ def lin_assignment_things_loss(probs: torch.Tensor, labels: torch.Tensor,
     things_mask = (gts > 0) & in_range
     valid = (stuff_mask | things_mask) & in_range
     with torch.no_grad():
-        costs, presents = [], []
+        parts = []
         for b in range(probs.shape[0]):
             p, gt = probs[b], gts[b]
             things_valid = things_mask[b].to(p.dtype)
-            cost, present = _label_slot_cost(p[:, 1:], gt, things_valid, num_labels)
-            present = present & (torch.arange(num_labels, device=p.device) > 0)
+            sums, counts = _slot_sums(p[:, 1:], gt, things_valid, num_labels)
+            parts += [sums, counts]
             if outlier_rejection:
                 pts = (points_3d[b] if points_3d is not None
                        else torch.zeros(p.shape[0], 3, dtype=p.dtype, device=p.device))
-                centers = centers_from_points_with_labels(
-                    pts, gt, things_valid, num_labels)
+                parts += list(_slot_sums(pts, gt, things_mask[b].to(pts.dtype),
+                                         num_labels))
+        parts = _reduce(parts, group, "assign_sums")
+        step = 4 if outlier_rejection else 2
+        costs, presents = [], []
+        for b in range(probs.shape[0]):
+            sums, counts = parts[step * b], parts[step * b + 1]
+            cost = -sums / (counts[:, None] + 1e-4)
+            present = (counts > 0) & (torch.arange(num_labels, device=probs.device) > 0)
+            if outlier_rejection:
+                centers = parts[step * b + 2] / torch.clamp(parts[step * b + 3][:, None],
+                                                            min=1e-6)
                 cost = add_position_id_range_cost(cost, centers[:, 0], present)
             costs.append(cost)
             presents.append(present)
         assign = hungarian_assign(torch.stack(costs), torch.stack(presents))   # [B, K]
         virt = torch.where(things_mask, torch.gather(
             assign, 1, torch.clamp(gts, 0, num_labels - 1)) + 1, 0)
-        any_wrong = torch.any((virt != torch.argmax(probs, dim=-1)) & valid, dim=1)
+        any_wrong = _any_wrong(torch.any((virt != torch.argmax(probs, dim=-1)) & valid,
+                                         dim=1), group)
     nll = -torch.gather(safe_prob_log(probs), 2, virt[..., None])[..., 0]
     return torch.where(valid & any_wrong[:, None], nll, 0.0)
 
 
 def lin_assignment_loss(probs: torch.Tensor, labels: torch.Tensor,
-                        num_labels: int) -> torch.Tensor:
+                        num_labels: int, group=None) -> torch.Tensor:
     """The plain linear-assignment loss: per image, labels matched to slots
     over all pixels, an NLL toward the virtual labels if any pixel
     disagrees, averaged over the images. probs [B, R, M] softmaxed, labels
     [B, R]. Labels at or past ``num_labels`` add nothing. The reference
     builds the cost from a second softmax of the probabilities (the NLL
     reads them as they are), which can move the optimum in near ties; it is
-    kept."""
+    kept. Under a ``group``, this rank's share of the loss."""
     gts = labels.to(torch.int64)
     in_range = gts < num_labels
     with torch.no_grad():
-        costs, presents = [], []
+        parts = []
         for p, gt, ok in zip(probs, gts, in_range):
-            cost, present = _label_slot_cost(torch.softmax(p, dim=-1), gt,
-                                             ok.to(p.dtype), num_labels)
-            costs.append(cost)
-            presents.append(present)
+            parts += list(_slot_sums(torch.softmax(p, dim=-1), gt, ok.to(p.dtype),
+                                     num_labels))
+        parts.append(in_range.sum(dim=1).to(probs.dtype))
+        parts = _reduce(parts, group, "assign_sums")
+        costs, presents = [], []
+        for b in range(probs.shape[0]):
+            sums, counts = parts[2 * b], parts[2 * b + 1]
+            costs.append(-sums / (counts[:, None] + 1e-4))
+            presents.append(counts > 0)
         assign = hungarian_assign(torch.stack(costs), torch.stack(presents))   # [B, K]
         virt = torch.gather(assign, 1, torch.clamp(gts, 0, num_labels - 1))
-        any_wrong = torch.any((virt != torch.argmax(probs, dim=-1)) & in_range, dim=1)
+        any_wrong = _any_wrong(torch.any((virt != torch.argmax(probs, dim=-1)) & in_range,
+                                         dim=1), group)
+        denom = torch.clamp(parts[-1], min=1)
     nll = -torch.gather(safe_prob_log(probs), 2, virt[..., None])[..., 0]
     nll = torch.where(in_range, nll, 0.0)
-    denom = torch.clamp(in_range.sum(dim=1), min=1)
     return torch.where(any_wrong, nll.sum(dim=1) / denom, 0.0).mean()

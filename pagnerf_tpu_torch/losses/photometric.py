@@ -22,10 +22,12 @@ def safe_prob_log(p: torch.Tensor) -> torch.Tensor:
 
 def semantic_loss(probs_or_logits: torch.Tensor, targets: torch.Tensor,
                   sem_softmax: bool, temperature: float = 1.0,
-                  conf: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  conf: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Per-pixel semantic NLL, mean over valid pixels. probs_or_logits
     [N, C] (probabilities when ``sem_softmax``, else logits); targets [N]
-    int; conf [N] optional weights. Targets outside [0, C) add nothing."""
+    int; conf [N] optional weights. Targets outside [0, C) add nothing.
+    Under a data-parallel ``group`` the valid count is the global one, so
+    the result is this rank's share of the global mean."""
     if sem_softmax:
         logp = safe_prob_log(probs_or_logits) / temperature
     else:
@@ -37,5 +39,8 @@ def semantic_loss(probs_or_logits: torch.Tensor, targets: torch.Tensor,
     nll = torch.where(valid, nll, 0.0)
     if conf is not None:
         nll = nll * conf
-    denom = torch.clamp(valid.sum(), min=1)
-    return torch.sum(nll) / denom
+    count = valid.sum()
+    if group is not None:
+        from ..parallel.sharding import all_reduce
+        count = all_reduce(count.reshape(1), group, "sem_count")[0]
+    return torch.sum(nll) / torch.clamp(count, min=1)

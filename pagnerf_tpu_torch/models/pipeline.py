@@ -56,13 +56,14 @@ class Pipeline(nn.Module):
     def forward(self, rays: Rays, channels: FrozenSet[str], occ: OccupancyGrid,
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
                 jitter: Jitter = None,
-                tracer_cfg: Optional[TracerConfig] = None) -> RenderBuffer:
+                tracer_cfg: Optional[TracerConfig] = None, group=None) -> RenderBuffer:
         """``jitter`` stands where the JAX package takes a ``key``: None for
         midpoint samples, or stratified samples' uniforms [R, S] (or a
-        generator to draw them)."""
+        generator to draw them). ``group``: the trainer's data-parallel
+        ``RayGroup``, for the packed layout's global cap."""
         return trace(self.nef_fn(lod_weights), rays, occ,
                      tracer_cfg or self.tracer_cfg, frozenset(channels), stage,
-                     jitter)
+                     jitter, group)
 
 
 class BAPipeline(Pipeline):
@@ -119,8 +120,8 @@ class BAPipeline(Pipeline):
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
                 cam_idx: Optional[torch.Tensor] = None, jitter: Jitter = None,
                 tracer_cfg: Optional[TracerConfig] = None,
-                cam_idx_host: Optional[np.ndarray] = None) -> RenderBuffer:
+                cam_idx_host: Optional[np.ndarray] = None, group=None) -> RenderBuffer:
         if cam_idx is not None:
             rays = self.transform_rays(rays, cam_idx, cam_idx_host)
         return super().forward(rays, channels, occ, lod_weights, stage, jitter,
-                               tracer_cfg)
+                               tracer_cfg, group)

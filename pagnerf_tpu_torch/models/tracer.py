@@ -100,7 +100,7 @@ def _chunked_nef_eval(nef_fn: NefFn, coordsT: torch.Tensor, ray_dT: torch.Tensor
 
 def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
           channels: FrozenSet[str], stage: str = "val",
-          jitter: Jitter = None) -> RenderBuffer:
+          jitter: Jitter = None, group=None) -> RenderBuffer:
     """Trace rays [R] against the neural field; midpoint samples unless
     ``jitter`` (a [R, S] tensor or a generator) stratifies them.
 
@@ -108,10 +108,11 @@ def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
     blocks (origin 0, direction +z: a packed block's water-filling sees its
     padding rays) and traced block by block; a generator draws each block's
     [ray_chunk, S] uniforms in turn, and a jitter tensor has the padded rays'
-    rows too, or midpoints stand there. Outputs keep the real rays."""
+    rows too, or midpoints stand there. Outputs keep the real rays.
+    ``group`` (a data-parallel ``RayGroup``) reaches the packed layout."""
     n, blk = rays.origins.shape[0], cfg.ray_chunk
     if blk <= 0 or n <= blk:
-        rb = _trace_block(nef_fn, rays, occ, cfg, channels, stage, jitter)
+        rb = _trace_block(nef_fn, rays, occ, cfg, channels, stage, jitter, group)
     else:
         pad = (-n) % blk
         o = torch.cat([rays.origins, rays.origins.new_zeros((pad, 3))])
@@ -127,7 +128,7 @@ def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
             def block(ob, db, jb=jb):
                 return _trace_block(nef_fn, Rays(origins=ob, dirs=db, dist_min=rays.dist_min,
                                                  dist_max=rays.dist_max),
-                                    occ, cfg, channels, stage, jb)
+                                    occ, cfg, channels, stage, jb, group)
             blocks.append(_checkpointed(block, o[i:i + blk], d[i:i + blk]))
         rb = RenderBuffer.concatenate(blocks)
         rb = RenderBuffer(**{f.name: None if getattr(rb, f.name) is None
@@ -149,9 +150,9 @@ def _sample_channels(cfg: TracerConfig, channels: FrozenSet[str]) -> FrozenSet[s
 
 def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
                  cfg: TracerConfig, channels: FrozenSet[str], stage: str = "val",
-                 jitter: Jitter = None) -> RenderBuffer:
+                 jitter: Jitter = None, group=None) -> RenderBuffer:
     if cfg.pack_steps:
-        return _trace_block_packed(nef_fn, rays, occ, cfg, channels, stage, jitter)
+        return _trace_block_packed(nef_fn, rays, occ, cfg, channels, stage, jitter, group)
     rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type, jitter,
                   cfg.ray_max_travel)
     if cfg.compact_steps:
@@ -208,14 +209,16 @@ def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
 
 def _trace_block_packed(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
                         cfg: TracerConfig, channels: FrozenSet[str],
-                        stage: str = "val", jitter: Jitter = None) -> RenderBuffer:
+                        stage: str = "val", jitter: Jitter = None,
+                        group=None) -> RenderBuffer:
     """``_trace_block``'s contracts (channels, stop-gradients, background)
     over one cross-ray [3, B] buffer of the march's valid samples, B =
     ``pack_steps`` x rays (``ops/packed.py``)."""
     num_rays = rays.origins.shape[0]
     rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type, jitter,
                   cfg.ray_max_travel)
-    ps = pack_samples(rm, rays.origins.T, rays.dirs.T, budget=cfg.pack_steps * num_rays)
+    ps = pack_samples(rm, rays.origins.T, rays.dirs.T, budget=cfg.pack_steps * num_rays,
+                      group=group)
     ray_dT = segment_broadcast(rays.dirs.T, ps.ray_id, ps.offsets)   # [3, B]
 
     feats = _chunked_nef_eval(nef_fn, ps.positionsT, ray_dT,

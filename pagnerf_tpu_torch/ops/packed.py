@@ -16,6 +16,15 @@ When the batch holds more valid samples than B, rays are cut by water-filling
 (``_water_fill_cap``): the largest per-ray cap k with sum(min(count, k)) <= B,
 so every ray keeps its k shallowest valid samples before any ray keeps more.
 
+Under ray-axis data parallelism (``parallel/sharding.py``, the group the
+trainer passes down through the tracer) each rank packs its own rays, but the cap comes from
+the global count histogram (summed over the ranks), so every ray keeps the
+samples the single-process step keeps. A rank's buffer is
+``RayGroup.share_buffer(B)``: its share of the kept samples may exceed
+B / n. Should it exceed the buffer, the rank's rays are cut further by a
+local water-fill over the buffer, and the group's ``pack_overflows`` counts
+it on the device.
+
 The buffer's shape is static: nothing here reads a count back to the host.
 The pack permutation is built by the JAX package's scatter construction (one
 scatter of each kept sample's flat index into its slot); its gather
@@ -167,17 +176,44 @@ def segment_broadcast(x: torch.Tensor, ray_id: torch.Tensor,
 
 
 # ------------------------------------------------------------------ pack
+def _count_hist(counts: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """hist[j-1] = rays with count >= j, j = 1..num_steps."""
+    levels = torch.arange(1, num_steps + 1, dtype=counts.dtype, device=counts.device)
+    return torch.sum(counts[None, :] >= levels[:, None], dim=1)
+
+
+def _cap_from_hist(hist: torch.Tensor, budget: int) -> torch.Tensor:
+    """Largest cap k >= 0 with totals[k-1] = sum(min(counts, k)) <= budget."""
+    return torch.sum(torch.cumsum(hist, dim=0) <= budget)
+
+
 def _water_fill_cap(counts: torch.Tensor, num_steps: int, budget: int) -> torch.Tensor:
     """Largest per-ray cap k >= 0 with sum(min(counts, k)) <= budget, from
     one cumsum over the count histogram (totals[k-1] = sum min(counts, k))."""
-    levels = torch.arange(1, num_steps + 1, dtype=counts.dtype, device=counts.device)
-    hist = torch.sum(counts[None, :] >= levels[:, None], dim=1)   # rays with count >= j
-    totals = torch.cumsum(hist, dim=0)
-    return torch.sum(totals <= budget).to(counts.dtype)
+    return _cap_from_hist(_count_hist(counts, num_steps), budget).to(counts.dtype)
+
+
+def _shared_cap(counts: torch.Tensor, num_steps: int, budget: int, group
+                ) -> Tuple[torch.Tensor, int]:
+    """(cap, buffer size) of one rank's rays in ``group``: the cap of the
+    global histogram against the global budget ``budget x world``, lowered
+    to the local water-fill's over the rank's buffer where that is less
+    (counted in ``group.pack_overflows``)."""
+    from ..parallel import sharding
+    buffer = group.share_buffer(budget)
+    local = _count_hist(counts, num_steps)
+    glob = sharding.all_reduce(local.clone(), group, "pack_hist")
+    cap_g = _cap_from_hist(glob, budget * group.world)
+    cap_l = _cap_from_hist(local, buffer)
+    group.pack_overflows.add_((cap_l < cap_g).to(torch.int64))
+    # the rank's share of the kept samples over B / n, the largest seen
+    share = torch.minimum(counts, cap_g.to(counts.dtype)).sum() / float(budget)
+    torch.maximum(group.pack_share_max, share, out=group.pack_share_max)
+    return torch.minimum(cap_g, cap_l).to(counts.dtype), buffer
 
 
 def pack_samples(rm: RaymarchResult, rays_oT: torch.Tensor, rays_dT: torch.Tensor,
-                 budget: int) -> PackedSamples:
+                 budget: int, group=None) -> PackedSamples:
     """Pack a dense march [R, S] into a static [B = budget] buffer.
 
     rays_oT / rays_dT: [3, R] ray origins and directions. Depths and
@@ -185,13 +221,18 @@ def pack_samples(rm: RaymarchResult, rays_oT: torch.Tensor, rays_dT: torch.Tenso
     (through ``segment_broadcast``) and the detached unit coordinate
     u = (depth - t0) / span, which is frac + jitter / S and does not depend
     on the pose: pose gradients reach t0, span and the rays through
-    ``segment_broadcast``'s backward, with no dense [R, S] scatter."""
+    ``segment_broadcast``'s backward, with no dense [R, S] scatter. Under a
+    data-parallel ``group`` (a ``RayGroup``) the buffer is the rank's share
+    (module docstring)."""
     r, s = rm.mask.shape
     if rm.t0 is None or rm.span is None:
         raise ValueError("pack_samples needs a RaymarchResult with t0 and span")
     dev = rm.mask.device
     counts = torch.sum(rm.mask, dim=-1, dtype=torch.int32)        # [R]
-    cap = _water_fill_cap(counts, s, budget)
+    if group is None or group.world == 1:
+        cap = _water_fill_cap(counts, s, budget)
+    else:
+        cap, budget = _shared_cap(counts, s, budget, group)
     keep = torch.minimum(counts, cap)
     offsets = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
                          torch.cumsum(keep, dim=0, dtype=torch.int32)])

@@ -106,10 +106,10 @@ def packing(totals: dict):
         acc["kept"] = acc["kept"] + torch.minimum(counts, cap).sum()
         acc["truncated_rays"] = acc["truncated_rays"] + (counts > cap).sum()
 
-    def pack_spy(rm, rays_oT, rays_dT, budget):
+    def pack_spy(rm, rays_oT, rays_dT, budget, group=None):
         counts = torch.sum(rm.mask, dim=-1, dtype=torch.int32)
         add("", counts, packed._water_fill_cap(counts, rm.mask.shape[1], budget), budget)
-        return pack(rm, rays_oT, rays_dT, budget)
+        return pack(rm, rays_oT, rays_dT, budget, group=group)
 
     def compact_spy(rm, keep_steps):
         steps = rm.mask.shape[-1]

@@ -49,10 +49,27 @@ of microbatches, which of them are all-anchor) runs eagerly at its first
 step, is captured into a ``torch.cuda.CUDAGraph`` at its second and
 replayed after; on the CPU the same function runs eagerly. It equals the
 host loop bit for bit, as the JAX package's fused step equals its own.
+
+Given a ``group`` (``parallel/sharding.py``), the trainer is one rank of
+ray-axis data parallelism: ``train_step`` takes the global batch (or a
+``shard_ray_batch_host_local`` share) and keeps its rank's rays; every rank
+draws the global jitter and TV normals from the same generator and keeps
+its rays' rows; each loss is the rank's share of the global loss (sums
+over its rays divided by global counts, the assignment's and the segment
+regulariser's statistics summed over the ranks, ray-free terms weighted by
+1 / world); the packed layout's cap comes from the global histogram; the
+gradients are summed once per step in buckets before the masked update,
+and the logged losses are the global ones. The prune runs on every rank
+and a checksum proves the occupancy equal. ``sup_contrastive`` (and
+``contrast_sem_weight``), which couple every ray pair of an image, and a
+packed layout traced in ``ray_chunk`` blocks are refused (ROADMAP.md Queue
+1 item 14). On the card the fused step captures the group's NCCL
+collectives into its graph; over gloo it is refused there.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -73,9 +90,12 @@ from ..losses.sup_contrastive import sup_contrastive_loss
 from ..models.pipeline import BAPipeline, Pipeline
 from ..ops.occupancy import OccupancyGrid
 from ..ops.raymarch import raymarch
+from ..parallel import sharding
 from ..utils.lod_annealing import constant_lod_weights, lod_weights
 from ..utils.logging_utils import PerfTimer
 from .optimizer import MOMENTS, MaskedOptimizer, OptimizerConfig
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +231,8 @@ class PanopticTrainer:
     def __init__(self, pipeline: Pipeline, dataset: MultiviewDataset,
                  cfg: TrainerConfig = TrainerConfig(),
                  opt_cfg: OptimizerConfig = OptimizerConfig(),
-                 occ_level: int = 7, draw: Optional[Draw] = None):
+                 occ_level: int = 7, draw: Optional[Draw] = None,
+                 group: Optional["sharding.RayGroup"] = None):
         self.pipeline = pipeline
         self.dataset = dataset
         self.cfg = cfg
@@ -259,6 +280,35 @@ class PanopticTrainer:
         ve = cfg.val_extrinsics_end if cfg.val_extrinsics_end >= 0 else cfg.epochs
         self._extrinsics_end = ee
         self._val_extrinsics_end = ve
+        self.group = None
+        # packed layouts whose rank share overflowed its buffer (a group's
+        # count, read back and logged at the end of each epoch)
+        self.pack_overflows = 0
+        if group is not None:
+            self.set_group(group)
+
+    def set_group(self, group: "sharding.RayGroup") -> None:
+        """Make the trainer rank ``group.rank`` of ``group``: refuse what
+        the data-parallel step does not make exact, and give every rank
+        rank 0's parameters, occupancy and LoD weights."""
+        cfg = self.cfg
+        if group.device != self.device:
+            raise ValueError(f"rank {group.rank} runs on {group.device}, the pipeline "
+                             f"on {self.device}")
+        if cfg.contrast_sem_weight > 0.0 or (cfg.inst_loss == "sup_contrastive"
+                                             and cfg.inst_weight > 0):
+            raise NotImplementedError(
+                "sup_contrastive couples every ray pair of an image; under ray-axis "
+                "data parallelism it needs an all-gather of the embeddings "
+                "(ROADMAP.md Queue 1 item 14)")
+        if self.pipeline.tracer_cfg.ray_chunk > 0 and cfg.packed_compaction:
+            raise NotImplementedError(
+                "a packed layout traced in ray_chunk blocks water-fills per block; "
+                "its blocks differ between ranks (ROADMAP.md Queue 1 item 14)")
+        sharding.replicate(list(self.params.values()) + [self.occ.occupancy, self.lod_w],
+                           group)
+        sharding.replicate([self.occ.mask], group)
+        self.group = group
 
     # ------------------------------------------------------------- stages
     def stage_for_epoch(self, epoch: int) -> StageConfig:
@@ -352,23 +402,30 @@ class PanopticTrainer:
         if is_ba:
             rb = self.pipeline(base_rays, stage.channels, self.occ, lod_w,
                                stage="train", cam_idx=cam_idx, jitter=jitter,
-                               tracer_cfg=tracer_cfg, cam_idx_host=cam_idx_host)
+                               tracer_cfg=tracer_cfg, cam_idx_host=cam_idx_host,
+                               group=self.group)
         else:
             # a pipeline without extrinsics traces the batch's world rays
             rays_in = Rays(origins=batch["rays_origins"].reshape(-1, 3),
                            dirs=batch["rays_dirs"].reshape(-1, 3), dist_min=0.0,
                            dist_max=6.0)
             rb = self.pipeline(rays_in, stage.channels, self.occ, lod_w,
-                               stage="train", jitter=jitter, tracer_cfg=tracer_cfg)
+                               stage="train", jitter=jitter, tracer_cfg=tracer_cfg,
+                               group=self.group)
 
+        # under a group each term is this rank's share: a mean over its
+        # rays / world, a sum over them / a global count, ray-free terms / world
+        group = self.group
+        share = 1.0 / group.world if group is not None else 1.0
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
         if rb.ray_sparsity_loss is not None:
-            total = total + rb.ray_sparsity_loss
-            losses["ray_sparsity_loss"] = rb.ray_sparsity_loss
+            sloss = rb.ray_sparsity_loss * share
+            total = total + sloss
+            losses["ray_sparsity_loss"] = sloss
 
         if cfg.rgb_weight > 0.0:
-            rloss = rgb_l1_loss(rb.rgb, batch["imgs"].reshape(-1, 3))
+            rloss = rgb_l1_loss(rb.rgb, batch["imgs"].reshape(-1, 3)) * share
             total = total + cfg.rgb_weight * rloss
             losses["rgb_loss"] = rloss
 
@@ -377,12 +434,12 @@ class PanopticTrainer:
             conf = batch["sem_conf"].reshape(-1) if (
                 cfg.sem_conf_enable and "sem_conf" in batch) else None
             sloss = semantic_loss(rb.semantics, sem_gts, cfg.sem_softmax,
-                                  cfg.sem_temperature, conf)
+                                  cfg.sem_temperature, conf, group)
             if cfg.sem_segment_reg_weight > 0.0:
                 sloss = sloss + cfg.sem_segment_reg_weight * \
                     segment_consistency_regularizer(
                         (rb.semantics + 1e-27).reshape(b, r, -1),
-                        sem_gts.reshape(b, r), self.num_classes)
+                        sem_gts.reshape(b, r), self.num_classes, group)
             total = total + cfg.sem_weight * sloss
             losses["sem_loss"] = sloss
             if cfg.contrast_sem_weight > 0.0:
@@ -405,7 +462,7 @@ class PanopticTrainer:
                     temperature=cfg.inst_temperature,
                     base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio)
             elif cfg.inst_loss == "linear_assignment":
-                iloss = lin_assignment_loss(inst_embed, inst_gts, self.num_instances)
+                iloss = lin_assignment_loss(inst_embed, inst_gts, self.num_instances, group)
             elif cfg.inst_loss == "linear_assignment_things":
                 points_3d = None
                 if cfg.inst_outlier_rejection:
@@ -416,14 +473,18 @@ class PanopticTrainer:
                         points_3d = rays_to_3d_points(world, rb.depth).reshape(b, r, 3)
                 lmap = lin_assignment_things_loss(
                     inst_embed, inst_gts, stuff, self.num_instances,
-                    points_3d=points_3d, outlier_rejection=cfg.inst_outlier_rejection)
-                if stage.use_inst_segment_reg:
-                    lmap = lmap + cfg.inst_segment_reg_weight * \
-                        segment_consistency_regularizer(
-                            inst_embed + 1e-27, inst_gts, self.num_instances)
-                if cfg.inst_conf_enable and "inst_conf" in batch:
-                    lmap = lmap * batch["inst_conf"].reshape(b, r)
-                iloss = lmap.mean()
+                    points_3d=points_3d, outlier_rejection=cfg.inst_outlier_rejection,
+                    group=group)
+                if group is not None:
+                    iloss = self._things_share(lmap, stage, batch, inst_embed, inst_gts)
+                else:
+                    if stage.use_inst_segment_reg:
+                        lmap = lmap + cfg.inst_segment_reg_weight * \
+                            segment_consistency_regularizer(
+                                inst_embed + 1e-27, inst_gts, self.num_instances)
+                    if cfg.inst_conf_enable and "inst_conf" in batch:
+                        lmap = lmap * batch["inst_conf"].reshape(b, r)
+                    iloss = lmap.mean()
             else:
                 raise ValueError(f"instance loss '{cfg.inst_loss}' not supported")
             total = total + cfg.inst_weight * iloss
@@ -436,19 +497,54 @@ class PanopticTrainer:
                 return nef._grid_feats(nef.grid, c, None)
             normal = normals[0]
             if cfg.grid_tvl1_reg > 0.0:
-                total = total + cfg.grid_tvl1_reg * grid_tv_l1_loss(grid_enc, normal, **tv)
+                total = total + cfg.grid_tvl1_reg * share * \
+                    grid_tv_l1_loss(grid_enc, normal, **tv)
             if cfg.grid_tvl2_reg > 0.0:
-                total = total + cfg.grid_tvl2_reg * grid_tv_l2_loss(grid_enc, normal, **tv)
+                total = total + cfg.grid_tvl2_reg * share * \
+                    grid_tv_l2_loss(grid_enc, normal, **tv)
         if cfg.delta_grid_tvl1_reg > 0.0 or cfg.delta_grid_tvl2_reg > 0.0:
             def inst_enc(c):
                 return nef(c, None, frozenset({"inst_embedding"}))["inst_embedding"]
             # the reference's delta-grid L2 branch calls its L1 loss too, so
             # both weights feed one L1 term
-            total = total + (cfg.delta_grid_tvl1_reg + cfg.delta_grid_tvl2_reg) * \
+            total = total + (cfg.delta_grid_tvl1_reg + cfg.delta_grid_tvl2_reg) * share * \
                 grid_tv_l1_loss(inst_enc, normals[1], **tv)
 
         losses["total_loss"] = total
         return total, losses
+
+    def _things_share(self, lmap, stage, batch, inst_embed, inst_gts) -> torch.Tensor:
+        """This rank's share of the 'things' instance loss mean((lmap + w *
+        reg) * conf) over the global rays: sum(lmap * conf) / N + w * reg *
+        mean(conf), the regulariser and mean(conf) being global (the
+        regulariser as this rank's share)."""
+        cfg, group = self.cfg, self.group
+        b, r = lmap.shape
+        n = b * r * group.world
+        conf = (batch["inst_conf"].reshape(b, r) if cfg.inst_conf_enable
+                and "inst_conf" in batch else None)
+        iloss = (lmap if conf is None else lmap * conf).sum() / n
+        if stage.use_inst_segment_reg:
+            reg = segment_consistency_regularizer(inst_embed + 1e-27, inst_gts,
+                                                  self.num_instances, group)
+            if conf is not None:
+                reg = reg * (sharding.all_reduce(conf.sum().reshape(1), group,
+                                                 "inst_conf")[0] / n)
+            iloss = iloss + cfg.inst_segment_reg_weight * reg
+        return iloss
+
+    def _read_pack_overflows(self, epoch: int) -> None:
+        """Read the group's overflow count back (the epoch's readback) and
+        log the packed layouts whose rank share overflowed its buffer this
+        epoch: their rays were cut unlike the single-process step's."""
+        count = int(self.group.pack_overflows)
+        if count > self.pack_overflows:
+            log.warning("epoch %d, rank %d: %d packed layout(s) overflowed the rank's "
+                        "buffer of %.2f x B / %d and cut rays unlike one process (%d "
+                        "so far); raise parallel.sharding.PACK_SHARE_MARGIN",
+                        epoch, self.group.rank, count - self.pack_overflows,
+                        sharding.PACK_SHARE_MARGIN, self.group.world, count)
+        self.pack_overflows = count
 
     # ---------------------------------------------------------- train step
     def frozen_fn(self, stage: StageConfig):
@@ -481,35 +577,61 @@ class PanopticTrainer:
                  or cfg.delta_grid_tvl2_reg > 0.0 else None)
         return grid, delta
 
+    def _shard(self, batch: Dict[str, np.ndarray]):
+        """(the rank's share of ``batch``, that share or None): without a
+        group the batch itself; a ``ShardedBatch`` is a share already."""
+        if self.group is None:
+            return batch, None
+        if not isinstance(batch, sharding.ShardedBatch):
+            batch = sharding.shard_ray_batch(batch, self.group)
+        return batch, batch
+
     def _draws(self, stage: StageConfig, subs: List[Dict[str, np.ndarray]],
-               jitters: Optional[List]) -> List[Tuple]:
+               jitters: Optional[List], sbatch=None) -> List[Tuple]:
         """Each microbatch's (jitter, normals), drawn in the host loop's
         order: the microbatch's [rays, steps] uniforms (unless ``jitters``
-        gives them), then its TV normals."""
+        gives them), then its TV normals. Under a group (``sbatch`` the
+        rank's share) the uniforms are the global microbatch's [rays, steps]
+        and the rank keeps its rays' rows."""
         out = []
         for m, sub in enumerate(subs):
             if jitters is None:
-                jitter = self.draw((sub["imgs"].shape[0] * sub["imgs"].shape[1],
-                                    stage.num_steps))
+                rays = sub["imgs"].shape[1] if sbatch is None else sbatch.ray_len_global
+                jitter = self.draw((sub["imgs"].shape[0] * rays, stage.num_steps))
             else:
                 jitter = jitters[m]
+            if sbatch is not None:
+                jitter = sharding.local_rows(torch.as_tensor(jitter), sbatch)
             out.append((jitter, self._draw_normals()))
         return out
+
+    def _global_losses(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The ranks' loss shares summed into the global losses (one
+        collective); the losses themselves without a group."""
+        if self.group is None:
+            return losses
+        names = sorted(losses)
+        flat = sharding.all_reduce(torch.stack([losses[k].float() for k in names]),
+                                   self.group, "losses")
+        return dict(zip(names, flat.unbind()))
 
     def _backward(self, sub: Dict[str, np.ndarray], stage: StageConfig, jitter):
         """Forward + backward of one microbatch; gradients add into .grad.
         Without ``jitter`` the microbatch's [rays, steps] uniforms are drawn."""
-        (jitter, normals), = self._draws(stage, [sub], None if jitter is None else [jitter])
+        sub, sbatch = self._shard(sub)
+        (jitter, normals), = self._draws(stage, [sub], None if jitter is None else [jitter],
+                                         sbatch)
         total, losses = self.compute_losses(self._to_device(sub), stage, jitter, normals,
                                             sub.get("cam_idx"))
         total.backward()
-        return {k: v.detach() for k, v in losses.items()}
+        return self._global_losses({k: v.detach() for k, v in losses.items()})
 
     def grad_step(self, stage: StageConfig, sub: Dict[str, np.ndarray],
                   jitter=None):
         """One microbatch's (gradients by parameter name, losses): the JAX
         package's ``grad_step``. A parameter the losses do not reach has a
-        zero gradient."""
+        zero gradient. Under a group, of the global microbatch: the
+        gradients and losses summed over the ranks."""
         for p in self.params.values():
             p.grad = None
         losses = self._backward(sub, stage, jitter)
@@ -517,6 +639,9 @@ class PanopticTrainer:
                  for n, p in self.params.items()}
         for p in self.params.values():
             p.grad = None
+        if self.group is not None:
+            grads = dict(zip(grads, sharding.all_reduce_coalesced(list(grads.values()),
+                                                                  self.group, "grad")))
         return grads, losses
 
     def _step_body(self, stage: StageConfig, subs: List[Dict[str, torch.Tensor]],
@@ -525,7 +650,9 @@ class PanopticTrainer:
         """The step's device work: each microbatch's forward and backward
         (gradients add into .grad in microbatch order), the summed gradients
         scaled by ``1 / num_micro``, the masked update. Returns the losses
-        summed over the microbatches. Reads nothing back from the device."""
+        summed over the microbatches. Reads nothing back from the device.
+        Under a group the gradients are summed over the ranks (in buckets,
+        once) before the update, and the losses are the global ones."""
         num_micro = len(subs)
         for p in self.params.values():
             p.grad = None
@@ -536,10 +663,15 @@ class PanopticTrainer:
             losses = {k: v.detach() for k, v in losses.items()}
             acc_l = losses if acc_l is None else {k: acc_l[k] + v
                                                   for k, v in losses.items()}
-        grads = {n: None if p.grad is None else p.grad * (1.0 / num_micro)
-                 for n, p in self.params.items()}
+        grads = {n: p.grad for n, p in self.params.items()}
         for p in self.params.values():
             p.grad = None
+        if self.group is not None:
+            live = [n for n, g in grads.items() if g is not None]
+            grads.update(zip(live, sharding.all_reduce_coalesced(
+                [grads[n] for n in live], self.group, "grad")))
+            acc_l = self._global_losses(acc_l)
+        grads = {n: None if g is None else g * (1.0 / num_micro) for n, g in grads.items()}
         self.opt.update(grads, self.frozen_fn(stage), self.opt_cfg.clip_grad_norm)
         return acc_l
 
@@ -560,8 +692,9 @@ class PanopticTrainer:
         With the fused step enabled, ``fused_train_step``."""
         if self._fused_step_enabled():
             return self.fused_train_step(stage, batch, jitters)
+        batch, sbatch = self._shard(batch)
         subs = self._micro_batches(batch)
-        draws = self._draws(stage, subs, jitters)
+        draws = self._draws(stage, subs, jitters, sbatch)
         acc_l = self._step_body(stage, [self._to_device(sub) for sub in subs], draws,
                                 [sub.get("cam_idx") for sub in subs], self.lod_w)
         self.global_step += 1
@@ -576,9 +709,18 @@ class PanopticTrainer:
         its second, replayed after; on the CPU eagerly). A key's buffers and
         graph are dropped when a tensor they read was replaced: a prune's
         occupancy, new moments, grown tables, a restored optimizer. The
-        same bits as ``train_step``'s host loop."""
+        same bits as ``train_step``'s host loop. Under a group on the card
+        the graph holds the NCCL collectives; gloo's cannot be captured, and
+        the fused step refuses it there."""
+        group = self.group
+        if group is not None and self.device.type == "cuda" and not group.capturable:
+            raise RuntimeError(
+                f"the fused step captures the step's collectives into a CUDA graph, and "
+                f"{group.backend} collectives cannot be captured: use NCCL (one rank per "
+                f"card) or the host loop")
+        batch, sbatch = self._shard(batch)
         subs = self._micro_batches(batch)
-        draws = self._draws(stage, subs, jitters)
+        draws = self._draws(stage, subs, jitters, sbatch)
         cams = [sub.get("cam_idx") for sub in subs]
         anchors = tuple(self._all_anchor(c) for c in cams)
         key = (stage, len(subs), anchors, _signature(batch),
@@ -661,6 +803,9 @@ class PanopticTrainer:
                 thr = float(np.nextafter(thr, -np.inf))
                 new_occ = new_occ.update_from_density(new_occ.occupancy, decay=1.0,
                                                       min_density=thr, dilate=dilate)
+        if self.group is not None:
+            sharding.assert_replicated([new_occ.mask, new_occ.occupancy], self.group,
+                                       "prune_checksum")
         self.occ = new_occ
         self._pruned = True
         self._occ_frac = float(self.occ.mask.float().mean())
@@ -738,6 +883,8 @@ class PanopticTrainer:
                              cam_idx=batch["cam_idx"].tolist())
         for losses in pending:
             drain(losses)
+        if self.group is not None:
+            self._read_pack_overflows(epoch)
         totals = {k: v / self.steps_per_epoch for k, v in totals.items()}
         if self.should_prune(epoch):
             self.prune()
@@ -942,7 +1089,10 @@ class _FusedStep:
             # parameters before it (the dual encode's packed copy)
             _bump_versions(params)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # under a group NCCL's watchdog thread queries its events while
+            # this thread captures: only this thread's calls may fail it
+            mode = "global" if t.group is None else "thread_local"
+            with torch.cuda.graph(graph, capture_error_mode=mode):
                 self.out = self.body()
             torch.cuda.synchronize(dev)
             self.graph = graph

@@ -217,6 +217,26 @@ def test_quality_stage_names_and_summary():
     assert out["packing"]["train"]["kept_sample_share"] == 0.8
 
 
+def test_quality_packing_spy_runs_a_packed_step():
+    """``quality_run.packing`` around a packed training step of the tiny
+    flagship (two microbatches after a prune and the scene fixture): the
+    step goes through the spy, whose call follows ``pack_samples``', and
+    the totals count both layouts."""
+    from pagnerf_tpu_torch import entry
+    cfg = dict(batch_size=2, num_rays_sampled_per_img=32, micro_batch_imgs=1,
+               sem_epoch_start=0, inst_epoch_start=0, prune_every=-1,
+               optimize_val_extrinsics=False, voxel_raymarch_epoch_start=0)
+    spec = {"tiny": True, "device": "cpu", "compute_dtype": "float32", "occ_level": 5,
+            "cfg": cfg, "actions": [{"do": "prune"}, {"do": "fixture"},
+                                    {"do": "step", "epoch": 2}]}
+    totals = {}
+    with quality_run.packing(totals):
+        out = entry.data_parallel_run(None, spec)
+    assert out["actions"][-1]["stage"] == "voxel_packed_panoptic"
+    assert totals["train"]["calls"] == 2 and totals["train"]["rays"] == 64
+    assert 0 < int(totals["train"]["kept"]) <= totals["train"]["budget"]
+
+
 def test_quality_pose_drift_reads_the_checkpoint(tiny_run, tmp_path):
     """``pose_drift``: train camera 2 turned by 2 degrees about its own
     centre (the centre stays) is reported so; the anchor camera 0 has not

@@ -123,3 +123,26 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch):
     with pytest.raises(SystemExit) as exc:
         runpy.run_path(os.path.join(ROOT, "chip_smoke.py"), run_name="__main__")
     assert exc.value.code not in (0, None)
+
+
+def test_sixteenth_slice_sources_covered():
+    """The data-parallel modules and the C++ sampler's binding are port
+    sources (so the import checks above cover them); the sampler's C++
+    source includes no PyTorch, pybind11 or JAX header."""
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in (("parallel", "sharding.py"), ("parallel", "launch.py"),
+                ("data", "native.py")):
+        assert os.path.join("pagnerf_tpu_torch", *rel) in names
+    with open(os.path.join(ROOT, "pagnerf_tpu_torch", "data", "csrc", "batcher.cpp")) as f:
+        includes = [ln for ln in f if ln.startswith("#include")]
+    assert includes and not [i for i in includes
+                             if "torch" in i or "pybind" in i or "ATen" in i or "jax" in i]
+
+
+def test_data_parallel_entry_refuses_cpu_fallback(monkeypatch):
+    from pagnerf_tpu_torch import entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.data_parallel_run(None, {"device": "cuda", "actions": []})

@@ -195,8 +195,8 @@ RUN_ARGV = ["--config", os.path.join(ROOT, "configs", "synthetic", "tiny.yaml"),
 
 @pytest.fixture(scope="module")
 def annealed_run():
+    assert native_j.available()          # both datasets' C++ sampler
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_j, "_load", lambda: None)
         mp.setattr(tracer_j, "raymarch", op_by_op_march(tracer_j.raymarch))
         _, _, tj = factory_j.get_modules_from_config(config_j.parse_options(RUN_ARGV))
         args = config_t.parse_options(RUN_ARGV)
