@@ -2,6 +2,8 @@
 """Drive the PyTorch port (``pagnerf_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py --data-parallel   # the data-parallel phases alone
+                                            # (NCCL on several cards)
 
 Phases, each printing one JSON line as it ends:
 
@@ -276,8 +278,39 @@ Phases, each printing one JSON line as it ends:
    mode; dbary) against its plain version, with times, bounds and
    ``embedding_bag`` / ``index_add_`` beside them.
 
+Between train_post_prune and validate, data_parallel -- ray-axis data
+parallelism (``parallel/sharding.py``) on the tuned config at full width:
+every stage of ``DP_BLOCKS`` (dense RGB, packed RGB after the seed prune,
+voxel packed panoptic, val-pose, and the voxel stage traced in
+``ray_chunk`` blocks whose water-fill spans the ranks) on every rank
+against one process (``phase_data_parallel``); on several cards (NCCL) the
+fused step against the host loop, in the voxel stage bit-equal, in the
+``ray_chunk`` block within the host loop's spread over two runs.
+
+18. data_parallel_contrastive -- ``sup_contrastive`` under the group:
+   ``configs/bup20/mean_shift_contrastive_app.yaml`` at its width over the
+   bup20 phase's tree, one microbatch's losses and gradients and a step's
+   losses on every rank against one process, no pack overflow, the audit
+   of the embeddings' gathers (B x R x D per microbatch, labels and anchor
+   mask, the reduce-scatter), and a control with the reduce-scatter
+   dropped, which the gradient bound must fail; on several cards the fused
+   step against the host loop's spread over two runs.
+
+19. bf16_read -- ``PAGNERF_BF16_GATHER=1``: the fused encodes, dbary (V = 4
+   and 8) and the gathers (V = 4 at the render's N, V = 8) reading bfloat16
+   rows against their plain versions at every N the paths gave them, the
+   bf16 read's time in turns with the float32 read's (the copies kept, and
+   made again a call) and its bound with 2-byte rows; the tuned config in a
+   dense RGB and in the voxel packed panoptic stage from one state with the
+   switch on, with it off on tables rounded to bfloat16 (the gradients
+   within ``BF16_STEP_GRAD_SHARE``) and with it off (the control, which must
+   break that bound), the fused step with the switch on against the host
+   loop (capture and two replays), and the hash encodes with a coordinate
+   gradient, with the launches of each kernel there.
+
 Then the ``{"kernels": [...]}`` line (the V = 4 kernels, then the V = 8
-rows ``hash_*``, then ``lap_assign``), the ``nvidia-smi`` name/power line, and last ``{"ok":
+rows ``hash_*``, then ``lap_assign``; the bf16 read's rows carry
+``bf16_read``), the ``nvidia-smi`` name/power line, and last ``{"ok":
 true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -344,13 +377,15 @@ def table_bytes(rows_used, c, f, itemsize):
     return sum(min(r or c, c) for r in rows_used) * f * itemsize
 
 
-def gather_bound(l, c, f, n, num_tables, itemsize, rows_used, v=4):
+def gather_bound(l, c, f, n, num_tables, itemsize, rows_used, v=4, row_itemsize=None):
     """Least time for the gather at these shapes: bytes (idx read once, bary
     and each table's reachable rows read once, each output written once)
     over the memory rate, against flops (V products and sums per output)
-    over the float32 rate."""
+    over the float32 rate. ``row_itemsize``: the rows' element size where
+    it is not bary's and the outputs' (the bf16 table read: 2 against 4)."""
+    rows = itemsize if row_itemsize is None else row_itemsize
     nbytes = l * v * n * 4 + l * v * n * itemsize \
-        + num_tables * (table_bytes(rows_used, c, f, itemsize) + l * f * n * itemsize)
+        + num_tables * (table_bytes(rows_used, c, f, rows) + l * f * n * itemsize)
     return _bound(nbytes, num_tables * l * f * n * v * 2)
 
 
@@ -360,13 +395,16 @@ def gather_bound(l, c, f, n, num_tables, itemsize, rows_used, v=4):
 LATTICE_FLOPS = 50
 
 
-def encode_bound(l, c, f, n, num_tables, itemsize, with_lattice, rows_used):
+def encode_bound(l, c, f, n, num_tables, itemsize, with_lattice, rows_used,
+                 row_itemsize=None):
     """Least time for the fused encode: bytes (x read once, each table's
     reachable rows read once, each output written once, and idx/bary when
     written) over the memory rate, against flops (the lattice, and V
-    products and sums per output) over the float32 rate."""
+    products and sums per output) over the float32 rate. ``row_itemsize``
+    as in ``gather_bound``."""
     v = 4
-    nbytes = 3 * n * 4 + num_tables * (table_bytes(rows_used, c, f, itemsize)
+    rows = itemsize if row_itemsize is None else row_itemsize
+    nbytes = 3 * n * 4 + num_tables * (table_bytes(rows_used, c, f, rows)
                                        + l * f * n * itemsize)
     if with_lattice:
         nbytes += 2 * l * v * n * 4
@@ -382,10 +420,11 @@ def scatter_bound(l, c, f, n, num_tables, v=4):
     return _bound(nbytes, num_tables * l * v * n * f * 2)
 
 
-def dbary_bound(l, c, f, n, rows_used, v=4):
+def dbary_bound(l, c, f, n, rows_used, v=4, row_itemsize=4):
     """Least time for dbary: idx, g and the table's reachable rows read
-    once, dbary written once (float32); F products and sums per output."""
-    nbytes = l * v * n * 4 + l * f * n * 4 + table_bytes(rows_used, c, f, 4) \
+    once, dbary written once (float32; the rows bfloat16 in the bf16 table
+    read, ``row_itemsize`` 2); F products and sums per output."""
+    nbytes = l * v * n * 4 + l * f * n * 4 + table_bytes(rows_used, c, f, row_itemsize) \
         + l * v * n * 4
     return _bound(nbytes, l * v * n * f * 2)
 
@@ -1059,7 +1098,7 @@ def el_ulps(x, st):
             for inv_s in st.inv_scales]
 
 
-def encode_vs_plain(spec, x, tables, outs, idx_k=None, bary_k=None):
+def encode_vs_plain(spec, x, tables, outs, idx_k=None, bary_k=None, bf16_rows=False):
     """A float32 fused encode's outputs, and the lattice it kept, against the
     plain encode on the same tables at one of the main path's N. Outputs per
     level within (4 ulp_f32(max|el_l|) + 8 eps_f32) max|table_l| (the encode
@@ -1067,7 +1106,8 @@ def encode_vs_plain(spec, x, tables, outs, idx_k=None, bary_k=None):
     by N, and at some N rounds el apart from the kernel: a vertex may differ
     from the plain lattice's only where the plain weight is within one ulp
     of el of 0, and where they agree each weight is within that ulp.
-    Returns the check's fields, with ``ok``."""
+    ``bf16_rows``: the bf16 table read's plain encode (rows rounded to
+    bfloat16). Returns the check's fields, with ``ok``."""
     import torch
 
     from pagnerf_tpu_torch.ops import permuto_encoding as pe
@@ -1075,8 +1115,8 @@ def encode_vs_plain(spec, x, tables, outs, idx_k=None, bary_k=None):
     st = pe.level_statics(spec.scales, spec.capacity, spec.feature_dim)
     ulps = el_ulps(x, st)
     with torch.no_grad():
-        want = ((pe.encode_plain(tables[0], x, spec.scales),) if len(tables) == 1
-                else pe.dual_encode_plain(*tables, x, spec.scales))
+        want = ((pe.encode_plain(tables[0], x, spec.scales, bf16_rows),) if len(tables) == 1
+                else pe.dual_encode_plain(*tables, x, spec.scales, bf16_rows))
     worst, err = 0.0, 0.0
     for lv, ulp in enumerate(ulps):
         tol = (4 * ulp + 8 * F32_EPS) * max(t[lv].abs().max().item() for t in tables)
@@ -2178,7 +2218,7 @@ def _put_state(trainer, state) -> None:
 # launch counters' names for NT = 1 and NT = 2). A wrapper's call launches
 # one of each: the encode kernel, the scatter's finish_kernel, dbary_kernel,
 # lap_kernel.
-PROFILED_KERNELS = {"permuto_encode_kernel": (2, "encode", "dual_encode"),
+PROFILED_KERNELS = {"permuto_encode_kernel": (3, "encode", "dual_encode"),
                     "finish_kernel": (1, "table_grad", "dual_table_grad"),
                     "dbary_kernel": (None, "dbary", "dbary"),
                     "lap_kernel": (None, "lap_assign", "lap_assign")}
@@ -4048,9 +4088,16 @@ DP_ARGV = ["--config", CLI_CONFIG] + CLI_FLAGS
 # epoch 0 dense RGB, epoch 1 after the seed prune (ray march, packed RGB),
 # epoch 2 after the real prune and the scene fixture (voxel march, packed
 # layout, panoptic heads), epoch 3 a val-pose epoch.
+# Last, the voxel stage again with the trace in ray_chunk blocks of
+# DP_RAY_CHUNK rays: the 4096 rays of a microbatch and 512 padding rays in 3
+# blocks, which the ranks' shares straddle (each block water-filled over its
+# histogram summed over the ranks, ``models/tracer.py``).
+DP_RAY_CHUNK = 1536
 DP_BLOCKS = (("dense_rgb", [], 0, 2), ("seed_prune", [{"do": "seed_prune"}], 1, 1),
              ("voxel_packed_panoptic", [{"do": "prune"}, {"do": "fixture"}], 2, 2),
-             ("val_pose", [{"do": "prune"}, {"do": "fixture"}], 3, 1))
+             ("val_pose", [{"do": "prune"}, {"do": "fixture"}], 3, 1),
+             ("packed_ray_chunk", [{"do": "prune"}, {"do": "fixture"},
+                                   {"do": "tracer", "ray_chunk": DP_RAY_CHUNK}], 2, 1))
 # Bounds of the ranks against one process on the card: the losses of each
 # stage's first step, from the shared state (rtol, atol), and of the steps
 # after an all-reduced update (rtol); one microbatch's summed gradients (a
@@ -4067,7 +4114,8 @@ DP_LOSS_RTOL, DP_LOSS_ATOL, DP_STEP_RTOL, DP_GRAD_SHARE = 1e-5, 1e-6, 2e-3, 2e-3
 DP_NEED = {"dense_rgb": ("encode", "table_grad", "dbary"),
            "seed_prune": ("encode", "table_grad", "dbary"),
            "voxel_packed_panoptic": ("dual_encode", "dual_table_grad", "dbary", "lap_assign"),
-           "val_pose": ("encode", "dbary")}
+           "val_pose": ("encode", "dbary"),
+           "packed_ray_chunk": ("dual_encode", "dual_table_grad", "dbary", "lap_assign")}
 
 
 def dp_actions() -> list:
@@ -4077,6 +4125,52 @@ def dp_actions() -> list:
             {"do": "grads", "epoch": epoch, "block": name},
             {"do": "step", "epoch": epoch, "block": name, "repeat": steps}]
     return acts
+
+
+def fused_vs_host_actions(block, epoch, steps):
+    """From a snapshot: the host loop twice, then the fused step, each
+    ``steps`` steps on one batch sampled after the restore (so the three
+    runs see the same batch and draws), ``block`` before each, the
+    parameters before and after each."""
+    run = {"do": "step", "epoch": epoch, "same_batch": True, "repeat": steps}
+    acts = [{"do": "snapshot"}]
+    for fused in (False, False, True):
+        acts += [{"do": "restore"}] + block + [{"do": "params"}, dict(run, fused=fused),
+                                               {"do": "params"}]
+    return acts
+
+
+def fused_vs_host(run, stage, steps):
+    """A rank's ``fused_vs_host_actions`` run: the fused step's losses at
+    every step and its parameters after them against the host loop's first
+    run, bit-equal or within the host loop's own spread (its second run
+    against its first: per loss or tensor, or the largest relative spread
+    times this one's scale; a tensor's scale is the steps' update of it);
+    the graph captured once and replayed ``steps - 1`` times. Returns (ok,
+    the record)."""
+    host_a, host_b, fused = [a for a in run["actions"] if a["do"] == "step"]
+    p0, pa, _, pb, _, pf = [a["params"] for a in run["actions"] if a["do"] == "params"]
+    diff = lambda x, y: float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+    scale = {n: max(diff(pa[n], p0[n]), 1e-30) for n in pa}
+    spread = {n: diff(pb[n], pa[n]) for n in pa}
+    rel = max(spread[n] / scale[n] for n in pa)
+    d = {n: diff(pf[n], pa[n]) for n in pa}
+    params_out = {n: [d[n], spread[n]] for n in pa if d[n] > max(spread[n], rel * scale[n])}
+    triples = [(i, k, la[k], lb[k], lf[k]) for i, (la, lb, lf) in enumerate(
+        zip(host_a["losses"], host_b["losses"], fused["losses"])) for k in la]
+    lrel = max(abs(b - a) / max(abs(a), 1e-30) for _, _, a, b, _ in triples)
+    losses_out = [t for t in triples if abs(t[4] - t[2]) > max(abs(t[3] - t[2]), lrel * abs(t[2]))]
+    log = [e for e in run["fused_log"] if e["stage"] == stage]
+    captured = len(log) == 1 and log[0]["capture_ms"] is not None \
+        and log[0]["replays"] == steps - 1
+    rec = {"rank": run["rank"], "host_spread_rel": rel, "host_loss_spread_rel": lrel,
+           "params_bit_equal": sum(d[n] == 0 for n in pa), "tensors": len(pa),
+           "max_rel": max(d[n] / scale[n] for n in pa),
+           "losses_bit_equal": all(t[4] == t[2] for t in triples),
+           "params_outside_spread": params_out, "losses_outside_spread": losses_out,
+           "log": log, "step_ms": fused["ms"], "host_step_ms": [host_a["ms"], host_b["ms"]]}
+    ok = captured and not params_out and not losses_out and not run["actions"][-1]["pack_overflows"]
+    return ok, rec
 
 
 def phase_data_parallel(dev, smi_line):
@@ -4268,6 +4362,19 @@ def phase_data_parallel(dev, smi_line):
                 "rank": r["rank"], "losses": fused_s["losses"], "host_losses": host_s["losses"],
                 "param_update_share": upd, "log": rec[0],
                 "step_ms": fused_s["ms"], "host_step_ms": host_s["ms"]})
+        # the ray_chunk block (the blocks' pack_hist collective in the graph)
+        # against the host loop run twice, whose spread bounds it
+        chunk = run_ranks(world, "pagnerf_tpu_torch.entry:data_parallel_run",
+                          dict(spec, actions=fused_vs_host_actions(
+                              DP_BLOCKS[-1][1], DP_BLOCKS[-1][2], steps)), "cuda",
+                          os.path.join(work, "fused_chunk"), rpd, timeout_s=300)
+        fields["fused"]["ray_chunk"] = []
+        for r in chunk:
+            ok, rec = fused_vs_host(r, "voxel_packed_panoptic", steps)
+            fields["fused"]["ray_chunk"].append(rec)
+            if not ok:
+                fail(f"fused step, ray_chunk block: rank {r['rank']}: {rec}")
+        fused = fused + chunk
         emit("data_parallel_fused", world=world, backend=backend, **fields["fused"])
         for r in fused:
             for a in r["actions"]:
@@ -4287,6 +4394,565 @@ def phase_data_parallel(dev, smi_line):
     shutil.rmtree(work, ignore_errors=True)
     assign = path.pop("lap_assign", 0)
     return path, assign
+
+
+# The data-parallel block of the contrastive instance loss: the
+# mean-shift triplanar config at its width over the bup20 phase's tree,
+# its window centred on the tree's index 5 (as ``SLICE_VARIANTS`` does),
+# the panoptic heads from epoch 0
+DP_CONTRASTIVE_CONFIG = "configs/bup20/mean_shift_contrastive_app.yaml"
+DP_CONTRASTIVE_FLAGS = ["--dataset-center-idx", "5", "--epochs", "2",
+                        "--sem-epoch-start", "0", "--inst-epoch-start", "0"]
+
+
+def dp_without_reduce_scatter(group, spec):
+    """``entry.data_parallel_run`` with a fault, the control of the
+    contrastive bounds: the ray gathers' backward keeps this rank's columns
+    of its own gradient and sums nothing over the ranks (the reduce-scatter
+    dropped)."""
+    from pagnerf_tpu_torch import entry
+    from pagnerf_tpu_torch.parallel import sharding
+
+    def backward(ctx, g):
+        rl = g.shape[1] // ctx.group.world
+        return g[:, ctx.group.rank * rl:(ctx.group.rank + 1) * rl].contiguous(), None, None
+
+    sharding._AllGatherRays.backward = staticmethod(backward)
+    return entry.data_parallel_run(group, spec)
+
+
+def phase_data_parallel_contrastive(dev, smi_line, tree):
+    """The data-parallel step of ``sup_contrastive`` (``DP_CONTRASTIVE_*``)
+    on the ranks ``phase_data_parallel`` takes (two gloo ranks on one card,
+    NCCL on several), against one process: the first microbatch's losses
+    and the step's (``DP_*`` bounds), the microbatch's summed gradients
+    within ``DP_GRAD_SHARE`` of each tensor's largest entry or twice that
+    entry's own float32 error where larger (its distance from one process's
+    gradient with the contrastive loss in float64: the 1 / 0.07 temperature
+    scales the similarities' rounding), no pack overflow, and the gathers'
+    audit: per microbatch the embeddings (B x R x D), the labels and the
+    anchor mask gathered, the embeddings' reduce-scatter. The control, the
+    ranks with the reduce-scatter dropped, must break the gradient bound.
+    Under NCCL the fused step (the gathers in its graph) against the host
+    loop run twice (``fused_vs_host``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pagnerf_tpu_torch import entry
+    from pagnerf_tpu_torch.parallel.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    world, rpd = (min(4, cards), 1) if cards >= 2 else (2, 2)
+    work = tempfile.mkdtemp(prefix="dpc_", dir=os.path.join(ROOT, "pagnerf_tpu_torch", "_build"))
+    argv = ["--config", os.path.join(ROOT, DP_CONTRASTIVE_CONFIG), "--dataset-path", tree] \
+        + DP_CONTRASTIVE_FLAGS
+    fields = {"card": smi_line, "world": world, "backend": "nccl" if rpd == 1 else "gloo",
+              "ranks_per_card": rpd, "config": DP_CONTRASTIVE_CONFIG,
+              "flags": DP_CONTRASTIVE_FLAGS}
+
+    def fail(msg):
+        emit("data_parallel_contrastive", ok=False, error=msg, **fields)
+        raise SystemExit(f"data_parallel_contrastive: {msg}")
+
+    spec = {"argv": argv, "device": "cuda", "actions": [
+        {"do": "snapshot"}, {"do": "grads", "epoch": 0}, {"do": "restore"},
+        {"do": "step", "epoch": 0}]}
+    t = time.perf_counter()
+    single = entry.data_parallel_run(None, dict(spec, device=str(dev)))
+    single64 = entry.contrastive_in_float64(None, dict(spec, device=str(dev)))
+    fields["single_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = run_ranks(world, "pagnerf_tpu_torch.entry:data_parallel_run", spec, "cuda",
+                      os.path.join(work, "ranks"), rpd, timeout_s=600)
+    fields["ranks_s"] = time.perf_counter() - t
+
+    def by(run, do):
+        return [a for a in run["actions"] if a["do"] == do]
+
+    ref_g, ref_s = by(single, "grads")[0], by(single, "step")[0]
+    ref64 = by(single64, "grads")[0]["grads"]
+    fields["stage"] = ref_s["stage"]
+    if "inst_loss" not in ref_s["losses"][0]:
+        fail(f"the step has no instance loss: {ref_s['losses']}")
+    def grads_off(got):
+        """The first microbatch's gradients of a rank against one process's:
+        (the tensors out of bounds, the largest share of a tensor's largest
+        entry, the largest own float32 error's share)."""
+        out, share, own_share = [], 0.0, 0.0
+        for pname, want in ref_g["grads"].items():
+            scale = float(want.abs().max())
+            own = float((want - ref64[pname]).abs().max())
+            err = float((got[pname] - want).abs().max())
+            if err > max(DP_GRAD_SHARE * scale, 2.0 * own):
+                out.append((pname, err, scale, own))
+            if scale > 0:
+                share, own_share = max(share, err / scale), max(own_share, own / scale)
+        return out, share, own_share
+
+    out_ranks, worst = [], {"loss_rel": 0.0, "grad_share": 0.0, "own_share": 0.0}
+    for r in ranks:
+        g, st = by(r, "grads")[0], by(r, "step")[0]
+        for tag, got_l, want_l in (("grads", g["losses"], ref_g["losses"]),
+                                   ("step", st["losses"], ref_s["losses"])):
+            for k, v in want_l[0].items():
+                d = abs(got_l[0][k] - v)
+                if not (math.isfinite(got_l[0][k]) and d <= DP_LOSS_ATOL + DP_LOSS_RTOL * abs(v)):
+                    fail(f"rank {r['rank']} {tag}: {k} {got_l[0][k]} against {v}")
+                worst["loss_rel"] = max(worst["loss_rel"], d / max(abs(v), 1e-30))
+        bad, share, own_share = grads_off(g["grads"])
+        if bad:
+            fail(f"rank {r['rank']}: gradients (name, off by, largest entry, one process's "
+                 f"own float32 error) {bad}")
+        worst["grad_share"] = max(worst["grad_share"], share)
+        worst["own_share"] = max(worst["own_share"], own_share)
+        if st["pack_overflows"]:
+            fail(f"rank {r['rank']}: {st['pack_overflows']} packed layouts overflowed")
+        out_ranks.append({"rank": r["rank"], "losses": st["losses"], "step_ms": st["ms"],
+                          "grads_ms": g["ms"], "collectives": len(st["collectives"])})
+    # the step's gathers, from the config's microbatches
+    step, mb = by(ranks[0], "step")[0], ranks[0]["microbatch"]
+    want = entry.contrastive_gathers(mb["count"], mb["images"], mb["rays"],
+                                     inst_dims=ranks[0]["channels"]["inst_embedding"])
+    try:
+        audit = entry.audit_collectives(step, ranks[0]["param_elements"], gathers=want)
+    except AssertionError as e:
+        fail(f"audit: {e}")
+    # the control: the ranks with the gathers' reduce-scatter dropped
+    # (``dp_without_reduce_scatter``); their gradients must break the bounds
+    ctrl = run_ranks(world, "chip_smoke:dp_without_reduce_scatter",
+                     dict(spec, actions=[{"do": "grads", "epoch": 0}]), "cuda",
+                     os.path.join(work, "control"), rpd, timeout_s=600)
+    fields["control"] = {"fault": "the ray gathers' reduce-scatter dropped",
+                         "grad_share": max(grads_off(by(r, "grads")[0]["grads"])[1]
+                                           for r in ctrl)}
+    if not all(grads_off(by(r, "grads")[0]["grads"])[0] for r in ctrl):
+        fail(f"the bounds do not see the reduce-scatter dropped: {fields['control']}")
+    if rpd == 1:
+        # NCCL: the fused step, with the gathers and their reduce-scatters in
+        # its graph, against the host loop run twice
+        steps = 4
+        runs = run_ranks(world, "pagnerf_tpu_torch.entry:data_parallel_run",
+                         dict(spec, actions=fused_vs_host_actions([], 0, steps)), "cuda",
+                         os.path.join(work, "fused"), rpd, timeout_s=600)
+        fields["fused"] = []
+        for r in runs:
+            ok, rec = fused_vs_host(r, fields["stage"], steps)
+            fields["fused"].append(rec)
+            if not ok:
+                fail(f"fused step: rank {r['rank']}: {rec}")
+        ranks = ranks + runs
+    fields.update(ranks=out_ranks, worst=worst, single_losses=ref_s["losses"],
+                  single_step_ms=ref_s["ms"], audit_gathers=audit["gathers"],
+                  microbatch=mb,
+                  embedding_dims=ranks[0]["channels"]["inst_embedding"],
+                  bounds={"loss_rtol": DP_LOSS_RTOL, "loss_atol": DP_LOSS_ATOL,
+                          "grad_share": DP_GRAD_SHARE, "or": "2 x own float32 error"})
+    emit("data_parallel_contrastive", ok=True, **fields)
+    shutil.rmtree(work, ignore_errors=True)
+    path = {k: 0 for k in _launches()}
+    for r in ranks:
+        for a in r["actions"]:
+            if a["do"] in ("step", "grads"):
+                for k, v in a["launches"].items():
+                    path[k] = path.get(k, 0) + v
+    path.pop("lap_assign", None)
+    return path
+
+
+BF16_ENV = "PAGNERF_BF16_GATHER"
+# the render's N (the V = 4 gathers' shapes), the hash grid of
+# panoptic_nerf.yaml (14 LoDs x 2^19 x F=2, resolutions 16 -> 512) and its
+# microbatch's N
+RENDER_N = 1572864
+HASH_GRID = (14, 2, 19, 16, 512)
+HASH_N = 1 << 20
+
+
+@contextlib.contextmanager
+def bf16_read():
+    """``PAGNERF_BF16_GATHER=1`` inside the block: float32 tables read as
+    bfloat16 rows (``ops/table_gather.py``), the variable put back after."""
+    old = os.environ.get(BF16_ENV)
+    os.environ[BF16_ENV] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(BF16_ENV, None)
+        else:
+            os.environ[BF16_ENV] = old
+
+
+def bf16_path_ns(post, val_times, times_by_path, hash_times):
+    """Each bf16-read kernel's N on the main paths, from the phases' times
+    (keyed by kernel and then N): the fused encodes' (N, with idx/bary),
+    dbary's N, the V = 8 gathers' (N, with a gradient) and dbary's N."""
+    ns = {"encode": {(1572864, False), (2097152, True)},
+          "dual_encode": {(1572864, False), (2097152, True)},
+          "dbary": {2097152}, "hash_gather": set(), "hash_gather_dual": set(),
+          "hash_dbary": set()}
+    ns["encode"].add((post["encode_prune"]["N"], False))
+    ns["dual_encode"].add((post["dual_encode_B"]["N"], True))
+    ns["dbary"].add(post["dbary_B"]["N"])
+    ns["encode"].add((val_times["pre_prune"]["N"], False))
+    for part in ("final", "map"):
+        ns["dual_encode"].add((val_times[part]["N"], False))
+    for times in times_by_path:
+        for kind in ("encode", "dual_encode"):
+            ns[kind] |= {(int(n), True) for n in times.get(kind, {})}
+            ns[kind] |= {(int(n), False) for n in times.get(kind + NO_IDX_BARY, {})}
+        ns["dbary"] |= {int(n) for n in times.get("dbary", {})}
+    for name, kind in (("hash_gather_single", "hash_gather"),
+                       ("hash_gather_dual", "hash_gather_dual")):
+        ns[kind] |= {(int(n), True) for n in hash_times.get(name, {})}
+        ns[kind] |= {(int(n), False) for n in hash_times.get(name + "_val", {})}
+    ns["hash_dbary"] |= {int(n) for n in hash_times.get("hash_gather_dbary", {})}
+    return {k: sorted(v) for k, v in ns.items()}
+
+
+# The tuned steps' bound with the switch on: the first microbatch's
+# gradients within this share of each tensor's largest entry of the same
+# step with the switch off on grid tables rounded to bfloat16 beforehand
+# (the same function through the float32 read). The float32 step (the
+# switch off, the tables as they are) is the control that must break it.
+BF16_STEP_GRAD_SHARE = 1e-5
+
+
+def bf16_tuned_steps(dev):
+    """The tuned config at full width in a dense RGB stage (epoch 0) and the
+    voxel packed panoptic stage (epoch 2, the entry's scene fixture as the
+    occupancy), each from one state and one draw in three modes:
+    ``bf16_read`` (the switch on), ``rounded`` (the switch off, the grid
+    tables rounded to bfloat16 in place first) and ``float32`` (the switch
+    off). Per mode the first microbatch's gradients (``grad_step``), then a
+    step's losses and wall; each mode's gradients against ``rounded``'s (the
+    largest share of a tensor's largest entry). Then, in the voxel stage
+    with the switch on, the graph against the host loop (``graph_vs_host``:
+    the eager step, the capture and two replays, within the host loop's
+    spread) and one fused step with the switch off, which must capture a
+    key of its own. The kernels' launches are counted in the bf16-read
+    runs."""
+    import torch
+
+    from pagnerf_tpu_torch.config import factory
+    from pagnerf_tpu_torch.config.config import parse_options
+    from pagnerf_tpu_torch.entry import apply_scene_fixture
+    from pagnerf_tpu_torch.train.checkpoint import load_state, trainer_state
+
+    _, ds, trainer = factory.get_modules_from_config(parse_options(list(DP_ARGV)), str(dev))
+    cfg = trainer.cfg
+    out, launches = {}, {k: 0 for k in _launches()}
+    for name, epoch in (("dense_rgb", 0), ("voxel_packed_panoptic", 2)):
+        if epoch == 2:
+            apply_scene_fixture(trainer)
+            trainer._pruned = True
+        stage = trainer.stage_for_epoch(epoch)
+        batch = ds.sample_batch(trainer.rng, cfg.batch_size, cfg.num_rays_sampled_per_img,
+                                "train")
+        sub = trainer._micro_batches(batch)[0]
+        state, gen = trainer_state(trainer), trainer.generator.get_state()
+        rec, grads = {"stage": stage.label}, {}
+        for mode in ("bf16_read", "rounded", "float32"):
+            for what in ("grads", "step"):
+                load_state(trainer, state)
+                trainer.generator.set_state(gen)
+                if mode == "rounded":
+                    with torch.no_grad():
+                        for pname, p in trainer.params.items():
+                            if pname.endswith(".tables"):
+                                p.copy_(p.to(torch.bfloat16))
+                with bf16_read() if mode == "bf16_read" else contextlib.nullcontext():
+                    _reset_launches()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    if what == "grads":
+                        g, _ = trainer.grad_step(stage, sub)
+                        grads[mode] = {k: v.detach().float().clone() for k, v in g.items()}
+                    else:
+                        losses = {k: float(v) for k, v in trainer.train_step(stage, batch).items()}
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t) * 1e3
+                if mode == "bf16_read":
+                    for k, v in _launches().items():
+                        launches[k] += v
+            rec[mode] = dict(losses=losses, step_ms=ms)
+        for mode in ("bf16_read", "float32"):
+            ref = grads["rounded"]
+            rec[mode]["grad_share_vs_rounded"] = max(
+                float((grads[mode][k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for k, w in ref.items())
+            rec[mode]["max_loss_rel_vs_rounded"] = max(
+                abs(rec[mode]["losses"][k] - v) / max(abs(v), 1e-30)
+                for k, v in rec["rounded"]["losses"].items())
+        del grads
+        out[name] = rec
+    # the graph with the switch on, then a fused step with it off
+    load_state(trainer, state)
+    trainer.generator.set_state(gen)
+    with bf16_read():
+        runs, profiled = graph_vs_host(trainer, stage, batch)
+    cmp, ok = compare_runs(runs)
+    log = trainer.fused_log[-1]
+    implied = fused_implied([log])[0]
+    trainer.fused_train_step(stage, batch)
+    torch.cuda.synchronize()
+    off = trainer.fused_log[-1]
+    out["fused_bf16_read"] = dict(
+        stage=stage.label, ok=ok and profiled == implied and (log["steps"], log["replays"]) == (4, 3)
+        and off is not log and off["steps"] == 1,
+        host_ms=[runs["host_a"]["ms"], runs["host_b"]["ms"]], eager_ms=runs["eager"]["ms"],
+        capture_and_replay_ms=runs["capture"]["ms"], replay_ms=runs["replay"]["ms"],
+        capture_ms=log["capture_ms"], steps_replays=[log["steps"], log["replays"]],
+        launches_per_replay_profiled=profiled, launches_per_step_implied=implied,
+        switch_off_new_key=off is not log, keys=len(trainer.fused_log), **cmp)
+    trainer._fused.clear()
+    del runs, trainer, ds
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_bf16_read(dev, smi_line, spec, ns, flush):
+    """The bf16 table read (``PAGNERF_BF16_GATHER=1``) of PERF.md rows 8, 9,
+    3 (the fused encodes and dbary, V = 4), 10, 11 and 14 (the gathers and
+    dbary, V = 8) and of rows 1-2 (the V = 4 gathers, which no path runs),
+    each against its plain version (the float32 one on the rows rounded to
+    bfloat16) at every N the main paths gave it (``bf16_path_ns``), on
+    random tables and coordinates: the encodes by ``encode_vs_plain``'s
+    bound and boundary rule, the gathers within 8 (V = 4) or 16 (V = 8)
+    eps_f32 of the largest table entry, dbary within 4 eps_f32 of sum_f |g
+    * T|. Times (CUDA events, median of 5, L2 flushed) of the bf16 read and
+    of the float32 read in turns (float32, bf16, bf16, float32), with the
+    copies the kernels read kept and with them made again at each call (a
+    training step's case), and the bounds with 2-byte rows; then ``bf16_tuned_steps`` and the hash encodes
+    (single and dual, N = 2^20, with a coordinate gradient) with the switch
+    on: the launches of each kernel there. Returns (results by kernel row,
+    the tuned steps' launches, each row's launches with the switch on)."""
+    import torch
+
+    from pagnerf_tpu_torch.ops import hash_encoding as he
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    from pagnerf_tpu_torch.ops import table_gather as tg
+    from pagnerf_tpu_torch.ops import table_pack
+
+    t_phase = time.perf_counter()
+    fields = {"card": smi_line, "ns": {k: [list(x) if isinstance(x, tuple) else x for x in v]
+                                       for k, v in ns.items()}}
+
+    def fail(msg):
+        emit("bf16_read", ok=False, error=msg, **{k: v for k, v in fields.items()
+                                                  if k != "results"})
+        raise SystemExit(f"bf16_read: {msg}")
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    results = {}
+
+    def turns(f32, b16, table):
+        """Medians of 5 in turns (float32, bf16, bf16, float32), each mode's
+        mean of its two: with the copies the kernels read kept (the tables
+        unchanged), then with ``table``'s version bumped before each call
+        (``fresh_pack``), so the call makes its copy again, as every
+        training step pays it after the optimizer wrote the tables."""
+        got = {}
+        for fresh in (False, True):
+            for which in ("f32", "bf16", "bf16", "f32"):
+                fn = f32 if which == "f32" else b16
+                with bf16_read() if which == "bf16" else contextlib.nullcontext():
+                    got.setdefault((which, fresh), []).append(cuda_ms(
+                        fresh_pack(fn, table) if fresh else fn, reps=5, flush=flush))
+        return {k: statistics.mean(v) for k, v in got.items()}
+
+    def put(row, n, check, t, bound):
+        if not check["ok"]:
+            fail(f"{row} at N={n}: {check}")
+        results.setdefault(row, {})[str(n)] = dict(
+            N=n, max_abs_err=check["max_abs_err"], ok=True, ms=t[("bf16", False)],
+            float32_ms=t[("f32", False)], fresh_copy_ms=t[("bf16", True)],
+            float32_fresh_copy_ms=t[("f32", True)], bound_ms=bound[0], bound_by=bound[1],
+            bytes=bound[2])
+
+    # ---- V = 4: the fused encodes (rows 8, 9) and dbary (row 3)
+    l, c, f = spec.num_levels, spec.capacity, spec.feature_dim
+    st = pe.level_statics(spec.scales, c, f)
+    ta = torch.randn((l, c, f), generator=gen, device=dev)
+    tb = torch.randn((l, c, f), generator=gen, device=dev)
+    a, b = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    for kind, row in (("encode", "permuto_encode_single"),
+                      ("dual_encode", "permuto_encode_dual")):
+        dual = kind == "dual_encode"
+        for n, grad in ns[kind]:
+            x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
+
+            def kern(x=x, grad=grad, dual=dual):
+                with torch.set_grad_enabled(grad):
+                    return (pe.fused_encode_dual(a, b, x, spec.scales) if dual
+                            else (pe.fused_encode(a, x, spec.scales),))
+            with bf16_read():
+                outs = kern()
+            idx = bary = None
+            if grad:
+                _, idx, bary, _ = outs[0].grad_fn.saved_tensors
+            check = encode_vs_plain(spec, x, (ta, tb) if dual else (ta,),
+                                    tuple(o.detach() for o in outs), idx, bary, bf16_rows=True)
+            if any(o.dtype != torch.float32 for o in outs):
+                fail(f"{row}: the bf16 read wrote {outs[0].dtype}")
+            del outs, idx, bary
+            put(row, n, check, turns(kern, kern, a),
+                encode_bound(l, c, f, n, 2 if dual else 1, 4, grad, st.rows_used,
+                             row_itemsize=2))
+            del x
+    del a, b
+    for n in ns["dbary"]:
+        x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
+        idx, _ = pe.lattice(ta, x, spec.scales)
+        del x
+        g = torch.randn((l, f, n), generator=gen, device=dev)
+        rows16 = table_pack.rows_as(ta, bf16)
+        got = tg.multilevel_gather_dbary(rows16, idx, g)
+        diff = (got - tg.gather_dbary_plain(ta, idx, g, bf16_rows=True)).abs()
+        mag = tg.gather_dbary_plain(rows16.float().abs(), idx, g.abs())
+        worst = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+        check = dict(max_abs_err=diff.max().item(), worst_err_over_tol=worst, ok=worst <= 1.0)
+        del got, diff, mag, rows16
+        # dbary's rows on the path: ``table_gather.dbary_rows``
+        t = turns(lambda: tg.multilevel_gather_dbary(tg.dbary_rows(ta, False), idx, g),
+                  lambda: tg.multilevel_gather_dbary(tg.dbary_rows(ta, True), idx, g), ta)
+        put("gather_dbary", n, check, t, dbary_bound(l, c, f, n, st.rows_used, row_itemsize=2))
+        del idx, g
+    # the V = 4 gathers (rows 1, 2) at the render's N
+    n = RENDER_N
+    x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
+    with torch.no_grad():
+        idx, bary = pe.lattice(ta, x, spec.scales)
+    del x
+    tol = 8 * F32_EPS * max(ta.abs().max().item(), tb.abs().max().item())
+    for row, num in (("permuto_gather_single", 1), ("permuto_gather_dual", 2)):
+        kern = ((lambda: (tg.multilevel_table_gather(ta, idx, bary),)) if num == 1
+                else (lambda: tg.dual_multilevel_table_gather(ta, tb, idx, bary)))
+        with bf16_read(), torch.no_grad():
+            got = kern()
+        want = tg.dual_gather_plain(ta, tb, idx, bary, bf16_rows=True)
+        err = max((g_ - w_).abs().max().item() for g_, w_ in zip(got, want))
+        del got, want
+        put(row, n, dict(max_abs_err=err, ok=err <= tol), turns(kern, kern, ta),
+            gather_bound(l, c, f, n, num, 4, st.rows_used, row_itemsize=2))
+    del idx, bary, ta, tb
+    torch.cuda.empty_cache()
+
+    # ---- V = 8: the hash grid's gathers (rows 10, 11) and dbary (row 14)
+    hspec = he.HashEncodingSpec(*HASH_GRID)
+    l, c, f = hspec.num_levels, hspec.capacity, hspec.feature_dim
+    rows = hash_rows(hspec.resolutions, c)
+    ta = torch.randn((l, c, f), generator=gen, device=dev)
+    tb = torch.randn((l, c, f), generator=gen, device=dev)
+    tol = 16 * F32_EPS * max(ta.abs().max().item(), tb.abs().max().item())
+    for kind, row, num in (("hash_gather", "hash_gather_single", 1),
+                           ("hash_gather_dual", "hash_gather_dual", 2)):
+        for n, _grad in ns[kind]:
+            x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
+            idx, w = he.hash_indices(x, hspec.resolutions, hspec.log2_table_size)
+            del x
+            kern = ((lambda: (tg.multilevel_table_gather(ta, idx, w),)) if num == 1
+                    else (lambda: tg.dual_multilevel_table_gather(ta, tb, idx, w)))
+            with bf16_read(), torch.no_grad():
+                got = kern()
+            want = tg.dual_gather_plain(ta, tb, idx, w, bf16_rows=True)
+            err = max((g_ - w_).abs().max().item() for g_, w_ in zip(got, want))
+            del got, want
+            put(row, n, dict(max_abs_err=err, ok=err <= tol), turns(kern, kern, ta),
+                gather_bound(l, c, f, n, num, 4, rows, v=8, row_itemsize=2))
+            del idx, w
+    for n in ns["hash_dbary"]:
+        x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
+        idx, _ = he.hash_indices(x, hspec.resolutions, hspec.log2_table_size)
+        del x
+        g = torch.randn((l, f, n), generator=gen, device=dev)
+        rows16 = table_pack.rows_as(ta, bf16)
+        got = tg.multilevel_gather_dbary(rows16, idx, g)
+        diff = (got - tg.gather_dbary_plain(ta, idx, g, bf16_rows=True)).abs()
+        mag = tg.gather_dbary_plain(rows16.float().abs(), idx, g.abs())
+        worst = (diff / (4 * F32_EPS * mag).clamp(min=1e-30)).max().item()
+        check = dict(max_abs_err=diff.max().item(), worst_err_over_tol=worst, ok=worst <= 1.0)
+        del got, diff, mag, rows16
+        t = turns(lambda: tg.multilevel_gather_dbary(tg.dbary_rows(ta, False), idx, g),
+                  lambda: tg.multilevel_gather_dbary(tg.dbary_rows(ta, True), idx, g), ta)
+        put("hash_gather_dbary", n, check, t, dbary_bound(l, c, f, n, rows, v=8,
+                                                          row_itemsize=2))
+        del idx, g
+    fields["checks_s"] = time.perf_counter() - t_phase
+
+    # ---- the paths with the switch on
+    _reset_launches()
+    with bf16_read():
+        x = (torch.rand((3, HASH_N), generator=gen, device=dev) * 2 - 1).requires_grad_()
+        a, b = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+        out = he.hash_encode_T(a, x, hspec.resolutions)
+        (out * out).sum().backward()
+        oa, ob = he.hash_encode_dual_T(a, b, x, hspec.resolutions)
+        (oa.sum() + (ob * ob).sum()).backward()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(x.grad).all() and a.grad.dtype == torch.float32):
+            fail("the hash encodes' gradients are not finite float32")
+    hash_launches_ = _launches()
+    del x, a, b, out, oa, ob, ta, tb
+    torch.cuda.empty_cache()
+    steps, step_launches = bf16_tuned_steps(dev)
+    fused = steps.pop("fused_bf16_read")
+    fields["fused_bf16_read"] = fused
+    if not fused["ok"]:
+        fail(f"the fused step with the switch on: {fused}")
+    for name, rec in steps.items():
+        if not all(math.isfinite(v) for v in rec["bf16_read"]["losses"].values()):
+            fail(f"{name}: non-finite losses {rec['bf16_read']['losses']}")
+        if rec["bf16_read"]["grad_share_vs_rounded"] > BF16_STEP_GRAD_SHARE:
+            fail(f"{name}: the bf16 read's gradients are off those on rounded tables by "
+                 f"{rec['bf16_read']['grad_share_vs_rounded']} of their largest entry")
+        if rec["float32"]["grad_share_vs_rounded"] <= BF16_STEP_GRAD_SHARE:
+            fail(f"{name}: the bound does not see the float32 read (the control): "
+                 f"{rec['float32']['grad_share_vs_rounded']}")
+    need = {"encode": step_launches["encode"], "dual_encode": step_launches["dual_encode"],
+            "dbary": step_launches["dbary"], "gather": hash_launches_["gather"],
+            "dual_gather": hash_launches_["dual_gather"],
+            "hash_dbary": hash_launches_["dbary"]}
+    missing = [k for k, v in need.items() if not v]
+    if missing:
+        fail(f"no launch of {missing} with the switch on: {need}")
+    fields.update(tuned_steps=steps, step_launches=step_launches,
+                  hash_encode_launches=hash_launches_, results=results,
+                  phase_s=time.perf_counter() - t_phase)
+    emit("bf16_read", ok=True, **fields)
+    # the V = 4 rows count the tuned steps' launches; the V = 8 rows' hash
+    # encode launches (the same wrappers' counts) stay in ``need``
+    return results, step_launches, need
+
+
+def data_parallel_only(dev, smi_line) -> None:
+    """``--data-parallel``: the data-parallel phases alone, on min(4, cards)
+    cards over NCCL where the machine has several (the branch a one-card
+    run does not take), over the bup20 phase's tree; their launches, then a
+    last line that says which phases ran."""
+    import shutil
+
+    import torch
+
+    from pagnerf_tpu_torch.data.bup20_tree import write_bup20_tree
+
+    launches, _ = phase_data_parallel(dev, smi_line)
+    root = os.path.join(ROOT, "pagnerf_tpu_torch", "_build", "bup20")
+    shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "data", "BUP_20")
+    write_bup20_tree(tree, *BUP20_SIZE)
+    contrastive = phase_data_parallel_contrastive(dev, smi_line, tree)
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"launches": {"data_parallel": launches,
+                                   "data_parallel_contrastive": contrastive}}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "phases": ["data_parallel", "data_parallel_contrastive"],
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}), flush=True)
 
 
 def main() -> None:
@@ -4314,6 +4980,9 @@ def main() -> None:
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
     phase_build()
+    if sys.argv[1:] == ["--data-parallel"]:
+        data_parallel_only(dev, smi_line)
+        return
 
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
@@ -4367,7 +5036,13 @@ def main() -> None:
         else:
             paths[name], variant_times[name] = phase_bup20_variant(
                 dev, flush_buf.zero_, smi_line, tree, name, seen)
+    paths["data_parallel_contrastive"] = phase_data_parallel_contrastive(dev, smi_line, tree)
     shutil.rmtree(os.path.dirname(os.path.dirname(tree)))
+    torch.cuda.empty_cache()
+    ns = bf16_path_ns(post, val_times, [cli_times, bup20_times, *variant_times.values()],
+                      slice_times["panoptic_nerf"])
+    bf16_rows_, paths["bf16_read"], bf16_need = phase_bf16_read(dev, smi_line, spec, ns,
+                                                                 flush_buf.zero_)
     del flush_buf
 
     # ---------------------------------------------------------------- report
@@ -4457,6 +5132,15 @@ def main() -> None:
                 row[name_] = times_[key]
         rows.append(row)
     rows += hash_kernel_rows(slice_paths, slice_times["panoptic_nerf"], sources)
+    bf16_launch_key = {"permuto_encode_single": "encode", "permuto_encode_dual": "dual_encode",
+                       "gather_dbary": "dbary", "hash_gather_single": "gather",
+                       "hash_gather_dual": "dual_gather", "hash_gather_dbary": "hash_dbary"}
+    for row in rows:
+        if row["name"] in bf16_rows_:
+            row["bf16_read"] = {
+                "switch": "PAGNERF_BF16_GATHER=1: bfloat16 rows, float32 bary and outputs",
+                "launches": bf16_need.get(bf16_launch_key.get(row["name"]), 0),
+                "by_N": bf16_rows_[row["name"]]}
     rows.append({
         "name": "lap_assign", "route": "cuda", "source": ASSIGN_SOURCE,
         "replaces": "pagnerf_tpu/ops/assignment.py:41 lap_assign (XLA, not a Pallas kernel)",

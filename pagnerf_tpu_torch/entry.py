@@ -337,6 +337,29 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _microbatch(cfg) -> dict:
+    from .train.trainer import snap_microbatch
+    mb = snap_microbatch(cfg.batch_size, cfg.micro_batch_imgs or cfg.batch_size)
+    return {"count": cfg.batch_size // mb, "images": mb,
+            "rays": cfg.num_rays_sampled_per_img}
+
+
+def contrastive_in_float64(group, spec: dict, run=None) -> dict:
+    """``run`` (``data_parallel_run`` by default) with the trainer's
+    contrastive losses computed in float64 (the features widened, the loss
+    rounded back to float32): one process's gradient with the loss's own
+    float32 rounding taken out. The 1 / 0.07 temperature scales the
+    similarities' rounding, so a float32 gradient's own error is its
+    distance from this one."""
+    from .train import trainer as trainer_mod
+    orig = trainer_mod.sup_contrastive_loss
+    trainer_mod.sup_contrastive_loss = lambda f, *a, **k: orig(f.double(), *a, **k).float()
+    try:
+        return (run or data_parallel_run)(group, spec)
+    finally:
+        trainer_mod.sup_contrastive_loss = orig
+
+
 def data_parallel_run(group, spec: dict) -> dict:
     """Build a trainer from ``spec["argv"]`` (the command line's flags,
     through the port's factory, on ``spec["device"]``) or, without
@@ -363,12 +386,15 @@ def data_parallel_run(group, spec: dict) -> dict:
     - ``snapshot`` / ``restore``: keep the trainer's state (and its
       generators' states) in memory / put it back;
     - ``validate``: ``validate`` at ``epoch`` on rank 0 only;
-    - ``save`` / ``load``: a checkpoint at ``path`` (written by rank 0).
+    - ``save`` / ``load``: a checkpoint at ``path`` (written by rank 0);
+    - ``tracer``: TracerConfig fields set on the pipeline (``ray_chunk``).
 
     Returns per action: its ``losses`` (floats), ``grads`` (host tensors),
     the collectives it made (``collectives``: tag, elements), its ``ms``
     (host clock to a device sync), the kernels' ``launches``, and the
-    group's ``pack_overflows`` so far; plus the parameters' element count."""
+    group's ``pack_overflows`` so far; plus the parameters' element count,
+    the widths of the NeF's semantic and instance channels and the step's
+    microbatches (their count, images and global rays an image)."""
     from .config import factory
     from .config.config import parse_options
     import copy
@@ -397,6 +423,9 @@ def data_parallel_run(group, spec: dict) -> dict:
            "device": str(dev if group is None else group.device),
            "backend": None if group is None else group.backend,
            "param_elements": {n: p.numel() for n, p in trainer.params.items()},
+           "channels": {"semantics": getattr(pipe.nef, "num_classes", 0),
+                        "inst_embedding": getattr(pipe.nef, "num_instances", 0)},
+           "microbatch": _microbatch(trainer.cfg),
            "actions": []}
     snapshot = None
     for act in spec["actions"]:
@@ -469,6 +498,10 @@ def data_parallel_run(group, spec: dict) -> dict:
                 all_reduce(torch.zeros(1, device=dev), group, "barrier")
         elif do == "load":
             load_checkpoint(act["path"], trainer)
+        elif do == "tracer":
+            names = {f.name for f in dataclasses.fields(TracerConfig)}
+            pipe.tracer_cfg = dataclasses.replace(
+                pipe.tracer_cfg, **{k: v for k, v in act.items() if k in names})
         else:
             raise ValueError(f"unknown action {do!r}")
         _sync(dev)
@@ -489,30 +522,67 @@ DRYRUN_ARGV_TINY = ["--config", "configs/synthetic/tiny.yaml", "--num-lods", "4"
                     "--synthetic-num-views", "8", "--synthetic-res", "16", "16"]
 
 
-def audit_collectives(record: dict, param_elements: dict) -> dict:
+def audit_collectives(record: dict, param_elements: dict,
+                      gathers: Optional[dict] = None) -> dict:
     """The collective audit of one step's record: the gradient sums carry
-    each parameter's elements at most once, and every other collective has
-    fewer than 4096 elements. Raises otherwise."""
+    each parameter's elements at most once, and every other collective
+    but the ray gathers has fewer than 4096 elements. The ray gathers
+    (``parallel/sharding.py``: the contrastive losses' features, labels and
+    masks, and the features' reduce-scatter) are reported apart, by tag;
+    ``gathers`` (as ``contrastive_gathers`` gives them) must equal them
+    when given. Raises otherwise."""
+    from .parallel.sharding import GATHER, REDUCE_SCATTER
+
+    def tally(entries):
+        tags = {}
+        for tag, n in entries:
+            tags.setdefault(tag, [0, 0])
+            tags[tag][0] += 1
+            tags[tag][1] += n
+        return {t: {"calls": c, "elements": e} for t, (c, e) in sorted(tags.items())}
+
     coll = record["collectives"]
     grad = sum(n for tag, n in coll if tag == "grad")
-    small = [(tag, n) for tag, n in coll if tag != "grad"]
+    ray = [(tag, n) for tag, n in coll if tag.startswith((GATHER, REDUCE_SCATTER))]
+    small = [(tag, n) for tag, n in coll if tag != "grad" and (tag, n) not in ray]
     big = [(tag, n) for tag, n in small if n >= 4096]
     total = sum(param_elements.values())
     if big:
         raise AssertionError(f"collectives of 4096 elements or more besides the "
-                             f"gradient sum: {big}")
+                             f"gradient sum and the ray gathers: {big}")
     if grad > total:
         raise AssertionError(f"the gradient sums carry {grad} elements, the "
                              f"parameters hold {total}")
-    tags = {}
-    for tag, n in small:
-        tags.setdefault(tag, [0, 0])
-        tags[tag][0] += 1
-        tags[tag][1] += n
-    return {"grad_elements": grad, "param_elements": total,
-            "grad_calls": sum(1 for tag, _ in coll if tag == "grad"),
-            "small": {t: {"calls": c, "elements": e} for t, (c, e) in sorted(tags.items())},
-            "largest_small": max((n for _, n in small), default=0)}
+    out = {"grad_elements": grad, "param_elements": total,
+           "grad_calls": sum(1 for tag, _ in coll if tag == "grad"),
+           "small": tally(small), "gathers": tally(ray),
+           "largest_small": max((n for _, n in small), default=0)}
+    if gathers is not None and out["gathers"] != gathers:
+        raise AssertionError(f"ray gathers {out['gathers']}, expected {gathers}")
+    return out
+
+
+def contrastive_gathers(micro: int, images: int, rays: int, inst_dims: int = 0,
+                        classes: int = 0) -> dict:
+    """The ray gathers a data-parallel step of ``micro`` microbatches, each
+    of ``images`` images of ``rays`` global rays, logs for its contrastive
+    terms, as ``audit_collectives`` reports them: per microbatch and term
+    the features (B x R x D elements), gathered and reduce-scattered in the
+    backward, and the labels (B x R); the instance loss also its anchor
+    mask (B x R). ``inst_dims``: the instance embedding's width under
+    ``sup_contrastive`` (0: another instance loss); ``classes``: the
+    semantic channels under ``contrast_sem_weight`` (0: off)."""
+    from .parallel.sharding import GATHER, REDUCE_SCATTER
+    br = images * rays
+    out = {}
+    for name, dims, masked in (("supcon", inst_dims, True), ("contrast_sem", classes, False)):
+        if dims:
+            parts = {GATHER + name + "_feats": br * dims, GATHER + name + "_labels": br,
+                     REDUCE_SCATTER + name + "_feats": br * dims}
+            if masked:
+                parts[GATHER + name + "_mask"] = br
+            out.update({t: {"calls": micro, "elements": micro * n} for t, n in parts.items()})
+    return dict(sorted(out.items()))
 
 
 def dryrun_multichip(n: int, device="cuda", tiny: bool = False,
@@ -553,7 +623,9 @@ def dryrun_multichip(n: int, device="cuda", tiny: bool = False,
         for k, v in ref.items():
             if not (math.isfinite(got[k]) and abs(got[k] - v) <= 1e-5 + 1e-4 * abs(v)):
                 raise AssertionError(f"{k}: {n}-rank step {got[k]} != one process {v}")
-    audit = audit_collectives(ranks[0]["actions"][0], ranks[0]["param_elements"])
+    # the flagship's instance loss gathers nothing
+    audit = audit_collectives(ranks[0]["actions"][0], ranks[0]["param_elements"],
+                              gathers={})
     result = {"n": n, "backend": ranks[0]["backend"],
               "devices": [r["device"] for r in ranks], "losses": ref,
               "losses_sharded": ranks[0]["actions"][0]["losses"][0], "audit": audit}

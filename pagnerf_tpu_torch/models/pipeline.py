@@ -56,14 +56,17 @@ class Pipeline(nn.Module):
     def forward(self, rays: Rays, channels: FrozenSet[str], occ: OccupancyGrid,
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
                 jitter: Jitter = None,
-                tracer_cfg: Optional[TracerConfig] = None, group=None) -> RenderBuffer:
+                tracer_cfg: Optional[TracerConfig] = None, group=None,
+                images: int = 1) -> RenderBuffer:
         """``jitter`` stands where the JAX package takes a ``key``: None for
         midpoint samples, or stratified samples' uniforms [R, S] (or a
         generator to draw them). ``group``: the trainer's data-parallel
-        ``RayGroup``, for the packed layout's global cap."""
+        ``RayGroup``, for the packed layout's global cap; ``images``: the
+        images the rays come from, each its rank's share of ``R`` rays in
+        turn (the tracer places them in the global ray order)."""
         return trace(self.nef_fn(lod_weights), rays, occ,
                      tracer_cfg or self.tracer_cfg, frozenset(channels), stage,
-                     jitter, group)
+                     jitter, group, images)
 
 
 class BAPipeline(Pipeline):
@@ -120,8 +123,9 @@ class BAPipeline(Pipeline):
                 lod_weights: Optional[torch.Tensor] = None, stage: str = "val",
                 cam_idx: Optional[torch.Tensor] = None, jitter: Jitter = None,
                 tracer_cfg: Optional[TracerConfig] = None,
-                cam_idx_host: Optional[np.ndarray] = None, group=None) -> RenderBuffer:
+                cam_idx_host: Optional[np.ndarray] = None, group=None,
+                images: int = 1) -> RenderBuffer:
         if cam_idx is not None:
             rays = self.transform_rays(rays, cam_idx, cam_idx_host)
         return super().forward(rays, channels, occ, lod_weights, stage, jitter,
-                               tracer_cfg, group)
+                               tracer_cfg, group, images)

@@ -22,23 +22,34 @@ each block or chunk under ``torch.utils.checkpoint`` when gradients are on
 (the JAX package's ``jax.checkpoint``), so its activations are recomputed in
 the backward. ``ray_sparsity_reg`` adds the Cauchy sparsity of the
 densities, summed per ray and averaged over the real rays, in training.
+
+Under ray-axis data parallelism (``group``) a packed trace in ``ray_chunk``
+blocks keeps the one-process blocks: those of the microbatch's global ray
+order (each image's R rays in turn, padded at the end to whole blocks). A
+rank's rays fall in those blocks in runs (``shared_blocks``); it marches
+them once without a gradient for their count histograms, sums each block's
+over the ranks in one collective (``ops/packed.py::shared_caps``), and
+traces each of its runs under its block's cap, so it keeps the samples one
+process keeps. The global padding rays are the last rank's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, FrozenSet, Optional
+from typing import Callable, Dict, FrozenSet, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.rays import Rays
 from ..core.render_buffer import RenderBuffer
+from ..device import constant
 from ..ops.composite import (composite_channel_T, composite_scalar,
                              exponential_integration_weights)
 from ..ops.occupancy import OccupancyGrid
-from ..ops.packed import (pack_samples, packed_composite,
+from ..ops.packed import (_count_hist, pack_samples, packed_composite,
                           packed_integration_weights, segment_broadcast,
-                          segment_sum)
+                          segment_sum, shared_caps)
 from ..ops.raymarch import Jitter, compact_samples, raymarch
 
 RENDER_CHANNELS = frozenset({"depth", "alpha", "hit"})
@@ -98,9 +109,27 @@ def _chunked_nef_eval(nef_fn: NefFn, coordsT: torch.Tensor, ray_dT: torch.Tensor
     return {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
 
 
+def _pad_rays(rays: Rays, jitter: Jitter, pad: int):
+    """(origins, dirs, jitter) with ``pad`` padding rays appended (origin 0,
+    direction +z, midpoint rows in a jitter tensor of the rays' length)."""
+    n = rays.origins.shape[0]
+    o = torch.cat([rays.origins, rays.origins.new_zeros((pad, 3))])
+    plus_z = constant((0.0, 0.0, 1.0), rays.dirs.dtype, rays.dirs.device)
+    d = torch.cat([rays.dirs, plus_z.expand(pad, 3)])
+    if isinstance(jitter, torch.Tensor) and jitter.shape[0] == n:
+        jitter = torch.cat([jitter, jitter.new_full((pad, jitter.shape[1]), 0.5)])
+    return o, d, jitter
+
+
+def _real_rays(blocks: List[RenderBuffer], n: int) -> RenderBuffer:
+    rb = RenderBuffer.concatenate(blocks)
+    return RenderBuffer(**{f.name: None if getattr(rb, f.name) is None
+                           else getattr(rb, f.name)[:n] for f in dataclasses.fields(rb)})
+
+
 def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
           channels: FrozenSet[str], stage: str = "val",
-          jitter: Jitter = None, group=None) -> RenderBuffer:
+          jitter: Jitter = None, group=None, images: int = 1) -> RenderBuffer:
     """Trace rays [R] against the neural field; midpoint samples unless
     ``jitter`` (a [R, S] tensor or a generator) stratifies them.
 
@@ -109,18 +138,20 @@ def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
     padding rays) and traced block by block; a generator draws each block's
     [ray_chunk, S] uniforms in turn, and a jitter tensor has the padded rays'
     rows too, or midpoints stand there. Outputs keep the real rays.
-    ``group`` (a data-parallel ``RayGroup``) reaches the packed layout."""
+    ``group`` (a data-parallel ``RayGroup``) reaches the packed layout;
+    its rays are this rank's share of ``images`` images (module
+    docstring)."""
     n, blk = rays.origins.shape[0], cfg.ray_chunk
-    if blk <= 0 or n <= blk:
+    world = 1 if group is None else group.world
+    if world > 1 and cfg.pack_steps and 0 < blk < n * world:
+        rb = _trace_shared_blocks(nef_fn, rays, occ, cfg, channels, stage, jitter, group,
+                                  images)
+    elif blk <= 0 or n <= blk:
         rb = _trace_block(nef_fn, rays, occ, cfg, channels, stage, jitter, group)
     else:
-        pad = (-n) % blk
-        o = torch.cat([rays.origins, rays.origins.new_zeros((pad, 3))])
-        d = torch.cat([rays.dirs, rays.dirs.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)])
-        if isinstance(jitter, torch.Tensor) and jitter.shape[0] == n:
-            jitter = torch.cat([jitter, jitter.new_full((pad, jitter.shape[1]), 0.5)])
+        o, d, jitter = _pad_rays(rays, jitter, (-n) % blk)
         blocks = []
-        for i in range(0, n + pad, blk):
+        for i in range(0, o.shape[0], blk):
             jb = jitter[i:i + blk] if isinstance(jitter, torch.Tensor) else (
                 None if jitter is None else torch.rand(
                     (blk, cfg.num_steps), generator=jitter, device=o.device))
@@ -130,13 +161,77 @@ def trace(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid, cfg: TracerConfig,
                                                  dist_max=rays.dist_max),
                                     occ, cfg, channels, stage, jb, group)
             blocks.append(_checkpointed(block, o[i:i + blk], d[i:i + blk]))
-        rb = RenderBuffer.concatenate(blocks)
-        rb = RenderBuffer(**{f.name: None if getattr(rb, f.name) is None
-                             else getattr(rb, f.name)[:n]
-                             for f in dataclasses.fields(rb)})
+        rb = _real_rays(blocks, n)
     if rb.ray_sparsity_loss is not None:
         rb.ray_sparsity_loss = rb.ray_sparsity_loss.mean()
     return rb
+
+
+def shared_blocks(n: int, images: int, world: int, rank: int, blk: int
+                  ) -> Tuple[int, List[Tuple[int, int]]]:
+    """Where a rank's ``n`` rays (``images`` images of ``n / images`` rays,
+    rank ``rank``'s share of each) fall among the ``blk``-ray blocks of the
+    global ray order (image-major, ``world`` shares an image, padded at the
+    end to whole blocks): (the padding rays this rank appends -- all of
+    them on the last rank --, each global block's local range (start,
+    stop), in block order; an empty range where the block holds none of
+    this rank's rays). The local rays are in global order, so each block's
+    are one run."""
+    per = n // images
+    total = n * world
+    pad = (-total) % blk
+    g = (np.arange(images)[:, None] * (per * world) + rank * per
+         + np.arange(per)[None, :]).reshape(-1)
+    mine = pad if rank == world - 1 else 0
+    g = np.concatenate([g, total + np.arange(mine)])
+    bounds = np.searchsorted(g, np.arange((total + pad) // blk + 1) * blk)
+    return mine, [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def _trace_shared_blocks(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
+                         cfg: TracerConfig, channels: FrozenSet[str], stage: str,
+                         jitter: Jitter, group, images: int) -> RenderBuffer:
+    """A packed trace of this rank's rays in the global ``ray_chunk``
+    blocks (module docstring): the counts march, one collective for every
+    block's cap, then each of the rank's runs traced under checkpoint as a
+    block of its own, with its block's cap and a buffer of
+    ``group.share_buffer`` of its rays."""
+    if jitter is not None and not isinstance(jitter, torch.Tensor):
+        raise ValueError("a data-parallel trace takes the global jitter's rows, "
+                         "not a generator")
+    n, blk, steps = rays.origins.shape[0], cfg.ray_chunk, cfg.num_steps
+    pad, runs = shared_blocks(n, images, group.world, group.rank, blk)
+    o, d, jitter = _pad_rays(rays, jitter, pad)
+
+    def block_rays(a, b):
+        return Rays(origins=o[a:b], dirs=d[a:b], dist_min=rays.dist_min,
+                    dist_max=rays.dist_max)
+
+    with torch.no_grad():
+        hists = []
+        for a, b in runs:
+            counts = torch.zeros((0,), dtype=torch.int32, device=o.device)
+            if b > a:
+                rm = raymarch(block_rays(a, b), occ, steps, cfg.raymarch_type,
+                              None if jitter is None else jitter[a:b], cfg.ray_max_travel)
+                counts = torch.sum(rm.mask, dim=-1, dtype=torch.int32)
+            hists.append(_count_hist(counts, steps))
+    budget = cfg.pack_steps * blk
+    fair = [cfg.pack_steps * max(b - a, 1) for a, b in runs]
+    buffers = [group.share_buffer(f, limit=budget) for f in fair]
+    caps = shared_caps(torch.stack(hists), budget, buffers, fair, group)
+    blocks = []
+    for k, (a, b) in enumerate(runs):
+        if b == a:
+            continue
+        jb = None if jitter is None else jitter[a:b]
+
+        def block(ob, db, jb=jb, pack=(caps[k], buffers[k])):
+            return _trace_block(nef_fn, Rays(origins=ob, dirs=db, dist_min=rays.dist_min,
+                                             dist_max=rays.dist_max),
+                                occ, cfg, channels, stage, jb, group, pack)
+        blocks.append(_checkpointed(block, o[a:b], d[a:b]))
+    return _real_rays(blocks, n)
 
 
 def _sample_channels(cfg: TracerConfig, channels: FrozenSet[str]) -> FrozenSet[str]:
@@ -150,9 +245,10 @@ def _sample_channels(cfg: TracerConfig, channels: FrozenSet[str]) -> FrozenSet[s
 
 def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
                  cfg: TracerConfig, channels: FrozenSet[str], stage: str = "val",
-                 jitter: Jitter = None, group=None) -> RenderBuffer:
+                 jitter: Jitter = None, group=None, pack=None) -> RenderBuffer:
     if cfg.pack_steps:
-        return _trace_block_packed(nef_fn, rays, occ, cfg, channels, stage, jitter, group)
+        return _trace_block_packed(nef_fn, rays, occ, cfg, channels, stage, jitter, group,
+                                   pack)
     rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type, jitter,
                   cfg.ray_max_travel)
     if cfg.compact_steps:
@@ -210,15 +306,16 @@ def _trace_block(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
 def _trace_block_packed(nef_fn: NefFn, rays: Rays, occ: OccupancyGrid,
                         cfg: TracerConfig, channels: FrozenSet[str],
                         stage: str = "val", jitter: Jitter = None,
-                        group=None) -> RenderBuffer:
+                        group=None, pack=None) -> RenderBuffer:
     """``_trace_block``'s contracts (channels, stop-gradients, background)
     over one cross-ray [3, B] buffer of the march's valid samples, B =
-    ``pack_steps`` x rays (``ops/packed.py``)."""
+    ``pack_steps`` x rays (``ops/packed.py``), or ``pack``'s (cap, buffer)
+    where the cap was decided over the ranks."""
     num_rays = rays.origins.shape[0]
     rm = raymarch(rays, occ, cfg.num_steps, cfg.raymarch_type, jitter,
                   cfg.ray_max_travel)
-    ps = pack_samples(rm, rays.origins.T, rays.dirs.T, budget=cfg.pack_steps * num_rays,
-                      group=group)
+    cap, budget = (None, cfg.pack_steps * num_rays) if pack is None else pack
+    ps = pack_samples(rm, rays.origins.T, rays.dirs.T, budget=budget, group=group, cap=cap)
     ray_dT = segment_broadcast(rays.dirs.T, ps.ray_id, ps.offsets)   # [3, B]
 
     feats = _chunked_nef_eval(nef_fn, ps.positionsT, ray_dT,

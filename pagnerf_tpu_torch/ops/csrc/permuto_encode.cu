@@ -11,7 +11,9 @@
 // at one shared lattice). Tables are [L, C, F] with F in {1, 2, 4} and C a
 // power of two, outputs [L, F, N]; tables and outputs share one dtype, float32
 // or bfloat16 (the weights are then rounded to bfloat16 before the products,
-// as the plain encode's ``bary.to(compute_dtype)`` does). Products and sums
+// as the plain encode's ``bary.to(compute_dtype)`` does); or (the bf16 table
+// read, PAGNERF_BF16_GATHER=1) the rows are a bfloat16 copy of float32
+// tables while the weights and outputs stay float32. Products and sums
 // run in float32 registers and round once at the store. When the caller
 // passes their pointers, the kernel also writes the lattice for the
 // backward: idx [L, 4, N] int32, bary [L, 4, N] float32 and the rank [L, N],
@@ -301,12 +303,13 @@ __device__ __forceinline__ void block_work(int levels, int& l, int64_t& s0) {
 
 // One thread per (level, sample), the blocks as ``block_work`` assigns them.
 // NT = 1: table_a alone. NT = 2: table_a and table_b, or with PACKED the
-// packed [L, C, 2F] rows (a's F entries, then b's) at table_a.
-template <typename T, int F, int NT, bool PACKED>
+// packed [L, C, 2F] rows (a's F entries, then b's) at table_a. T: the rows'
+// element type; O: the outputs' (and the weights' rounding).
+template <typename T, typename O, int F, int NT, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
     permuto_encode_kernel(const __grid_constant__ Levels p, const float* __restrict__ x,
                           const T* __restrict__ table_a, const T* __restrict__ table_b,
-                          T* __restrict__ out_a, T* __restrict__ out_b,
+                          O* __restrict__ out_a, O* __restrict__ out_b,
                           int32_t* __restrict__ idx_out, float* __restrict__ bary_out,
                           uint8_t* __restrict__ rank_out, int64_t capacity, int64_t n) {
   static_assert(!PACKED || NT == 2, "only the dual kernel reads packed rows");
@@ -346,7 +349,7 @@ __global__ void __launch_bounds__(kThreads)
 #else
     const int64_t row = level_off + idx[v];
 #endif
-    const float w = Elem<T>::weight(bary[v]);
+    const float w = Elem<O>::weight(bary[v]);
     if constexpr (PACKED) {
       float feat[2 * F];
       load_row<T, 2 * F>(table_a + row * 2 * F, feat);
@@ -368,13 +371,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* o = out_a + static_cast<int64_t>(l) * F * n + s;
+  O* o = out_a + static_cast<int64_t>(l) * F * n + s;
 #pragma unroll
-  for (int f = 0; f < F; ++f) o[f * n] = Elem<T>::from_float(acc[0][f]);
+  for (int f = 0; f < F; ++f) o[f * n] = Elem<O>::from_float(acc[0][f]);
   if constexpr (NT == 2) {
     o = out_b + static_cast<int64_t>(l) * F * n + s;
 #pragma unroll
-    for (int f = 0; f < F; ++f) o[f * n] = Elem<T>::from_float(acc[1][f]);
+    for (int f = 0; f < F; ++f) o[f * n] = Elem<O>::from_float(acc[1][f]);
   }
   if (idx_out != nullptr) {
     const int64_t off = static_cast<int64_t>(l) * kVerts * n + s;
@@ -389,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // layout: 1 = single table, 2 = dual (one load from each table), 3 = dual
 // from packed rows.
-template <typename T, int F>
+template <typename T, typename O, int F>
 cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* tb, void* oa,
                    void* ob, int32_t* idx, float* bary, uint8_t* rank, int64_t levels,
                    int64_t capacity, int64_t n, int64_t layout, cudaStream_t stream) {
@@ -397,19 +400,19 @@ cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* 
                   static_cast<unsigned>((levels + kGroup - 1) / kGroup));
   const auto* a = static_cast<const T*>(ta);
   const auto* b = static_cast<const T*>(tb);
-  auto* out_a = static_cast<T*>(oa);
-  auto* out_b = static_cast<T*>(ob);
+  auto* out_a = static_cast<O*>(oa);
+  auto* out_b = static_cast<O*>(ob);
   switch (layout) {
     case 1:
-      permuto_encode_kernel<T, F, 1, false><<<grid, kThreads, 0, stream>>>(
+      permuto_encode_kernel<T, O, F, 1, false><<<grid, kThreads, 0, stream>>>(
           p, x, a, nullptr, out_a, nullptr, idx, bary, rank, capacity, n);
       break;
     case 2:
-      permuto_encode_kernel<T, F, 2, false><<<grid, kThreads, 0, stream>>>(
+      permuto_encode_kernel<T, O, F, 2, false><<<grid, kThreads, 0, stream>>>(
           p, x, a, b, out_a, out_b, idx, bary, rank, capacity, n);
       break;
     case 3:
-      permuto_encode_kernel<T, F, 2, true><<<grid, kThreads, 0, stream>>>(
+      permuto_encode_kernel<T, O, F, 2, true><<<grid, kThreads, 0, stream>>>(
           p, x, a, nullptr, out_a, out_b, idx, bary, rank, capacity, n);
       break;
     default:
@@ -418,21 +421,21 @@ cudaError_t launch(const Levels& p, const float* x, const void* ta, const void* 
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t dispatch_feat(const Levels& p, const float* x, const void* ta, const void* tb,
                           void* oa, void* ob, int32_t* idx, float* bary, uint8_t* rank,
                           int64_t levels, int64_t capacity, int64_t n, int64_t feat,
                           int64_t layout, cudaStream_t stream) {
   switch (feat) {
     case 1:
-      return launch<T, 1>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n, layout,
-                          stream);
+      return launch<T, O, 1>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n,
+                             layout, stream);
     case 2:
-      return launch<T, 2>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n, layout,
-                          stream);
+      return launch<T, O, 2>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n,
+                             layout, stream);
     case 4:
-      return launch<T, 4>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n, layout,
-                          stream);
+      return launch<T, O, 4>(p, x, ta, tb, oa, ob, idx, bary, rank, levels, capacity, n,
+                             layout, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -445,7 +448,9 @@ bool aligned(const void* ptr, int64_t bytes) {
 }  // namespace
 
 // x [3, N] float32; tables [L, C, F] (packed: one [L, C, 2F] stack at
-// table_a); outputs [L, F, N]; dtype 0 = float32, 1 = bfloat16. idx, bary and
+// table_a); outputs [L, F, N]; dtype 0 = float32, 1 = bfloat16 (tables and
+// outputs alike), 2 = bfloat16 rows with float32 weights and outputs (the
+// bf16 table read). idx, bary and
 // rank are all null or idx and bary [L, 4, N] (int32, float32) and rank
 // [L, N] (uint8). elev is E [4, 3] in
 // float32, row-major; inv_scale, mm, dm and direct hold one entry per level.
@@ -463,7 +468,7 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
       (n + kThreads - 1) / kThreads * kGroup > 2147483647LL ||
       (idx == nullptr) != (bary == nullptr) ||
       (idx == nullptr) != (rank == nullptr) ||
-      (dtype != 0 && dtype != 1) || layout < 1 || layout > 3)
+      dtype < 0 || dtype > 2 || layout < 1 || layout > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t elem = dtype == 0 ? 4 : 2;
   const int64_t row = (layout == 3 ? 2 : 1) * feat * elem;
@@ -491,11 +496,15 @@ extern "C" int pagnerf_permuto_encode(const void* x, const void* table_a, const 
   auto* rk = static_cast<uint8_t*>(rank);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_feat<float>(p, xf, table_a, table_b, out_a, out_b, i32, bf, rk, levels,
-                               capacity, n, feat, layout, s);
+    err = dispatch_feat<float, float>(p, xf, table_a, table_b, out_a, out_b, i32, bf, rk,
+                                      levels, capacity, n, feat, layout, s);
+  else if (dtype == 1)
+    err = dispatch_feat<__nv_bfloat16, __nv_bfloat16>(p, xf, table_a, table_b, out_a, out_b,
+                                                      i32, bf, rk, levels, capacity, n, feat,
+                                                      layout, s);
   else
-    err = dispatch_feat<__nv_bfloat16>(p, xf, table_a, table_b, out_a, out_b, i32, bf, rk,
-                                       levels, capacity, n, feat, layout, s);
+    err = dispatch_feat<__nv_bfloat16, float>(p, xf, table_a, table_b, out_a, out_b, i32, bf,
+                                              rk, levels, capacity, n, feat, layout, s);
   return static_cast<int>(err);
 }
 

@@ -8,7 +8,9 @@
 // row c followed by table b's (ops/table_pack.py packed_tables). idx and
 // bary are [L, V, N], outputs [L, F, N]; V is 4 (the permutohedral
 // lattice's simplex vertices) or 8 (the hash grid's voxel corners). Tables,
-// bary and outputs share one dtype, float32 or bfloat16. Products and sums
+// bary and outputs share one dtype, float32 or bfloat16; or (the bf16
+// table read, PAGNERF_BF16_GATHER=1) the tables' rows are a bfloat16 copy
+// of float32 tables while bary and outputs stay float32. Products and sums
 // run in float32 registers, in vertex order (one fmaf a vertex and
 // feature), and round once at the store, so the dual outputs are bit-equal
 // to two single gathers.
@@ -128,16 +130,17 @@ __device__ __forceinline__ void load_row(const T* __restrict__ row, float (&out)
 
 // grid = (ceil(N / kThreads), L); one thread per (level, sample). NT = 1:
 // tables [L, C, F]; NT = 2: the packed [L, C, 2F] rows, one load a vertex.
-template <typename T, int F, int NT, int V>
+// T: the rows' element type; W: bary's and the outputs'.
+template <typename T, typename W, int F, int NT, int V>
 __global__ void __launch_bounds__(kThreads)
     permuto_gather_kernel(const T* __restrict__ tables, const int32_t* __restrict__ idx,
-                          const T* __restrict__ bary, T* __restrict__ out_a,
-                          T* __restrict__ out_b, int64_t capacity, int64_t n) {
+                          const W* __restrict__ bary, W* __restrict__ out_a,
+                          W* __restrict__ out_b, int64_t capacity, int64_t n) {
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (s >= n) return;
   const int64_t l = blockIdx.y;
   const int32_t* idx_l = idx + l * V * n + s;
-  const T* bary_l = bary + l * V * n + s;
+  const W* bary_l = bary + l * V * n + s;
   const int64_t level_off = l * capacity;
 
   float acc[NT][F];
@@ -149,7 +152,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int64_t row = level_off + __ldg(idx_l + v * n);
-    const float w = Elem<T>::load(bary_l + v * n);
+    const float w = Elem<W>::load(bary_l + v * n);
     float feat[NT * F];
     load_row<T, NT * F>(tables + row * (NT * F), feat);
 #pragma unroll
@@ -158,17 +161,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int f = 0; f < F; ++f) acc[t][f] = fmaf(w, feat[t * F + f], acc[t][f]);
   }
 
-  T* out_l = out_a + l * F * n + s;
+  W* out_l = out_a + l * F * n + s;
 #pragma unroll
-  for (int f = 0; f < F; ++f) out_l[f * n] = Elem<T>::from_float(acc[0][f]);
+  for (int f = 0; f < F; ++f) out_l[f * n] = Elem<W>::from_float(acc[0][f]);
   if constexpr (NT == 2) {
     out_l = out_b + l * F * n + s;
 #pragma unroll
-    for (int f = 0; f < F; ++f) out_l[f * n] = Elem<T>::from_float(acc[1][f]);
+    for (int f = 0; f < F; ++f) out_l[f * n] = Elem<W>::from_float(acc[1][f]);
   }
 }
 
-template <typename T, int F, int V>
+template <typename T, typename W, int F, int V>
 cudaError_t launch(const void* tables, const void* idx, const void* bary, void* oa, void* ob,
                    int64_t levels, int64_t capacity, int64_t n, int64_t num_tables,
                    cudaStream_t stream) {
@@ -176,49 +179,54 @@ cudaError_t launch(const void* tables, const void* idx, const void* bary, void* 
                   static_cast<unsigned>(levels));
   const auto* t = static_cast<const T*>(tables);
   const auto* i = static_cast<const int32_t*>(idx);
-  const auto* w = static_cast<const T*>(bary);
+  const auto* w = static_cast<const W*>(bary);
   if (num_tables == 2) {
-    permuto_gather_kernel<T, F, 2, V><<<grid, kThreads, 0, stream>>>(
-        t, i, w, static_cast<T*>(oa), static_cast<T*>(ob), capacity, n);
+    permuto_gather_kernel<T, W, F, 2, V><<<grid, kThreads, 0, stream>>>(
+        t, i, w, static_cast<W*>(oa), static_cast<W*>(ob), capacity, n);
   } else {
-    permuto_gather_kernel<T, F, 1, V><<<grid, kThreads, 0, stream>>>(
-        t, i, w, static_cast<T*>(oa), nullptr, capacity, n);
+    permuto_gather_kernel<T, W, F, 1, V><<<grid, kThreads, 0, stream>>>(
+        t, i, w, static_cast<W*>(oa), nullptr, capacity, n);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int V>
+template <typename T, typename W, int V>
 cudaError_t dispatch_feat(const void* tables, const void* idx, const void* bary, void* oa,
                           void* ob, int64_t levels, int64_t capacity, int64_t n, int64_t feat,
                           int64_t num_tables, cudaStream_t stream) {
   switch (feat) {
     case 1:
-      return launch<T, 1, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
+      return launch<T, W, 1, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables,
+                                stream);
     case 2:
-      return launch<T, 2, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
+      return launch<T, W, 2, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables,
+                                stream);
     case 4:
-      return launch<T, 4, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables, stream);
+      return launch<T, W, 4, V>(tables, idx, bary, oa, ob, levels, capacity, n, num_tables,
+                                stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t dispatch_verts(const void* tables, const void* idx, const void* bary, void* oa,
                            void* ob, int64_t levels, int64_t capacity, int64_t n, int64_t feat,
                            int64_t num_tables, int64_t verts, cudaStream_t stream) {
   if (verts == 4)
-    return dispatch_feat<T, 4>(tables, idx, bary, oa, ob, levels, capacity, n, feat,
-                               num_tables, stream);
+    return dispatch_feat<T, W, 4>(tables, idx, bary, oa, ob, levels, capacity, n, feat,
+                                  num_tables, stream);
   if (verts == 8)
-    return dispatch_feat<T, 8>(tables, idx, bary, oa, ob, levels, capacity, n, feat,
-                               num_tables, stream);
+    return dispatch_feat<T, W, 8>(tables, idx, bary, oa, ob, levels, capacity, n, feat,
+                                  num_tables, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. num_tables: 1 (tables [L, C, F], out_b
+// dtype: 0 = float32, 1 = bfloat16 (tables, bary and outputs alike), 2 =
+// bfloat16 table rows with float32 bary and outputs (the bf16 table read).
+// num_tables: 1 (tables [L, C, F], out_b
 // unused) or 2 (tables the packed [L, C, 2F] rows of both; out_a and out_b
 // [L, F, N] each). verts: 4 or 8, the V of idx and bary. Returns the
 // launch's cudaError_t (0 on success); nothing is launched for an argument
@@ -234,11 +242,14 @@ extern "C" int pagnerf_permuto_gather(const void* tables, const void* idx, const
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_verts<float>(tables, idx, bary, out_a, out_b, levels, capacity, n, feat,
-                                num_tables, verts, s);
+    err = dispatch_verts<float, float>(tables, idx, bary, out_a, out_b, levels, capacity, n,
+                                       feat, num_tables, verts, s);
   else if (dtype == 1)
-    err = dispatch_verts<__nv_bfloat16>(tables, idx, bary, out_a, out_b, levels, capacity, n,
-                                        feat, num_tables, verts, s);
+    err = dispatch_verts<__nv_bfloat16, __nv_bfloat16>(tables, idx, bary, out_a, out_b, levels,
+                                                       capacity, n, feat, num_tables, verts, s);
+  else if (dtype == 2)
+    err = dispatch_verts<__nv_bfloat16, float>(tables, idx, bary, out_a, out_b, levels,
+                                               capacity, n, feat, num_tables, verts, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

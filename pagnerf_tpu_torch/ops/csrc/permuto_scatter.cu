@@ -10,7 +10,9 @@
 // share one event stream). idx and bary are [L, V, N] with V = 4 (the
 // permutohedral lattice's simplex vertices) or 8 (the hash grid's voxel
 // corners), g [L, F, N], tables and table gradients [L, C, F]; inputs and
-// outputs are float32 (the wrapper widens bfloat16 operands first). The
+// outputs are float32 (the wrapper widens bfloat16 operands first), but for
+// dbary's table, which may be the bf16 table read's bfloat16 rows
+// (PAGNERF_BF16_GATHER=1: dbary from the rows the forward read). The
 // TPU kernels read V from their index blocks' shapes; here it is a template
 // argument, so a sample's V events stay unrolled in registers.
 //
@@ -97,6 +99,7 @@
 // device pointers, a device scratch buffer and the CUDA stream, and reads
 // back a cudaError_t.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -145,6 +148,28 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, float (&
     out[1] = v.y;
     out[2] = v.z;
     out[3] = v.w;
+  }
+}
+
+// One aligned vector load of F bfloat16 entries, widened exactly (bf16 is
+// the top half of a float32; entry 0 is the low half of a word).
+template <int F>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ row,
+                                         float (&out)[F]) {
+  if constexpr (F == 1) {
+    out[0] = __uint_as_float(static_cast<uint32_t>(
+                                 __ldg(reinterpret_cast<const unsigned short*>(row)))
+                             << 16);
+  } else if constexpr (F == 2) {
+    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(row));
+    out[0] = __uint_as_float(v << 16);
+    out[1] = __uint_as_float(v & 0xffff0000u);
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(row));
+    out[0] = __uint_as_float(v.x << 16);
+    out[1] = __uint_as_float(v.x & 0xffff0000u);
+    out[2] = __uint_as_float(v.y << 16);
+    out[3] = __uint_as_float(v.y & 0xffff0000u);
   }
 }
 
@@ -814,10 +839,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------------- dbary
-// grid = (ceil(N / kThreads), L); one thread per (level, sample).
-template <int F, int V>
+// grid = (ceil(N / kThreads), L); one thread per (level, sample). T: the
+// table rows' element type (float, or the bf16 read's __nv_bfloat16).
+template <typename T, int F, int V>
 __global__ void __launch_bounds__(kThreads)
-    dbary_kernel(const float* __restrict__ table, const int32_t* __restrict__ idx,
+    dbary_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
                  const float* __restrict__ g, float* __restrict__ dbary, int64_t capacity,
                  int64_t n) {
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -826,7 +852,7 @@ __global__ void __launch_bounds__(kThreads)
   float gs[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) gs[f] = __ldg(g + (l * F + f) * n + s);
-  const float* table_l = table + l * capacity * F;
+  const T* table_l = table + l * capacity * F;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int64_t e = (l * V + v) * n + s;
@@ -1138,28 +1164,38 @@ cudaError_t launch_grad_feat(const int32_t* idx, const float* bary, const float*
   }
 }
 
-template <int F, int V>
-cudaError_t launch_dbary(const float* table, const int32_t* idx, const float* g, float* out,
+template <typename T, int F, int V>
+cudaError_t launch_dbary(const void* table, const int32_t* idx, const float* g, float* out,
                          int64_t levels, int64_t capacity, int64_t n, cudaStream_t stream) {
-  dbary_kernel<F, V><<<grid_of(levels, n), kThreads, 0, stream>>>(table, idx, g, out, capacity,
-                                                                  n);
+  dbary_kernel<T, F, V><<<grid_of(levels, n), kThreads, 0, stream>>>(
+      static_cast<const T*>(table), idx, g, out, capacity, n);
   return cudaGetLastError();
 }
 
-template <int V>
-cudaError_t launch_dbary_feat(const float* table, const int32_t* idx, const float* g,
+template <typename T, int V>
+cudaError_t launch_dbary_feat(const void* table, const int32_t* idx, const float* g,
                               float* out, int64_t levels, int64_t capacity, int64_t n,
                               int64_t feat, cudaStream_t stream) {
   switch (feat) {
     case 1:
-      return launch_dbary<1, V>(table, idx, g, out, levels, capacity, n, stream);
+      return launch_dbary<T, 1, V>(table, idx, g, out, levels, capacity, n, stream);
     case 2:
-      return launch_dbary<2, V>(table, idx, g, out, levels, capacity, n, stream);
+      return launch_dbary<T, 2, V>(table, idx, g, out, levels, capacity, n, stream);
     case 4:
-      return launch_dbary<4, V>(table, idx, g, out, levels, capacity, n, stream);
+      return launch_dbary<T, 4, V>(table, idx, g, out, levels, capacity, n, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t launch_dbary_verts(const void* table, const int32_t* idx, const float* g,
+                               float* out, int64_t levels, int64_t capacity, int64_t n,
+                               int64_t feat, int64_t verts, cudaStream_t stream) {
+  return verts == 8 ? launch_dbary_feat<T, 8>(table, idx, g, out, levels, capacity, n, feat,
+                                              stream)
+                    : launch_dbary_feat<T, 4>(table, idx, g, out, levels, capacity, n, feat,
+                                              stream);
 }
 
 bool bad_verts(int64_t verts) { return verts != 4 && verts != 8; }
@@ -1215,21 +1251,23 @@ extern "C" int pagnerf_table_grad(const void* idx, const void* bary, const void*
   return static_cast<int>(err);
 }
 
-// Weight gradient dbary [L, V, N] of one table, V = verts (4 or 8). Returns
-// the launch's cudaError_t (0 on success).
+// Weight gradient dbary [L, V, N] of one table, V = verts (4 or 8); the
+// table's rows float32 (dtype 0) or bfloat16 (dtype 1: the bf16 table
+// read's copy). Returns the launch's cudaError_t (0 on success).
 extern "C" int pagnerf_gather_dbary(const void* table, const void* idx, const void* g,
                                     void* dbary, int64_t levels, int64_t capacity, int64_t n,
-                                    int64_t feat, int64_t verts, void* stream) {
-  if (bad_shape(levels, capacity, n) || bad_verts(verts))
+                                    int64_t feat, int64_t verts, int64_t dtype, void* stream) {
+  if (bad_shape(levels, capacity, n) || bad_verts(verts) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* t = static_cast<const float*>(table);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* gg = static_cast<const float*>(g);
   auto* out = static_cast<float*>(dbary);
   const auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      verts == 8 ? launch_dbary_feat<8>(t, i, gg, out, levels, capacity, n, feat, s)
-                 : launch_dbary_feat<4>(t, i, gg, out, levels, capacity, n, feat, s);
+      dtype == 0
+          ? launch_dbary_verts<float>(table, i, gg, out, levels, capacity, n, feat, verts, s)
+          : launch_dbary_verts<__nv_bfloat16>(table, i, gg, out, levels, capacity, n, feat,
+                                              verts, s);
   return static_cast<int>(err);
 }
 

@@ -21,6 +21,10 @@ corners are in zyx bit order: corner ``b`` is ``(b >> 2 & 1, b >> 1 & 1, b &
 Gradients: the tables' through the gather's scatter; the coordinates'
 through the weights (``floor`` carries none) and dbary. The dual encode's B
 side reads detached weights, so it carries no coordinate gradient.
+
+Under ``PAGNERF_BF16_GATHER=1`` the gathers read float32 tables as rows
+rounded to bfloat16 and dbary reads the same rows (``ops/table_gather.py``);
+weights, features and table gradients stay float32.
 """
 from __future__ import annotations
 

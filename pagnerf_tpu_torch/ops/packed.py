@@ -23,7 +23,10 @@ samples the single-process step keeps. A rank's buffer is
 ``RayGroup.share_buffer(B)``: its share of the kept samples may exceed
 B / n. Should it exceed the buffer, the rank's rays are cut further by a
 local water-fill over the buffer, and the group's ``pack_overflows`` counts
-it on the device.
+it on the device. A trace in ``ray_chunk`` blocks water-fills each block of
+the global ray order on its own (``models/tracer.py``): ``shared_caps``
+sums the blocks' histograms over the ranks in one collective and gives each
+block's cap, which ``pack_samples`` then takes as ``cap``.
 
 The buffer's shape is static: nothing here reads a count back to the host.
 The pack permutation is built by the JAX package's scatter construction (one
@@ -182,9 +185,11 @@ def _count_hist(counts: torch.Tensor, num_steps: int) -> torch.Tensor:
     return torch.sum(counts[None, :] >= levels[:, None], dim=1)
 
 
-def _cap_from_hist(hist: torch.Tensor, budget: int) -> torch.Tensor:
-    """Largest cap k >= 0 with totals[k-1] = sum(min(counts, k)) <= budget."""
-    return torch.sum(torch.cumsum(hist, dim=0) <= budget)
+def _cap_from_hist(hist: torch.Tensor, budget) -> torch.Tensor:
+    """Largest cap k >= 0 with totals[k-1] = sum(min(counts, k)) <= budget,
+    over the last axis of ``hist`` (a budget tensor broadcasts against the
+    histograms' cumsum)."""
+    return torch.sum(torch.cumsum(hist, dim=-1) <= budget, dim=-1)
 
 
 def _water_fill_cap(counts: torch.Tensor, num_steps: int, budget: int) -> torch.Tensor:
@@ -193,27 +198,32 @@ def _water_fill_cap(counts: torch.Tensor, num_steps: int, budget: int) -> torch.
     return _cap_from_hist(_count_hist(counts, num_steps), budget).to(counts.dtype)
 
 
-def _shared_cap(counts: torch.Tensor, num_steps: int, budget: int, group
-                ) -> Tuple[torch.Tensor, int]:
-    """(cap, buffer size) of one rank's rays in ``group``: the cap of the
-    global histogram against the global budget ``budget x world``, lowered
-    to the local water-fill's over the rank's buffer where that is less
-    (counted in ``group.pack_overflows``)."""
+def shared_caps(local: torch.Tensor, budget: int, buffers, fair, group) -> torch.Tensor:
+    """Caps [K] of K blocks of one rank's rays in ``group``, from their
+    count histograms [K, S] (``_count_hist``): each block's global
+    histogram (summed over the ranks, one collective for all K) water-fills
+    against ``budget``, the block's budget in one process, and the cap is
+    lowered to the local water-fill's over the rank's buffer of that block,
+    ``buffers[k]``, where that is less (counted in
+    ``group.pack_overflows``). ``group.pack_share_max`` keeps the largest
+    ratio of the samples a block kept of the rank's rays to ``fair[k]``,
+    what one process's per-ray budget gives those rays."""
+    from ..device import constant
     from ..parallel import sharding
-    buffer = group.share_buffer(budget)
-    local = _count_hist(counts, num_steps)
     glob = sharding.all_reduce(local.clone(), group, "pack_hist")
-    cap_g = _cap_from_hist(glob, budget * group.world)
-    cap_l = _cap_from_hist(local, buffer)
-    group.pack_overflows.add_((cap_l < cap_g).to(torch.int64))
-    # the rank's share of the kept samples over B / n, the largest seen
-    share = torch.minimum(counts, cap_g.to(counts.dtype)).sum() / float(budget)
+    cap_g = _cap_from_hist(glob, budget)                                     # [K]
+    cap_l = _cap_from_hist(local, constant(list(buffers), local.dtype, local.device)[:, None])
+    totals = torch.cumsum(local, dim=1)
+    group.pack_overflows.add_(torch.sum(cap_l < cap_g).to(torch.int64))
+    kept = torch.where(cap_g > 0, totals.gather(1, (cap_g - 1).clamp(min=0)[:, None])[:, 0],
+                       0)
+    share = torch.max(kept / constant(list(fair), torch.float32, totals.device))
     torch.maximum(group.pack_share_max, share, out=group.pack_share_max)
-    return torch.minimum(cap_g, cap_l).to(counts.dtype), buffer
+    return torch.minimum(cap_g, cap_l)
 
 
 def pack_samples(rm: RaymarchResult, rays_oT: torch.Tensor, rays_dT: torch.Tensor,
-                 budget: int, group=None) -> PackedSamples:
+                 budget: int, group=None, cap=None) -> PackedSamples:
     """Pack a dense march [R, S] into a static [B = budget] buffer.
 
     rays_oT / rays_dT: [3, R] ray origins and directions. Depths and
@@ -223,16 +233,22 @@ def pack_samples(rm: RaymarchResult, rays_oT: torch.Tensor, rays_dT: torch.Tenso
     on the pose: pose gradients reach t0, span and the rays through
     ``segment_broadcast``'s backward, with no dense [R, S] scatter. Under a
     data-parallel ``group`` (a ``RayGroup``) the buffer is the rank's share
-    (module docstring)."""
+    (module docstring). ``cap``: the per-ray cap, decided already
+    (``shared_caps``); ``budget`` is then the buffer's size."""
     r, s = rm.mask.shape
     if rm.t0 is None or rm.span is None:
         raise ValueError("pack_samples needs a RaymarchResult with t0 and span")
     dev = rm.mask.device
     counts = torch.sum(rm.mask, dim=-1, dtype=torch.int32)        # [R]
-    if group is None or group.world == 1:
+    if cap is not None:
+        cap = cap.to(counts.dtype)
+    elif group is None or group.world == 1:
         cap = _water_fill_cap(counts, s, budget)
     else:
-        cap, budget = _shared_cap(counts, s, budget, group)
+        buffer = group.share_buffer(budget)
+        cap = shared_caps(_count_hist(counts, s)[None], budget * group.world, [buffer],
+                          [budget], group)[0].to(counts.dtype)
+        budget = buffer
     keep = torch.minimum(counts, cap)
     offsets = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
                          torch.cumsum(keep, dim=0, dtype=torch.int32)])

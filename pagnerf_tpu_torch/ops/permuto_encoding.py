@@ -26,6 +26,14 @@ the rank alike: autograd through the rank masks would keep
 ``[L, 5, V, N]``-sized multiply partners alive, gigabytes at a training
 microbatch's N.
 
+Under ``PAGNERF_BF16_GATHER=1`` (``table_gather.bf16_gather``, read at each
+encode) float32 tables are read as rows rounded to bfloat16: the kernel
+takes a bfloat16 copy of the rows (the dual encode's packed copy made in
+bfloat16, ``table_pack``) and float32 weights and writes float32 features;
+the backward's dbary reads the same rounded rows, and the table gradients
+stay float32. ``compute_dtype=bfloat16`` is another function: its weights
+and features are bfloat16 too.
+
 Layout: sample tensors are feature-major, coordinates ``[3, N]``, indices and
 weights ``[L, V=4, N]``, features ``[L*F, N]`` -- the JAX package's layout, so
 tests compare like with like.
@@ -41,7 +49,7 @@ import torch
 
 from ..device import constant
 from . import table_gather
-from .table_pack import packed_tables
+from .table_pack import packed_tables, rows_as
 
 _D = 3            # input dimensionality
 _VERTS = _D + 1   # simplex vertices
@@ -402,12 +410,14 @@ def encode_level_order(levels: int):
 
 
 def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
-                   st: LevelStatics, with_lattice: bool, packed: bool, kernel=None):
+                   st: LevelStatics, with_lattice: bool, packed: bool, kernel=None,
+                   bf16_rows: bool = False):
     """One launch of the encode kernel -> (outs, idx, bary, rank); idx, bary
     and the packed rank [L, N] uint8 (``pack_rank``) are written only
     ``with_lattice``, else None. ``kernel``: another build of the C entry
     ``pagnerf_permuto_encode`` with the same interface (``profile_encode
-    --parent``)."""
+    --parent``). ``bf16_rows``: float32 tables read as bfloat16 rows (a kept
+    copy), float32 outputs."""
     l, c, f = tables[0].shape
     n = x.shape[1]
     dev = x.device
@@ -420,12 +430,13 @@ def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
         rank = torch.empty((l, n), dtype=torch.uint8, device=dev)
     if n == 0:
         return outs, idx, bary, rank
+    rows = torch.bfloat16 if bf16_rows else tables[0].dtype
     if len(tables) == 1:
-        layout, src = _LAYOUT_SINGLE, tables
+        layout, src = _LAYOUT_SINGLE, ((rows_as(tables[0], rows),) if bf16_rows else tables)
     elif packed:
-        layout, src = _LAYOUT_PACKED, (packed_tables(*tables),)
+        layout, src = _LAYOUT_PACKED, (packed_tables(*tables, rows),)
     else:
-        layout, src = _LAYOUT_DUAL, tables
+        layout, src = _LAYOUT_DUAL, tuple(t.to(rows) for t in tables)
     as_c = lambda a, t: (t * len(a))(*a)
     elev = np.asarray(_E, dtype=np.float32).reshape(-1)
     fn = kernel or _encode_kernel()
@@ -436,7 +447,7 @@ def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
                  as_c(elev, ctypes.c_float), as_c(st.inv_scales, ctypes.c_float),
                  as_c(st.mm, ctypes.c_int32), as_c(st.dm, ctypes.c_int32),
                  as_c(st.direct.astype(np.int32), ctypes.c_int32),
-                 l, c, n, f, layout, table_gather._DTYPE_CODE[tables[0].dtype],
+                 l, c, n, f, layout, table_gather._READ_CODE[(rows, tables[0].dtype)],
                  table_gather._stream(dev))
     table_gather._raise_on(err, "permuto_encode")
     return outs, idx, bary, rank
@@ -451,15 +462,17 @@ class _Encode(torch.autograd.Function):
     coordinates."""
 
     @staticmethod
-    def forward(ctx, x, st, grad, *tables):
+    def forward(ctx, x, st, grad, bf16, *tables):
         keep = grad and any(ctx.needs_input_grad)
         if x.device.type == "cpu":
             idx, bary, rank = _lattice_levels(x, st.log2_c, st.inv_scales, st.mm,
                                               st.dm, st.direct)
             w = bary.to(tables[0].dtype)
-            outs = tuple(table_gather.multilevel_gather_plain(t, idx, w) for t in tables)
+            outs = tuple(table_gather.multilevel_gather_plain(t, idx, w, bf16)
+                         for t in tables)
         else:
-            outs, idx, bary, rank = _launch_encode(x, tables, st, keep, packed=True)
+            outs, idx, bary, rank = _launch_encode(x, tables, st, keep, packed=True,
+                                                   bf16_rows=bf16)
             wrapper = fused_encode if len(tables) == 1 else fused_encode_dual
             n = table_gather.launched()
             wrapper.launches += n
@@ -468,6 +481,7 @@ class _Encode(torch.autograd.Function):
             ctx.save_for_backward(x, idx, bary, tables[0])
             ctx.rank = rank
             ctx.st = st
+            ctx.bf16 = bf16
             ctx.dtypes = tuple(t.dtype for t in tables)
         return outs
 
@@ -491,11 +505,11 @@ class _Encode(torch.autograd.Function):
             dtables = [d.to(dt) for d, dt in zip(dts, ctx.dtypes)]
         dx = None
         if ctx.needs_input_grad[0]:
-            dbary = table_gather.multilevel_gather_dbary(table_a.float().contiguous(),
-                                                         idx, gs[0])
+            dbary = table_gather.multilevel_gather_dbary(
+                table_gather.dbary_rows(table_a, ctx.bf16), idx, gs[0])
             dx = _lattice_levels_dx(x, st.inv_scales, dbary.to(table_a.dtype).float(),
                                     ctx.rank)
-        return (dx, None, None, *dtables)
+        return (dx, None, None, None, *dtables)
 
 
 def fused_encode(tables: torch.Tensor, coordsT: torch.Tensor, scales) -> torch.Tensor:
@@ -503,9 +517,11 @@ def fused_encode(tables: torch.Tensor, coordsT: torch.Tensor, scales) -> torch.T
     bfloat16) with per-level scales [L] -> features [L, F, N] in the tables'
     dtype; differentiable in tables and coords. CUDA tensors launch the
     fused encode kernel (counted in ``.launches``); CPU tensors take
-    ``encode_plain``'s lattice and gather."""
+    ``encode_plain``'s lattice and gather. Under ``PAGNERF_BF16_GATHER=1``
+    float32 tables are read as bfloat16 rows (module docstring)."""
     st = _check_encode(coordsT, (tables,), scales)
-    (out,) = _Encode.apply(coordsT, st, torch.is_grad_enabled(), tables)
+    (out,) = _Encode.apply(coordsT, st, torch.is_grad_enabled(),
+                           table_gather.bf16_rows(tables), tables)
     return out
 
 
@@ -517,24 +533,28 @@ def fused_encode_dual(tables_a: torch.Tensor, tables_b: torch.Tensor,
     one load from a packed [L, C, 2F] copy (``packed_tables``, rebuilt only
     when a table changed). CPU tensors take
     ``dual_encode_plain``'s path. Differentiable in both tables and in the
-    coordinates, whose gradient comes from the A side only."""
+    coordinates, whose gradient comes from the A side only; the bf16 read as
+    in ``fused_encode``."""
     st = _check_encode(coordsT, (tables_a, tables_b), scales)
-    return _Encode.apply(coordsT, st, torch.is_grad_enabled(), tables_a, tables_b)
+    return _Encode.apply(coordsT, st, torch.is_grad_enabled(),
+                         table_gather.bf16_rows(tables_a), tables_a, tables_b)
 
 
-def encode_plain(tables: torch.Tensor, coordsT: torch.Tensor, scales) -> torch.Tensor:
+def encode_plain(tables: torch.Tensor, coordsT: torch.Tensor, scales,
+                 bf16_rows: bool = False) -> torch.Tensor:
     """Plain version of ``fused_encode``: ``lattice_all_levels``, the weights
-    rounded to the tables' dtype, then ``multilevel_gather_plain``."""
+    rounded to the tables' dtype, then ``multilevel_gather_plain``
+    (``bf16_rows``: the bf16 read's rows)."""
     idx, bary = lattice(tables, coordsT, scales)
-    return table_gather.multilevel_gather_plain(tables, idx, bary.to(tables.dtype))
+    return table_gather.multilevel_gather_plain(tables, idx, bary.to(tables.dtype), bf16_rows)
 
 
 def dual_encode_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
-                      coordsT: torch.Tensor, scales):
+                      coordsT: torch.Tensor, scales, bf16_rows: bool = False):
     """Plain version of ``fused_encode_dual``: one lattice, two plain gathers."""
     idx, bary = lattice(tables_a, coordsT, scales)
     return table_gather.dual_gather_plain(tables_a, tables_b, idx,
-                                          bary.to(tables_a.dtype))
+                                          bary.to(tables_a.dtype), bf16_rows)
 
 
 # ``launches_with_idx_bary``: the launches among them that wrote idx/bary

@@ -48,7 +48,18 @@ Contract of the gathers: tables ``[L, C, F]`` with F in (1, 2, 4), ``idx
 [L, V, N]``; tables and bary in one dtype, float32 or bfloat16; all
 contiguous, on one device.
 Outputs ``[L, F, N]`` in that dtype; products and sums run in float32 and
-round once. The backward kernels take float32 only: for bfloat16 tables the
+round once.
+
+The bf16 table-read path (the JAX package's ``PAGNERF_BF16_GATHER=1``,
+``pagnerf_tpu/ops/table_gather.py:52-62``; ``bf16_gather`` reads the
+variable at each call, as the JAX package does): float32 tables' rows are
+rounded to bfloat16 and widened exactly, then weighted by float32 bary,
+summed in float32 and written in float32; dbary is formed from the same
+rounded rows; the table gradients are unchanged (they are built from idx,
+bary and g) and stay float32. The kernels read a bfloat16 copy of the rows
+(``table_pack``: the dual kernels' packed copy in bfloat16, the single
+ones' ``rows_as``), kept while the tables are unchanged; the plain versions
+take ``bf16_rows=True``. Tables that are bfloat16 already read as they are. The backward kernels take float32 only: for bfloat16 tables the
 backward widens g, bary and the tables to float32 first, and casts the
 float32 table gradient to the table dtype, as the JAX package's ``_ml_bwd``
 does. The kernels do not check that idx lies in ``[0, C)``; the lattice
@@ -59,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Tuple
 
 import torch
@@ -67,7 +79,23 @@ from . import table_pack
 
 VERTS = (4, 8)     # the vertex counts V the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' code of (table rows, bary and outputs)
+_READ_CODE = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+              (torch.bfloat16, torch.float32): 2}
 _FEATS = (1, 2, 4)
+
+
+def bf16_gather() -> bool:
+    """``PAGNERF_BF16_GATHER`` is "1": float32 tables are read as rows
+    rounded to bfloat16 (module docstring). Read at each call of a gather or
+    encode, as the JAX package reads it."""
+    return os.environ.get("PAGNERF_BF16_GATHER", "0") == "1"
+
+
+def bf16_rows(tables: torch.Tensor) -> bool:
+    """Whether a gather or encode of ``tables`` reads bfloat16-rounded rows
+    of float32 tables now."""
+    return tables.dtype == torch.float32 and bf16_gather()
 
 
 # --------------------------------------------------------------- plain versions
@@ -92,22 +120,28 @@ def _weighted_sum(feats: torch.Tensor, bary: torch.Tensor, dtype) -> torch.Tenso
     return out.permute(0, 2, 1).contiguous().to(dtype)
 
 
+def _rows(tables: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The rows a gather reads: the tables, or rounded to bfloat16."""
+    return tables.to(torch.bfloat16) if bf16 else tables
+
+
 def multilevel_gather_plain(tables: torch.Tensor, idx: torch.Tensor,
-                            bary: torch.Tensor) -> torch.Tensor:
+                            bary: torch.Tensor, bf16_rows: bool = False) -> torch.Tensor:
     """Plain PyTorch version: gather, weight in float32, sum over V, round
-    once. tables [L, C, F], idx/bary [L, V, N] -> [L, F, N]."""
-    return _weighted_sum(_gather_rows(tables, idx), bary, tables.dtype)
+    once. tables [L, C, F], idx/bary [L, V, N] -> [L, F, N] in the tables'
+    dtype; ``bf16_rows``: the rows rounded to bfloat16 first."""
+    return _weighted_sum(_gather_rows(_rows(tables, bf16_rows), idx), bary, tables.dtype)
 
 
 def dual_gather_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
-                      idx: torch.Tensor, bary: torch.Tensor):
+                      idx: torch.Tensor, bary: torch.Tensor, bf16_rows: bool = False):
     """Plain PyTorch dual version: two single gathers at shared idx/bary."""
-    return (multilevel_gather_plain(tables_a, idx, bary),
-            multilevel_gather_plain(tables_b, idx, bary))
+    return (multilevel_gather_plain(tables_a, idx, bary, bf16_rows),
+            multilevel_gather_plain(tables_b, idx, bary, bf16_rows))
 
 
 def dual_gather_packed_plain(packed: torch.Tensor, idx: torch.Tensor,
-                             bary: torch.Tensor):
+                             bary: torch.Tensor, bf16_rows: bool = False):
     """Plain PyTorch version of the dual kernel on its packed rows: packed
     [L, C, 2F] (``table_pack.packed_tables``), idx/bary [L, V, N] -> (out_a,
     out_b), each [L, F, N]; one row gathered a vertex, each table's half
@@ -116,7 +150,7 @@ def dual_gather_packed_plain(packed: torch.Tensor, idx: torch.Tensor,
     are bit-equal to ``dual_gather_plain`` on the two tables (the sum's
     order over V may depend on the layout it is given)."""
     f = packed.shape[2] // 2
-    feats = _gather_rows(packed, idx)                                # [L, V, N, 2F]
+    feats = _gather_rows(_rows(packed, bf16_rows), idx)              # [L, V, N, 2F]
     return tuple(_weighted_sum(feats[..., half].contiguous(), bary, packed.dtype)
                  for half in (slice(0, f), slice(f, 2 * f)))
 
@@ -165,10 +199,11 @@ def dual_table_grad_plain(idx: torch.Tensor, bary: torch.Tensor,
 
 
 def gather_dbary_plain(tables: torch.Tensor, idx: torch.Tensor,
-                       g: torch.Tensor) -> torch.Tensor:
+                       g: torch.Tensor, bf16_rows: bool = False) -> torch.Tensor:
     """Plain weight gradient: dot over F of the gathered rows with g, in
-    float32. tables [L, C, F], idx [L, V, N], g [L, F, N] -> [L, V, N] float32."""
-    feats = _gather_rows(tables, idx)                                # [L, V, N, F]
+    float32. tables [L, C, F], idx [L, V, N], g [L, F, N] -> [L, V, N] float32;
+    ``bf16_rows``: the rows rounded to bfloat16 first."""
+    feats = _gather_rows(_rows(tables, bf16_rows), idx)              # [L, V, N, F]
     return torch.sum(feats * g.float().permute(0, 2, 1)[:, None], dim=-1)
 
 
@@ -239,12 +274,13 @@ def _check_grad(idx: torch.Tensor, bary: torch.Tensor, gs, capacity: int) -> Non
 
 
 def _check_dbary(tables: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> None:
-    """Contract of dbary: float32 tables [L, C, F] and g [L, F, N]."""
+    """Contract of dbary: float32 or bfloat16 tables [L, C, F] and float32
+    g [L, F, N]."""
     _check_tables(tables, idx)
     l, _, f = tables.shape
-    if tables.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"tables and g must be float32, got {tables.dtype} "
-                        f"and {g.dtype}")
+    if tables.dtype not in _DTYPE_CODE or g.dtype != torch.float32:
+        raise TypeError(f"tables must be float32 or bfloat16 and g float32, got "
+                        f"{tables.dtype} and {g.dtype}")
     if g.shape != (l, f, idx.shape[2]):
         raise ValueError(f"g must be [L={l}, F={f}, N={idx.shape[2]}], got "
                          f"{tuple(g.shape)}")
@@ -275,7 +311,7 @@ def _scatter_kernels():
     scratch.argtypes = [i32p] * 2 + [ctypes.c_int64] * 5
     scratch.restype = ctypes.c_int64
     dbary = lib.pagnerf_gather_dbary
-    dbary.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    dbary.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
     dbary.restype = ctypes.c_int
     rows = lib.pagnerf_scatter_rows
     rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
@@ -295,19 +331,21 @@ def _raise_on(err: int, name: str) -> None:
 def _launch(src: torch.Tensor, num_tables: int, idx: torch.Tensor,
             bary: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The gather kernel on ``src``: one table stack [L, C, F]
-    (``num_tables`` 1) or the packed rows [L, C, 2F] of two (2)."""
+    (``num_tables`` 1) or the packed rows [L, C, 2F] of two (2), in bary's
+    dtype or (the bf16 read) bfloat16 rows with float32 bary; outputs in
+    bary's dtype."""
     l, c, w = src.shape
     f = w // num_tables
     n = idx.shape[2]
-    outs = tuple(torch.empty((l, f, n), dtype=src.dtype, device=idx.device)
+    outs = tuple(torch.empty((l, f, n), dtype=bary.dtype, device=idx.device)
                  for _ in range(num_tables))
     if n == 0:
         return outs
     fn = _kernel()
     with torch.cuda.device(idx.device):
         err = fn(src.data_ptr(), idx.data_ptr(), bary.data_ptr(), outs[0].data_ptr(),
-                 outs[-1].data_ptr(), l, c, n, f, num_tables, _DTYPE_CODE[src.dtype],
-                 idx.shape[1], _stream(idx.device))
+                 outs[-1].data_ptr(), l, c, n, f, num_tables,
+                 _READ_CODE[(src.dtype, bary.dtype)], idx.shape[1], _stream(idx.device))
     _raise_on(err, "permuto_gather")
     return outs
 
@@ -406,9 +444,10 @@ def dual_multilevel_table_grad(idx: torch.Tensor, bary: torch.Tensor,
 
 def multilevel_gather_dbary(tables: torch.Tensor, idx: torch.Tensor,
                             g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient [L, V, N] float32 from float32 tables [L, C, F], idx
-    [L, V, N] int32 and g [L, F, N]. CUDA tensors launch the dbary kernel
-    (counted in ``.launches``); CPU tensors take ``gather_dbary_plain``."""
+    """Weight gradient [L, V, N] float32 from tables [L, C, F] (float32, or
+    bfloat16 rows: the bf16 read's), idx [L, V, N] int32 and float32 g
+    [L, F, N]. CUDA tensors launch the dbary kernel (counted in
+    ``.launches``); CPU tensors take ``gather_dbary_plain``."""
     _check_dbary(tables, idx, g)
     if idx.device.type == "cpu":
         return gather_dbary_plain(tables, idx, g)
@@ -420,23 +459,34 @@ def multilevel_gather_dbary(tables: torch.Tensor, idx: torch.Tensor,
     _, _, dbary, _ = _scatter_kernels()
     with torch.cuda.device(idx.device):
         err = dbary(tables.data_ptr(), idx.data_ptr(), g.data_ptr(),
-                    out.data_ptr(), l, c, n, f, v, _stream(idx.device))
+                    out.data_ptr(), l, c, n, f, v, _DTYPE_CODE[tables.dtype],
+                    _stream(idx.device))
     _raise_on(err, "permuto_scatter dbary")
     KERNELS["dbary"].launches += launched()
     return out
 
 
 # ------------------------------------------------------------ autograd
+def dbary_rows(tables: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The rows the dbary of a gather (or encode) of ``tables`` reads: the
+    bf16 read's bfloat16 rows (kept, ``table_pack.rows_as``), or float32."""
+    if bf16:
+        return table_pack.rows_as(tables, torch.bfloat16)
+    return tables.float().contiguous()
+
+
 class _Gather(torch.autograd.Function):
     """Single-table gather; backward = table scatter (+ dbary on request)."""
 
     @staticmethod
-    def forward(ctx, tables, idx, bary, rows_used, modes):
+    def forward(ctx, tables, idx, bary, rows_used, modes, bf16):
         ctx.save_for_backward(tables, idx, bary)
         ctx.plan = (rows_used, modes)
+        ctx.bf16 = bf16
         if tables.device.type == "cpu":
-            return multilevel_gather_plain(tables, idx, bary)
-        (out,) = _launch(tables, 1, idx, bary)
+            return multilevel_gather_plain(tables, idx, bary, bf16)
+        src = table_pack.rows_as(tables, torch.bfloat16) if bf16 else tables
+        (out,) = _launch(src, 1, idx, bary)
         KERNELS["gather"].launches += launched()
         return out
 
@@ -449,9 +499,9 @@ class _Gather(torch.autograd.Function):
             dtables = multilevel_table_grad(idx, bary.float().contiguous(), g,
                                             tables.shape[1], *ctx.plan).to(tables.dtype)
         if ctx.needs_input_grad[2]:
-            dbary = multilevel_gather_dbary(tables.float().contiguous(), idx,
+            dbary = multilevel_gather_dbary(dbary_rows(tables, ctx.bf16), idx,
                                             g).to(bary.dtype)
-        return dtables, None, dbary, None, None
+        return dtables, None, dbary, None, None, None
 
 
 class _DualGather(torch.autograd.Function):
@@ -459,17 +509,21 @@ class _DualGather(torch.autograd.Function):
     both tables, dbary from the A side only (B's weights are stop-gradient)."""
 
     @staticmethod
-    def forward(ctx, tables_a, tables_b, idx, bary, rows_used, modes):
+    def forward(ctx, tables_a, tables_b, idx, bary, rows_used, modes, bf16):
         ctx.save_for_backward(tables_a, idx, bary)
         ctx.plan = (rows_used, modes)
         ctx.capacity = tables_b.shape[1]
         ctx.dtype_b = tables_b.dtype
+        ctx.bf16 = bf16
         if tables_a.device.type == "cpu":
             # a fresh pack: the kept copy sees a table's in-place writes only
             # through its version counter, which writes through ``.data``
             # (as gradcheck's perturbations) do not move
-            return dual_gather_packed_plain(torch.cat((tables_a, tables_b), dim=2), idx, bary)
-        out = _launch(table_pack.packed_tables(tables_a, tables_b), 2, idx, bary)
+            return dual_gather_packed_plain(torch.cat((tables_a, tables_b), dim=2), idx, bary,
+                                            bf16)
+        src = table_pack.packed_tables(tables_a, tables_b,
+                                       torch.bfloat16 if bf16 else tables_a.dtype)
+        out = _launch(src, 2, idx, bary)
         KERNELS["dual_gather"].launches += launched()
         return out
 
@@ -487,9 +541,9 @@ class _DualGather(torch.autograd.Function):
                 idx, bary.float().contiguous(), g_a, g_b, ctx.capacity, *ctx.plan)
             dta, dtb = dta.to(tables_a.dtype), dtb.to(ctx.dtype_b)
         if ctx.needs_input_grad[3]:
-            dbary = multilevel_gather_dbary(tables_a.float().contiguous(), idx,
+            dbary = multilevel_gather_dbary(dbary_rows(tables_a, ctx.bf16), idx,
                                             g_a).to(bary.dtype)
-        return dta, dtb, None, dbary, None, None
+        return dta, dtb, None, dbary, None, None, None
 
 
 def multilevel_table_gather(tables: torch.Tensor, idx: torch.Tensor,
@@ -500,9 +554,10 @@ def multilevel_table_gather(tables: torch.Tensor, idx: torch.Tensor,
     (counted in ``.launches``); CPU tensors take ``multilevel_gather_plain``.
     ``rows_used`` (per level, see ``live_rows``; it must cover every index of
     its level) and ``modes`` (``level_modes``) go to the backward's
-    table-gradient scatter."""
+    table-gradient scatter. Under ``PAGNERF_BF16_GATHER=1`` float32 tables
+    are read as bfloat16 rows (module docstring)."""
     _check((tables,), idx, bary)
-    return _Gather.apply(tables, idx, bary, rows_used, modes)
+    return _Gather.apply(tables, idx, bary, rows_used, modes, bf16_rows(tables))
 
 
 def dual_multilevel_table_gather(tables_a: torch.Tensor, tables_b: torch.Tensor,
@@ -515,9 +570,10 @@ def dual_multilevel_table_gather(tables_a: torch.Tensor, tables_b: torch.Tensor,
     unchanged; counted in ``.launches``); CPU tensors take
     ``dual_gather_packed_plain`` on a packed copy made for the call. Differentiable in both tables and in bary,
     whose gradient comes from the A side only; ``rows_used`` and ``modes``
-    as in ``multilevel_table_gather``."""
+    as in ``multilevel_table_gather``, and so is the bf16 read."""
     _check((tables_a, tables_b), idx, bary)
-    return _DualGather.apply(tables_a, tables_b, idx, bary, rows_used, modes)
+    return _DualGather.apply(tables_a, tables_b, idx, bary, rows_used, modes,
+                             bf16_rows(tables_a))
 
 
 multilevel_table_gather.launches = 0

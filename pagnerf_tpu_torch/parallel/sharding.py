@@ -10,9 +10,16 @@ trainer here makes every reduction over the ray axis global by hand
 (``train/trainer.py``): each rank's loss is its share of the global loss,
 and the gradients are summed once per step.
 
-Every collective goes through ``all_reduce`` or ``broadcast`` below, which
-log (tag, elements) in ``RayGroup.log``: the collective audit of
-``entry.dryrun_multichip`` reads that log.
+Every collective goes through ``all_reduce``, ``broadcast`` or the ray
+gathers below, which log (tag, elements) in ``RayGroup.log``: the
+collective audit of ``entry.dryrun_multichip`` reads that log. The ray
+gathers serve the losses that couple every ray pair of an image
+(``losses/sup_contrastive.py``): ``all_gather_rays`` gathers each rank's
+``[B, R/n, ...]`` into ``[B, R, ...]`` in the global ray order, and its
+backward is the reduce-scatter of the gathered gradient (summed over the
+ranks, this rank's rays kept); ``gather_rays`` gathers labels and masks
+without a gradient. Their tags start with ``GATHER`` or ``REDUCE_SCATTER``,
+the gathered (or scattered) tensor's elements logged.
 
 Backends: NCCL with one rank per card; gloo on the CPU (the tests); gloo
 with several ranks on one card only when asked (``ranks_per_device``). The
@@ -54,7 +61,8 @@ class RayGroup:
     ``pack_overflows`` counts, on the device, the packed layouts whose
     rank share overflowed its buffer (read at the step's readback), and
     ``pack_share_max`` the largest share of kept samples a rank's rays
-    took, over B / n."""
+    took, over what one process's per-ray budget gives them (B / n; a
+    ``ray_chunk`` block's: its budget's share for the rank's rays in it)."""
 
     rank: int
     world: int
@@ -69,12 +77,13 @@ class RayGroup:
         """NCCL collectives can be captured into a CUDA graph; gloo's cannot."""
         return self.backend == "nccl"
 
-    def share_buffer(self, budget: int) -> int:
+    def share_buffer(self, budget: int, limit: Optional[int] = None) -> int:
         """The packed buffer of one rank whose rays would take ``budget``
         samples in one process: ``PACK_SHARE_MARGIN`` x ``budget``, a
-        multiple of 8, at most the global ``budget x world``."""
+        multiple of 8, at most the global budget (``limit``, by default
+        ``budget x world``)."""
         share = int(np.ceil(PACK_SHARE_MARGIN * budget / 8.0)) * 8
-        return min(max(share, 8), budget * self.world)
+        return min(max(share, 8), budget * self.world if limit is None else limit)
 
     @property
     def pack_overflows(self) -> torch.Tensor:
@@ -142,6 +151,60 @@ def broadcast(t: torch.Tensor, group: RayGroup, tag: str, src: int = 0) -> torch
     group.log.append((tag, t.numel()))
     dist.broadcast(t, src=src)
     return t
+
+
+# tag prefixes of the ray gathers (the audit reports them apart)
+GATHER, REDUCE_SCATTER = "gather/", "reduce_scatter/"
+
+
+def _gather_rays(x: torch.Tensor, group: RayGroup, tag: str) -> torch.Tensor:
+    """Every rank's ``[B, R/n, ...]`` -> ``[B, R, ...]``, rank r's rays at
+    ``[r R/n, (r + 1) R/n)`` as ``shard_ray_batch`` split them; one
+    all-gather, logged as ``GATHER + tag`` with the gathered elements."""
+    x = x.contiguous()
+    b, rl, rest = x.shape[0], x.shape[1], tuple(x.shape[2:])
+    flat = x.new_empty((group.world * b, rl) + rest)
+    group.log.append((GATHER + tag, flat.numel()))
+    dist.all_gather_into_tensor(flat, x)
+    return flat.view((group.world, b, rl) + rest).transpose(0, 1).reshape(
+        (b, group.world * rl) + rest)
+
+
+class _AllGatherRays(torch.autograd.Function):
+    """``_gather_rays``; backward: the gathered gradient summed over the
+    ranks, this rank's rays kept (one reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return _gather_rays(x, group, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        b, rest = g.shape[0], tuple(g.shape[2:])
+        rl = g.shape[1] // group.world
+        parts = g.reshape((b, group.world, rl) + rest).transpose(0, 1).contiguous()
+        out = g.new_empty((b, rl) + rest)
+        group.log.append((REDUCE_SCATTER + ctx.tag, parts.numel()))
+        dist.reduce_scatter_tensor(out, parts.view((group.world * b, rl) + rest))
+        return out, None, None
+
+
+def all_gather_rays(x: torch.Tensor, group: RayGroup, tag: str) -> torch.Tensor:
+    """This rank's ``[B, R/n, ...]`` -> the image's ``[B, R, ...]`` over
+    every rank, differentiable: the gradient reaching this rank's rays is
+    the sum over the ranks of the gradients at their gathered positions."""
+    return _AllGatherRays.apply(x, group, tag)
+
+
+@torch.no_grad()
+def gather_rays(x: torch.Tensor, group: RayGroup, tag: str) -> torch.Tensor:
+    """``all_gather_rays`` without a gradient (labels, masks; bools travel
+    as bytes)."""
+    if x.dtype == torch.bool:
+        return _gather_rays(x.to(torch.uint8), group, tag).bool()
+    return _gather_rays(x, group, tag)
 
 
 def _buckets(tensors: Sequence[torch.Tensor], limit: int) -> Iterable[List[int]]:

@@ -106,10 +106,11 @@ def packing(totals: dict):
         acc["kept"] = acc["kept"] + torch.minimum(counts, cap).sum()
         acc["truncated_rays"] = acc["truncated_rays"] + (counts > cap).sum()
 
-    def pack_spy(rm, rays_oT, rays_dT, budget, group=None):
+    def pack_spy(rm, rays_oT, rays_dT, budget, group=None, cap=None):
         counts = torch.sum(rm.mask, dim=-1, dtype=torch.int32)
-        add("", counts, packed._water_fill_cap(counts, rm.mask.shape[1], budget), budget)
-        return pack(rm, rays_oT, rays_dT, budget, group=group)
+        add("", counts, packed._water_fill_cap(counts, rm.mask.shape[1], budget)
+            if cap is None else cap.to(counts.dtype), budget)
+        return pack(rm, rays_oT, rays_dT, budget, group=group, cap=cap)
 
     def compact_spy(rm, keep_steps):
         steps = rm.mask.shape[-1]

@@ -60,11 +60,17 @@ regulariser's statistics summed over the ranks, ray-free terms weighted by
 1 / world); the packed layout's cap comes from the global histogram; the
 gradients are summed once per step in buckets before the masked update,
 and the logged losses are the global ones. The prune runs on every rank
-and a checksum proves the occupancy equal. ``sup_contrastive`` (and
-``contrast_sem_weight``), which couple every ray pair of an image, and a
-packed layout traced in ``ray_chunk`` blocks are refused (ROADMAP.md Queue
-1 item 14). On the card the fused step captures the group's NCCL
-collectives into its graph; over gloo it is refused there.
+and a checksum proves the occupancy equal. ``sup_contrastive`` and
+``contrast_sem_weight``, which couple every ray pair of an image, gather
+the image's embeddings over the ranks (``losses/sup_contrastive.py``: a
+rank's share is its anchors' rows against every column over the global
+anchor count); a packed layout traced in ``ray_chunk`` blocks water-fills
+each block of the global ray order against its histogram summed over the
+ranks (``models/tracer.py``). On the card the fused step captures the
+group's NCCL collectives into its graph; over gloo it is refused there.
+
+``PAGNERF_PACKED`` ("1" on, anything else off), where set, overrides
+``packed_compaction`` in ``stage_for_epoch``, as the JAX trainer reads it.
 """
 from __future__ import annotations
 
@@ -88,6 +94,7 @@ from ..losses.regularizers import (grid_tv_l1_loss, grid_tv_l2_loss,
                                    segment_consistency_regularizer)
 from ..losses.sup_contrastive import sup_contrastive_loss
 from ..models.pipeline import BAPipeline, Pipeline
+from ..ops import table_gather
 from ..ops.occupancy import OccupancyGrid
 from ..ops.raymarch import raymarch
 from ..parallel import sharding
@@ -288,23 +295,11 @@ class PanopticTrainer:
             self.set_group(group)
 
     def set_group(self, group: "sharding.RayGroup") -> None:
-        """Make the trainer rank ``group.rank`` of ``group``: refuse what
-        the data-parallel step does not make exact, and give every rank
-        rank 0's parameters, occupancy and LoD weights."""
-        cfg = self.cfg
+        """Make the trainer rank ``group.rank`` of ``group`` and give every
+        rank rank 0's parameters, occupancy and LoD weights."""
         if group.device != self.device:
             raise ValueError(f"rank {group.rank} runs on {group.device}, the pipeline "
                              f"on {self.device}")
-        if cfg.contrast_sem_weight > 0.0 or (cfg.inst_loss == "sup_contrastive"
-                                             and cfg.inst_weight > 0):
-            raise NotImplementedError(
-                "sup_contrastive couples every ray pair of an image; under ray-axis "
-                "data parallelism it needs an all-gather of the embeddings "
-                "(ROADMAP.md Queue 1 item 14)")
-        if self.pipeline.tracer_cfg.ray_chunk > 0 and cfg.packed_compaction:
-            raise NotImplementedError(
-                "a packed layout traced in ray_chunk blocks water-fills per block; "
-                "its blocks differ between ranks (ROADMAP.md Queue 1 item 14)")
         sharding.replicate(list(self.params.values()) + [self.occ.occupancy, self.lod_w],
                            group)
         sharding.replicate([self.occ.mask], group)
@@ -340,7 +335,9 @@ class PanopticTrainer:
         else:
             num_steps = base.num_steps
         compact = pack = 0
-        if self._pruned and cfg.packed_compaction:
+        packed_on = os.environ.get("PAGNERF_PACKED",
+                                   "1" if cfg.packed_compaction else "0") == "1"
+        if self._pruned and packed_on:
             # budget per ray: the batch's mean valid count (the occupied
             # share) with a 15% margin, a multiple of 8
             pack = max(8, int(np.ceil(1.15 * self._occ_frac * num_steps / 8.0)) * 8)
@@ -403,7 +400,7 @@ class PanopticTrainer:
             rb = self.pipeline(base_rays, stage.channels, self.occ, lod_w,
                                stage="train", cam_idx=cam_idx, jitter=jitter,
                                tracer_cfg=tracer_cfg, cam_idx_host=cam_idx_host,
-                               group=self.group)
+                               group=self.group, images=b)
         else:
             # a pipeline without extrinsics traces the batch's world rays
             rays_in = Rays(origins=batch["rays_origins"].reshape(-1, 3),
@@ -411,10 +408,12 @@ class PanopticTrainer:
                            dist_max=6.0)
             rb = self.pipeline(rays_in, stage.channels, self.occ, lod_w,
                                stage="train", jitter=jitter, tracer_cfg=tracer_cfg,
-                               group=self.group)
+                               group=self.group, images=b)
 
         # under a group each term is this rank's share: a mean over its
-        # rays / world, a sum over them / a global count, ray-free terms / world
+        # rays / world, a sum over them / a global count (the contrastive
+        # terms: its anchors' sum over the global anchor count), ray-free
+        # terms / world
         group = self.group
         share = 1.0 / group.world if group is not None else 1.0
         losses: Dict[str, torch.Tensor] = {}
@@ -446,7 +445,8 @@ class PanopticTrainer:
                 closs = sup_contrastive_loss(
                     (rb.semantics + 1e-27).reshape(b, r, -1), sem_gts.reshape(b, r),
                     temperature=cfg.inst_temperature,
-                    base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio)
+                    base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio,
+                    group=group, tag="contrast_sem")
                 total = total + cfg.contrast_sem_weight * closs
                 losses["contrast_sem_loss"] = closs
 
@@ -460,7 +460,8 @@ class PanopticTrainer:
                 iloss = sup_contrastive_loss(
                     inst_embed, inst_gts, anchor_mask=~undetected,
                     temperature=cfg.inst_temperature,
-                    base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio)
+                    base_temperature=cfg.base_temperature, pn_ratio=cfg.inst_pn_ratio,
+                    group=group)
             elif cfg.inst_loss == "linear_assignment":
                 iloss = lin_assignment_loss(inst_embed, inst_gts, self.num_instances, group)
             elif cfg.inst_loss == "linear_assignment_things":
@@ -592,7 +593,9 @@ class PanopticTrainer:
         order: the microbatch's [rays, steps] uniforms (unless ``jitters``
         gives them), then its TV normals. Under a group (``sbatch`` the
         rank's share) the uniforms are the global microbatch's [rays, steps]
-        and the rank keeps its rays' rows."""
+        and the rank keeps its rays' rows; rows past the global rays (a
+        ``ray_chunk`` trace's padding rays, as one process takes them) go to
+        the last rank, which holds those rays in a packed layout."""
         out = []
         for m, sub in enumerate(subs):
             if jitters is None:
@@ -600,8 +603,17 @@ class PanopticTrainer:
                 jitter = self.draw((sub["imgs"].shape[0] * rays, stage.num_steps))
             else:
                 jitter = jitters[m]
+                if isinstance(jitter, np.ndarray):
+                    jitter = torch.from_numpy(jitter)
             if sbatch is not None:
-                jitter = sharding.local_rows(torch.as_tensor(jitter), sbatch)
+                jitter = torch.as_tensor(jitter)
+                total = sub["imgs"].shape[0] * sbatch.ray_len_global
+                pad = jitter[total:]
+                jitter = sharding.local_rows(jitter[:total], sbatch)
+                blk = self.pipeline.tracer_cfg.ray_chunk
+                if (pad.shape[0] and stage.pack_steps and 0 < blk < total
+                        and self.group.rank == self.group.world - 1):
+                    jitter = torch.cat([jitter, pad])
             out.append((jitter, self._draw_normals()))
         return out
 
@@ -723,8 +735,11 @@ class PanopticTrainer:
         draws = self._draws(stage, subs, jitters, sbatch)
         cams = [sub.get("cam_idx") for sub in subs]
         anchors = tuple(self._all_anchor(c) for c in cams)
+        # the bf16 table read is read at each encode: a graph captured under
+        # one setting is not replayed under the other
         key = (stage, len(subs), anchors, _signature(batch),
-               tuple(tuple(x is not None for x in n) for _, n in draws))
+               tuple(tuple(x is not None for x in n) for _, n in draws),
+               table_gather.bf16_gather())
         entry, state = self._fused_entry(key)
         if entry is not None and self.device.type == "cuda":
             # the update of its capture or replay reserves no count

@@ -31,7 +31,8 @@ checkpoint written by rank 0 and resumed by every rank, a validation on
 rank 0; the DP step against the JAX package's sharded step
 on the conftest's 8-device mesh with weights from ``convert.py`` (losses
 within the tolerance ``test_torch_train.py`` holds the port's
-single-process step to); the refusals; the dispatch by key; the collective
+single-process step to); the fused step's refusal of gloo on the card; the
+dispatch by key; the collective
 audit's element counts; ``entry.dryrun_multichip`` on the CPU.
 """
 import dataclasses
@@ -444,9 +445,6 @@ def test_share_buffer_and_buckets(monkeypatch):
 def test_trainer_refusals():
     pipe, ds = entry.flagship(tiny=True, device="cpu", compute_dtype=torch.float32)
     pipe.requires_grad_(True)
-    for cfg in (dict(BASE, inst_loss="sup_contrastive"), dict(BASE, contrast_sem_weight=0.1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-            PanopticTrainer(pipe, ds, TrainerConfig(**cfg), occ_level=4, group=_fake_group(2))
     t = PanopticTrainer(pipe, ds, TrainerConfig(**BASE), occ_level=4)
     t.group = dataclasses.replace(_fake_group(2), device=torch.device("cuda"))
     t.device = torch.device("cuda")
