@@ -9,6 +9,8 @@ Phases, each printing one JSON line as it ends:
 
 1. device  -- refuse to run without CUDA; name the card and its power limit.
 2. build   -- compile ``ops/csrc/permuto_encode.cu`` (the fused encode),
+   ``ops/csrc/permuto_encode_bwd.cu`` (encode_dx: the encode's coordinate
+   gradient, dbary and the lattice backward in one kernel),
    ``ops/csrc/permuto_gather.cu`` (the gathers, V = 4 and 8),
    ``ops/csrc/permuto_scatter.cu`` (backward kernels, V = 4 and 8, and the
    row scatter-add) and ``ops/csrc/lap_assign.cu`` (the exact assignment)
@@ -39,7 +41,9 @@ Phases, each printing one JSON line as it ends:
    dual; the main path's per-level live rows and modes) with random and
    with same-signed cotangents, and dbary, against their plain versions,
    timed beside ``index_add_`` (the scatter's library yardstick), with the
-   single scatter's device time per level.
+   single scatter's device time per level; then encode_dx on the encode
+   kernel's own idx and rank of the microbatch, one table's rows and A's
+   half of packed rows, within 1e-5 of the plain version's largest |dx|.
    scatter_rows -- the row scatter-add (no main path runs it): M = 2,097,152
    same-signed rows of 128 into 4096 rows (the microbatch's level-0 indices
    // 64), into 640 and into 128 rows, and no events, against its plain
@@ -58,8 +62,9 @@ Phases, each printing one JSON line as it ends:
    steps=3)`` at full width (6 images requested, 4 training views, 4096
    rays each, one image per microbatch), counts read: the fused encode and
    the table-gradient kernel once per microbatch (single in the RGB stage,
-   dual in the panoptic stage), dbary once per microbatch whose camera is not
-   an anchor frame, the gathers and the row scatter-add never. Losses must be finite. Then
+   dual in the panoptic stage), encode_dx once per microbatch whose camera
+   is not an anchor frame, dbary, the gathers and the row scatter-add
+   never. Losses must be finite. Then
    one microbatch's gradients through the kernels against the same
    microbatch through the plain backward versions on the card. Step times, rays/s and peak memory.
 
@@ -87,7 +92,9 @@ Phases, each printing one JSON line as it ends:
    N = B (outputs within the encode phase's per-level bound, the kept
    idx/bary against the plain lattice: a vertex may differ only where the
    plain weight is within an ulp of el of 0), the dual scatter (64 eps) and
-   dbary (4 eps) at B against their plain versions, and their times. Prune
+   dbary (4 eps) and encode_dx (1e-5 of the largest |dx|; table A's rows
+   and A's half of the packed rows) at B against their plain versions, and
+   their times. Prune
    ms, kept share, occupied share, pack_steps, B, step ms, rays/s, peak
    memory, truncated share.
 
@@ -123,7 +130,7 @@ Phases, each printing one JSON line as it ends:
    sem_conf / inst_conf, a val-pose epoch, checkpoints, a validation and the
    final validation; ``--perf`` makes the trainer's timer write each step,
    prune, epoch and validation to the run's ``perf.jsonl``. Launch counts
-   set to 0 before and read after: the encodes, scatters and dbary the
+   set to 0 before and read after: the encodes, scatters and encode_dx the
    sampled cameras, the prunes and the validation chunks imply, the
    gathers never. Then ``--valid-only --pretrained`` the final checkpoint
    must reproduce the final metrics exactly. While the run goes, the first
@@ -132,8 +139,9 @@ Phases, each printing one JSON line as it ends:
    B, the voxel stage's packed B); after it, each is held against its plain
    version there: the single and dual encode on the recorded coordinates
    with random tables (the encode phase's per-level bound, the kept
-   idx/bary by the boundary rule), the single and dual scatter (64 eps) and
-   dbary (4 eps) on the recorded idx, bary, cotangents and tables (the dual
+   idx/bary by the boundary rule), the single and dual scatter (64 eps) on
+   the recorded idx, bary and cotangents, and encode_dx (1e-5 of the
+   largest |dx|) on the recorded rows, idx, rank and cotangents (the dual
    scatter also where the path ran only the single one, its second
    cotangent random); their times and bounds. Each epoch's wall and
    losses, the prunes' walls and kept shares, B and the truncated share;
@@ -193,7 +201,7 @@ Phases, each printing one JSON line as it ends:
    ``/api/click``, each PNG read back equal to its array, the launches of
    the view's and the free pose's renders; ``POST /api/train?epochs=1``
    polled to its end: the epoch advanced, the view's channels changed, the
-   launches its steps imply (scatters, dbary, encodes); ``/api/stop``.
+   launches its steps imply (scatters, encode_dx, encodes); ``/api/stop``.
    hp_sweep -- main path 6c: ``python -m pagnerf_tpu_torch.main_hp_tunning``
    on the tuned config, 2 learning rates, rungs of 1 epoch, 2 rungs, 2
    worker processes on the card at once: 2 + 1 results, all scored, the
@@ -229,7 +237,7 @@ Phases, each printing one JSON line as it ends:
    ``cli.main`` over the bup20 phase's tree at the same full width with
    ``BUP20_FLAGS``: an RGB epoch (the single encode and scatter: no
    panoptic channel is asked for), two panoptic epochs (the dual encode
-   and scatter, dbary), a validation at mip 2 and the final one at mip 0.
+   and scatter, encode_dx), a validation at mip 2 and the final one at mip 0.
    Launch counts set to 0 before and read after: those the steps' cameras
    and the validation chunks imply. One panoptic microbatch's gradients
    through the kernels against the plain backward; max |panoptic_alpha -
@@ -297,7 +305,8 @@ fused step against the host loop, in the voxel stage bit-equal, in the
    step against the host loop's spread over two runs.
 
 19. bf16_read -- ``PAGNERF_BF16_GATHER=1``: the fused encodes, dbary (V = 4
-   and 8) and the gathers (V = 4 at the render's N, V = 8) reading bfloat16
+   and 8), encode_dx (one stack's bfloat16 copy and the packed one's A
+   half) and the gathers (V = 4 at the render's N, V = 8) reading bfloat16
    rows against their plain versions at every N the paths gave them, the
    bf16 read's time in turns with the float32 read's (the copies kept, and
    made again a call) and its bound with 2-byte rows; the tuned config in a
@@ -429,6 +438,45 @@ def dbary_bound(l, c, f, n, rows_used, v=4, row_itemsize=4):
     return _bound(nbytes, l * v * n * f * 2)
 
 
+def encode_dx_bound(l, c, f, n, rows_used, row_itemsize=4):
+    """Least time for encode_dx (the encode's coordinate gradient): idx (16
+    L), g (4 F L) and the packed rank (L) per sample read once, table A's
+    reachable rows read once (``row_itemsize`` 2 for bfloat16 rows), dx
+    (12) written once; per (level, sample) F products and sums for each of
+    4 vertices, ddelta (8), E^T @ ddelta with the scale (24) and the level
+    sum (3)."""
+    nbytes = l * n * (16 + 4 * f + 1) + table_bytes(rows_used, c, f, row_itemsize) + 12 * n
+    return _bound(nbytes, l * n * (8 * f + 35))
+
+
+def encode_dx_vs_plain(rows, idx, rank, g, inv_scales, dtype=None):
+    """The encode_dx kernel against its plain version on the same inputs:
+    within 1e-5 of the plain dx's largest |entry| (the kernel sums E^T @
+    ddelta's four products in another order than the plain matrix
+    product). Returns the check's fields, with ``ok``."""
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    got = pe.encode_dx(rows, idx, rank, g, inv_scales, dtype)
+    want = pe.encode_dx_plain(rows, idx, rank, g, inv_scales, dtype)
+    err, ref = (got - want).abs().max().item(), want.abs().max().item()
+    return dict(N=idx.shape[2], max_abs_err=err, plain_max_abs=ref,
+                worst_err_over_tol=err / max(1e-5 * ref, 1e-30),
+                tol="1e-5 * max|dx_plain|", ok=bool(err <= 1e-5 * ref and ref > 0))
+
+
+def encode_dx_times(rows, idx, rank, g, st, flush, row_itemsize=4, dtype=None):
+    """encode_dx's and its plain version's times at these inputs, and its
+    bound (``encode_dx_bound``)."""
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    l, _, n = idx.shape
+    bound_ms, bound_by, nbytes, flops = encode_dx_bound(l, rows.shape[1], g.shape[1], n,
+                                                        st.rows_used, row_itemsize)
+    return dict(
+        ms=cuda_ms(lambda: pe.encode_dx(rows, idx, rank, g, st.inv_scales, dtype), flush=flush),
+        plain_ms=cuda_ms(lambda: pe.encode_dx_plain(rows, idx, rank, g, st.inv_scales, dtype),
+                         reps=5, flush=flush),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+
+
 def fresh_pack(kern, table):
     """``kern`` (a dual gather) after ``table``'s version is bumped, as an
     update bumps it: the call makes the packed copy of its tables again."""
@@ -478,11 +526,13 @@ def phase_build():
         return os.path.relpath(path, ROOT), time.perf_counter() - t
 
     t = time.perf_counter()
-    sources = ("permuto_encode", "permuto_gather", "permuto_scatter", "lap_assign")
+    sources = ("permuto_encode", "permuto_encode_bwd", "permuto_gather", "permuto_scatter",
+               "lap_assign")
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = {n: ex.submit(timed, n) for n in sources}
         built = {n: f.result() for n, f in futures.items()}
     permuto_encoding._encode_kernel()
+    permuto_encoding._encode_dx_kernel()
     table_gather._kernel()
     table_gather._scatter_kernels()
     assignment._kernels()
@@ -795,6 +845,27 @@ def phase_kernels_bwd(dev, spec, x_train, flush):
         flops=flops)
     emit("kernels_bwd", kernel="gather_dbary", L=l, C=c, F=f, N=n,
          **results["gather_dbary"])
+
+    # encode_dx on the encode kernel's own lattice of the microbatch (its idx
+    # and packed rank), float32 rows of one table and A's half of the packed
+    # rows; the plain version within 1e-5 of its largest |dx|
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
+    del bary
+    st = pe.level_statics(spec.scales, c, f)
+    _, idx_k, _, rank = pe._launch_encode(x_train, (table,), st, True, False)
+    packed = torch.cat((table, torch.randn((l, c, f), generator=gen, device=dev)), dim=2)
+    check = encode_dx_vs_plain(table, idx_k, rank, g_a, st.inv_scales)
+    check_packed = encode_dx_vs_plain(packed, idx_k, rank, g_a, st.inv_scales)
+    require(check["ok"] and check_packed["ok"], "encode_dx",
+            dict(single=check, packed=check_packed))
+    results["encode_dx"] = dict(
+        max_abs_err=max(check["max_abs_err"], check_packed["max_abs_err"]), tol=check["tol"],
+        worst_err_over_tol=max(check["worst_err_over_tol"], check_packed["worst_err_over_tol"]),
+        **encode_dx_times(table, idx_k, rank, g_a, st, flush),
+        packed_rows_ms=cuda_ms(lambda: pe.encode_dx(packed, idx_k, rank, g_a, st.inv_scales),
+                               flush=flush))
+    emit("kernels_bwd", kernel="encode_dx", L=l, C=c, F=f, N=n, **results["encode_dx"])
+    del idx_k, rank, packed
     return results, idx[0, 0].clone()
 
 
@@ -934,11 +1005,13 @@ def phase_render(fn, pipe, origins, dirs, cam_idx):
 
 
 def _plain_backward_grads(trainer, stage, sub, jitter):
-    """The microbatch's gradients with the three backward kernels swapped
-    for their plain versions (the forward kernel stays, so both runs see the
+    """The microbatch's gradients with the backward kernels (the scatters,
+    encode_dx, and dbary where a gather asks for it) swapped for their
+    plain versions (the forward kernel stays, so both runs see the
     same cotangents), and each table's per-entry sum of |bary * g|."""
     from unittest import mock
 
+    from pagnerf_tpu_torch.ops import permuto_encoding as pe
     from pagnerf_tpu_torch.ops import table_gather as tg
 
     mags = {}
@@ -957,7 +1030,8 @@ def _plain_backward_grads(trainer, stage, sub, jitter):
 
     with mock.patch.object(tg, "multilevel_table_grad", single), \
          mock.patch.object(tg, "dual_multilevel_table_grad", dual), \
-         mock.patch.object(tg, "multilevel_gather_dbary", tg.gather_dbary_plain):
+         mock.patch.object(tg, "multilevel_gather_dbary", tg.gather_dbary_plain), \
+         mock.patch.object(pe, "encode_dx", pe.encode_dx_plain):
         grads, losses = trainer.grad_step(stage, sub, jitter)
     return grads, losses, mags
 
@@ -987,9 +1061,9 @@ def kernel_vs_plain_grads(trainer, stage, dev):
         diff = (g_k[name] - g_p[name]).abs()
         table_err[name] = diff.max().item()
         worst[name] = (diff / (64 * F32_EPS * mag).clamp(min=1e-30)).max().item()
-    # extrinsics: dbary's fused dot rounds 1 ulp apart from the plain
-    # products per sample; 2.1M samples sum into 9 numbers through the
-    # lattice and ray-transform backward
+    # extrinsics: encode_dx sums E^T @ ddelta in another order than the
+    # plain matrix product per sample; 2.1M samples sum into 9 numbers
+    # through the ray-transform backward
     ext_ref = g_p["extrinsics"].abs().max().item()
     ext_err = (g_k["extrinsics"] - g_p["extrinsics"]).abs().max().item()
     loss_err = max(abs(float(l_k[k]) - float(l_p[k])) for k in l_k)
@@ -1027,7 +1101,8 @@ def phase_train(dev, stage_name):
     other_fwd, other_grad = (("dual_encode", "dual_table_grad") if stage_name == "rgb"
                              else ("encode", "table_grad"))
     expected = {fwd: micro, grad: micro, other_fwd: 0, other_grad: 0,
-                "gather": 0, "dual_gather": 0, "dbary": non_anchor, "scatter_rows": 0}
+                "gather": 0, "dual_gather": 0, "dbary": 0, "encode_dx": non_anchor,
+                "scatter_rows": 0}
     if launches != expected:
         raise AssertionError(f"{stage_name} training launched {launches}, "
                              f"expected {expected}")
@@ -1183,7 +1258,7 @@ def schedule_launches(trainer, steps):
         dual = "semantics" in s_["stage"].channels
         expected["dual_encode" if dual else "encode"] += len(s_["cam_idx"])
         expected["dual_table_grad" if dual else "table_grad"] += len(s_["cam_idx"])
-        expected["dbary"] += sum(int(not anchor[c]) for c in s_["cam_idx"])
+        expected["encode_dx"] += sum(int(not anchor[c]) for c in s_["cam_idx"])
     chunks = (max(1, trainer.cfg.prune_samples_per_cell)
               * math.ceil(trainer.occ.res ** 3 / 65536))
     return expected, {k: (chunks if k == "encode" else 0) for k in keys}
@@ -1394,6 +1469,7 @@ def phase_train_post_prune(dev, flush):
     checks["encode_B"] = encode_vs_plain(spec, x_b, (ta,), (out.detach(),), idx, bary)
     oa, ob = pe.fused_encode_dual(a, b, x_b, spec.scales)
     _, idx, bary, _ = oa.grad_fn.saved_tensors
+    rank = oa.grad_fn.rank
     checks["dual_encode_B"] = encode_vs_plain(spec, x_b, (ta, tb),
                                               (oa.detach(), ob.detach()), idx, bary)
     del out, oa, ob
@@ -1416,6 +1492,11 @@ def phase_train_post_prune(dev, flush):
     checks["dbary_B"] = dict(N=nb, max_abs_err=diff.max().item(), worst_err_over_tol=worst,
                              tol="4 eps_f32 * sum_f |g*T| per entry", ok=worst <= 1.0)
     del got, diff, mag
+    # encode_dx on the dual encode's lattice: table A's rows (the path's
+    # float32 read) and A's half of the packed copy
+    packed = torch.cat((ta, tb), dim=2)
+    checks["encode_dx_B"] = encode_dx_vs_plain(ta, idx, rank, g_a, st.inv_scales)
+    checks["encode_dx_B_packed"] = encode_dx_vs_plain(packed, idx, rank, g_a, st.inv_scales)
     fields["kernel_checks"] = checks
     if not all(ch["ok"] for ch in checks.values()):
         fail(f"a kernel at this path's N outside its tolerance: {checks}")
@@ -1449,6 +1530,12 @@ def phase_train_post_prune(dev, flush):
         ms=cuda_ms(lambda: tg.multilevel_gather_dbary(ta, idx, g_a), flush=flush),
         plain_ms=cuda_ms(lambda: tg.gather_dbary_plain(ta, idx, g_a), flush=flush),
         bound_ms=bound_ms, bound_by=bound_by)
+    times["encode_dx_B"] = dict(
+        N=nb, max_abs_err=max(checks["encode_dx_B"]["max_abs_err"],
+                              checks["encode_dx_B_packed"]["max_abs_err"]),
+        **encode_dx_times(ta, idx, rank, g_a, st, flush),
+        packed_rows_ms=cuda_ms(lambda: pe.encode_dx(packed, idx, rank, g_a, st.inv_scales),
+                               flush=flush))
     fields["kernel_times"] = times
     windowed, windowed_launches = windowed_probe_check(trainer, stage, rays, jitter, anchor)
     fields["windowed_probe"] = windowed
@@ -1457,7 +1544,7 @@ def phase_train_post_prune(dev, flush):
     emit("train_post_prune", **fields)
     all_launches = {k: launches[k] + info["prune_launches"][k] + windowed_launches[k]
                     for k in launches}
-    del trainer, idx, bary, g_a, g_b, x_b, ps, rm, a, b, ta, tb
+    del trainer, idx, bary, rank, packed, g_a, g_b, x_b, ps, rm, a, b, ta, tb
     torch.cuda.empty_cache()
     return all_launches, times
 
@@ -1748,7 +1835,7 @@ def cli_launches(steps, anchor, renders, prunes, prune_chunks):
     """The launches a ``cli.main`` run implies: per training microbatch (one
     image; ``steps`` are the timer's ``train_step`` records) one encode and
     one table-gradient scatter, dual when the stage renders a panoptic
-    channel, and dbary when its camera is not an anchor frame; per prune the
+    channel, and encode_dx when its camera is not an anchor frame; per prune the
     single encode once per chunk of 65,536 cell points per jittered sample
     (``prune_chunks``); per rendered validation chunk one encode, dual when
     the validation renders a panoptic channel."""
@@ -1759,7 +1846,7 @@ def cli_launches(steps, anchor, renders, prunes, prune_chunks):
         for cam in s_["cam_idx"]:
             expected["dual_encode" if dual else "encode"] += 1
             expected["dual_table_grad" if dual else "table_grad"] += 1
-            expected["dbary"] += int(not anchor[cam])
+            expected["encode_dx"] += int(not anchor[cam])
     expected["encode"] += prunes * prune_chunks
     for channels, chunks in renders:
         dual = bool(set(channels) & {"semantics", "inst_embedding"})
@@ -1774,7 +1861,9 @@ def recorded_kernel_checks(spec, calls, dev, flush):
     the encodes on the recorded coordinates with random tables (outputs and
     the kept idx/bary by ``encode_vs_plain``); the scatters (64 eps_f32 of
     each entry's sum of |bary * g|) and dbary (4 eps_f32 of sum_f |g * T|)
-    on the recorded idx, bary, cotangents and tables. Where the path ran
+    on the recorded idx, bary, cotangents and tables; encode_dx (1e-5 of
+    the plain dx's largest entry) on the recorded rows, idx, rank and
+    cotangents. Where the path ran
     the single scatter at an N and not the dual one, the dual runs there too
     on the single's events, the second cotangent random. Encodes
     that the path ran under ``no_grad`` (kind + ``NO_IDX_BARY``: the
@@ -1809,7 +1898,16 @@ def recorded_kernel_checks(spec, calls, dev, flush):
 
     for (kind, n), rec in sorted(calls.items()):
         key = str(n)
-        if kind.startswith(("encode", "dual_encode")):
+        if kind == "encode_dx":
+            args = (rec["rows"], rec["idx"], rec["rank"], rec["g"], rec["inv_scales"],
+                    rec["dtype"])
+            ch = encode_dx_vs_plain(*args)
+            kern = lambda: pe.encode_dx(*args)
+            plain = lambda: pe.encode_dx_plain(*args)
+            bound_ms, bound_by, _, _ = encode_dx_bound(
+                l, c, f, n, st.rows_used, rec["rows"].element_size())
+            tm = dict(max_abs_err=ch["max_abs_err"])
+        elif kind.startswith(("encode", "dual_encode")):
             x, dual, grad = rec["x"], kind.startswith("dual"), not kind.endswith(NO_IDX_BARY)
 
             def kern():
@@ -1916,6 +2014,7 @@ def recorded_run(calls, trainers, renders, pack_totals, no_grad=False, assign=No
     encode_t, encode_dual_t = pe.PermutoEncodingSpec.encode_T, pe.PermutoEncodingSpec.encode_dual_T
     table_grad, dual_table_grad = tg.multilevel_table_grad, tg.dual_multilevel_table_grad
     dbary = tg.multilevel_gather_dbary
+    encode_dx = pe.encode_dx
     lap_assign = lin_assignment.lap_assign
 
     def assign_spy(cost, present):
@@ -1968,12 +2067,19 @@ def recorded_run(calls, trainers, renders, pack_totals, no_grad=False, assign=No
                                                  g=g.clone()))
         return dbary(tables, idx, g)
 
+    def encode_dx_spy(rows, idx, rank, g, inv_scales, dtype=None):
+        keep("encode_dx", idx.shape[2], lambda: dict(
+            rows=rows.clone(), idx=idx.clone(), rank=rank.clone(), g=g.clone(),
+            inv_scales=inv_scales, dtype=dtype))
+        return encode_dx(rows, idx, rank, g, inv_scales, dtype)
+
     with packing(pack_totals), \
          mock.patch.object(lin_assignment, "lap_assign", assign_spy), \
          mock.patch.object(cli, "get_modules_from_config", modules_spy), \
          mock.patch.object(PanopticTrainer, "batch_render", render_spy), \
          mock.patch.object(pe.PermutoEncodingSpec, "encode_T", encode_spy), \
          mock.patch.object(pe.PermutoEncodingSpec, "encode_dual_T", encode_dual_spy), \
+         mock.patch.object(pe, "encode_dx", encode_dx_spy), \
          mock.patch.object(pe, "table_gather", _Spied(
              tg, multilevel_table_grad=table_grad_spy,
              dual_multilevel_table_grad=dual_table_grad_spy,
@@ -2056,7 +2162,7 @@ def phase_cli(dev, flush):
     if assign_launches != inst_micro or not assign_launches:
         fail(f"cli.main launched lap_assign {assign_launches} times, expected {inst_micro}")
     if not (launches["encode"] and launches["dual_encode"] and launches["table_grad"]
-            and launches["dual_table_grad"] and launches["dbary"]):
+            and launches["dual_table_grad"] and launches["encode_dx"]):
         fail("a kernel of the path was not launched")
     if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
         fail("a loss is not finite")
@@ -2083,7 +2189,7 @@ def phase_cli(dev, flush):
     packed_b = sorted({b for st_ in summ["stages"].values() for b in st_["B"]})
     want = {"encode": {dense_n, *packed_b}, "dual_encode": set(summ["stages"][
         "voxel_packed_panoptic"]["B"]), "table_grad": {dense_n, *packed_b},
-        "dbary": {dense_n, *packed_b}}
+        "encode_dx": {dense_n, *packed_b}}
     fields.update(dense_N=dense_n, packed_B=packed_b)
     for kind, ns in want.items():
         missing = ns - {n for k, n in calls if k == kind}
@@ -2217,10 +2323,11 @@ def _put_state(trainer, state) -> None:
 # argument, which tells the single kernel from the dual, or None; the
 # launch counters' names for NT = 1 and NT = 2). A wrapper's call launches
 # one of each: the encode kernel, the scatter's finish_kernel, dbary_kernel,
-# lap_kernel.
+# encode_dx_kernel, lap_kernel.
 PROFILED_KERNELS = {"permuto_encode_kernel": (3, "encode", "dual_encode"),
                     "finish_kernel": (1, "table_grad", "dual_table_grad"),
                     "dbary_kernel": (None, "dbary", "dbary"),
+                    "encode_dx_kernel": (None, "encode_dx", "encode_dx"),
                     "lap_kernel": (None, "lap_assign", "lap_assign")}
 
 
@@ -2368,7 +2475,7 @@ def fused_stage_checks(dev, ckpt):
 def fused_implied(log):
     """The launches the fused run's captures imply: per capture, those its
     stage and microbatches ask for per step (per microbatch an encode and a
-    table-gradient scatter, dual when a panoptic channel renders; dbary for
+    table-gradient scatter, dual when a panoptic channel renders; encode_dx for
     a microbatch with a camera that is not an anchor frame; an assignment
     where the instance loss is on)."""
     want = []
@@ -2376,7 +2483,7 @@ def fused_implied(log):
         dual = bool(set(rec["channels"]) & {"semantics", "inst_embedding"})
         per = {"dual_encode" if dual else "encode": rec["micro"],
                "dual_table_grad" if dual else "table_grad": rec["micro"],
-               "dbary": sum(not a for a in rec["all_anchor"]),
+               "encode_dx": sum(not a for a in rec["all_anchor"]),
                "lap_assign": rec["micro"] if rec["use_inst"] else 0}
         want.append({k: v for k, v in per.items() if v})
     return want
@@ -2520,7 +2627,7 @@ def phase_fused_step(dev, cli_ckpt, host):
     if got != counted:
         fail(f"the fused run counted {got}, expected {counted}")
     if not all(on_card.get(k) for k in ("encode", "dual_encode", "table_grad",
-                                        "dual_table_grad", "dbary", "lap_assign")):
+                                        "dual_table_grad", "encode_dx", "lap_assign")):
         fail("a kernel of the path was not launched by the fused run")
     if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
         fail("a loss of the fused run is not finite")
@@ -3208,7 +3315,7 @@ def phase_bup20(dev, flush, card):
     if launches != expected:
         fail(f"cli.main launched {launches}, expected {expected}")
     if not all(launches[k] for k in ("encode", "dual_encode", "table_grad",
-                                     "dual_table_grad", "dbary")):
+                                     "dual_table_grad", "encode_dx")):
         fail("a kernel of the path was not launched")
     if not all(np.isfinite(v) for e in epochs for v in e["losses"].values()):
         fail("a loss is not finite")
@@ -3234,7 +3341,7 @@ def phase_bup20(dev, flush, card):
     dense_n = trainer.cfg.num_rays_sampled_per_img * steps_
     fields.update(dense_N=dense_n, validation_N=sorted(chunk_ns))
     want = [(kind, dense_n) for kind in ("encode", "dual_encode", "table_grad",
-                                         "dual_table_grad", "dbary")]
+                                         "dual_table_grad", "encode_dx")]
     want += [("dual_encode" + NO_IDX_BARY, n) for n in chunk_ns]
     if set(want) - set(calls):
         fail(f"no call was recorded at {sorted(set(want) - set(calls))}")
@@ -3259,7 +3366,7 @@ BUP20_VARIANTS = {"panoptic_dd": "configs/bup20/panoptic_dd.yaml",
                   "mean_shift_app": "configs/bup20/mean_shift_contrastive_app.yaml",
                   "semantic_nerf_app": "configs/bup20/semantic_nerf_app.yaml",
                   "panoptic_lifting_app": "configs/bup20/panoptic_lifting_app.yaml"}
-TRAIN_KINDS = ("encode", "dual_encode", "table_grad", "dual_table_grad", "dbary")
+TRAIN_KINDS = ("encode", "dual_encode", "table_grad", "dual_table_grad", "encode_dx")
 
 
 def dd_alpha_gap(trainer, dev, rays=4096):
@@ -4109,13 +4216,14 @@ DP_BLOCKS = (("dense_rgb", [], 0, 2), ("seed_prune", [{"do": "seed_prune"}], 1, 
 DP_LOSS_RTOL, DP_LOSS_ATOL, DP_STEP_RTOL, DP_GRAD_SHARE = 1e-5, 1e-6, 2e-3, 2e-3
 # the kernels each stage's microbatches must launch on every rank: the
 # encode and its table-gradient scatter (dual once the panoptic heads
-# render), dbary for the cameras that are not anchors, the assignment in a
-# panoptic stage; a val-pose step trains the extrinsics only
-DP_NEED = {"dense_rgb": ("encode", "table_grad", "dbary"),
-           "seed_prune": ("encode", "table_grad", "dbary"),
-           "voxel_packed_panoptic": ("dual_encode", "dual_table_grad", "dbary", "lap_assign"),
-           "val_pose": ("encode", "dbary"),
-           "packed_ray_chunk": ("dual_encode", "dual_table_grad", "dbary", "lap_assign")}
+# render), encode_dx for the cameras that are not anchors, the assignment in
+# a panoptic stage; a val-pose step trains the extrinsics only
+DP_NEED = {"dense_rgb": ("encode", "table_grad", "encode_dx"),
+           "seed_prune": ("encode", "table_grad", "encode_dx"),
+           "voxel_packed_panoptic": ("dual_encode", "dual_table_grad", "encode_dx",
+                                     "lap_assign"),
+           "val_pose": ("encode", "encode_dx"),
+           "packed_ray_chunk": ("dual_encode", "dual_table_grad", "encode_dx", "lap_assign")}
 
 
 def dp_actions() -> list:
@@ -4589,14 +4697,16 @@ def bf16_read():
 def bf16_path_ns(post, val_times, times_by_path, hash_times):
     """Each bf16-read kernel's N on the main paths, from the phases' times
     (keyed by kernel and then N): the fused encodes' (N, with idx/bary),
-    dbary's N, the V = 8 gathers' (N, with a gradient) and dbary's N."""
+    dbary's and encode_dx's N, the V = 8 gathers' (N, with a gradient) and
+    dbary's N."""
     ns = {"encode": {(1572864, False), (2097152, True)},
           "dual_encode": {(1572864, False), (2097152, True)},
-          "dbary": {2097152}, "hash_gather": set(), "hash_gather_dual": set(),
-          "hash_dbary": set()}
+          "dbary": {2097152}, "encode_dx": {2097152}, "hash_gather": set(),
+          "hash_gather_dual": set(), "hash_dbary": set()}
     ns["encode"].add((post["encode_prune"]["N"], False))
     ns["dual_encode"].add((post["dual_encode_B"]["N"], True))
     ns["dbary"].add(post["dbary_B"]["N"])
+    ns["encode_dx"].add(post["encode_dx_B"]["N"])
     ns["encode"].add((val_times["pre_prune"]["N"], False))
     for part in ("final", "map"):
         ns["dual_encode"].add((val_times[part]["N"], False))
@@ -4605,6 +4715,7 @@ def bf16_path_ns(post, val_times, times_by_path, hash_times):
             ns[kind] |= {(int(n), True) for n in times.get(kind, {})}
             ns[kind] |= {(int(n), False) for n in times.get(kind + NO_IDX_BARY, {})}
         ns["dbary"] |= {int(n) for n in times.get("dbary", {})}
+        ns["encode_dx"] |= {int(n) for n in times.get("encode_dx", {})}
     for name, kind in (("hash_gather_single", "hash_gather"),
                        ("hash_gather_dual", "hash_gather_dual")):
         ns[kind] |= {(int(n), True) for n in hash_times.get(name, {})}
@@ -4716,7 +4827,7 @@ def bf16_tuned_steps(dev):
 
 def phase_bf16_read(dev, smi_line, spec, ns, flush):
     """The bf16 table read (``PAGNERF_BF16_GATHER=1``) of PERF.md rows 8, 9,
-    3 (the fused encodes and dbary, V = 4), 10, 11 and 14 (the gathers and
+    3 and 16 (the fused encodes, dbary and encode_dx, V = 4), 10, 11 and 14 (the gathers and
     dbary, V = 8) and of rows 1-2 (the V = 4 gathers, which no path runs),
     each against its plain version (the float32 one on the rows rounded to
     bfloat16) at every N the main paths gave it (``bf16_path_ns``), on
@@ -4822,6 +4933,28 @@ def phase_bf16_read(dev, smi_line, spec, ns, flush):
                   lambda: tg.multilevel_gather_dbary(tg.dbary_rows(ta, True), idx, g), ta)
         put("gather_dbary", n, check, t, dbary_bound(l, c, f, n, st.rows_used, row_itemsize=2))
         del idx, g
+    # encode_dx (row 16) on the bf16 read's rows: one stack (``rows_as``, the
+    # single encode's copy) and A's half of the dual encode's packed copy
+    for n in ns["encode_dx"]:
+        x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
+        _, idx, _, rank = pe._launch_encode(x, (ta,), st, True, False)
+        del x
+        g = torch.randn((l, f, n), generator=gen, device=dev)
+        rows16 = table_pack.rows_as(ta, bf16)
+        check = encode_dx_vs_plain(rows16, idx, rank, g, st.inv_scales, torch.float32)
+        packed = encode_dx_vs_plain(table_pack.packed_tables(ta, tb, bf16), idx, rank, g,
+                                    st.inv_scales, torch.float32)
+        if not packed["ok"]:
+            fail(f"encode_dx on the packed bf16 rows at N={n}: {packed}")
+        check["max_abs_err"] = max(check["max_abs_err"], packed["max_abs_err"])
+        del rows16
+        # the rows on the path: table A, or its kept bfloat16 copy
+        t = turns(lambda: pe.encode_dx(ta, idx, rank, g, st.inv_scales),
+                  lambda: pe.encode_dx(table_pack.rows_as(ta, bf16), idx, rank, g,
+                                       st.inv_scales, torch.float32), ta)
+        put("encode_dx", n, check, t, encode_dx_bound(l, c, f, n, st.rows_used,
+                                                       row_itemsize=2))
+        del idx, rank, g
     # the V = 4 gathers (rows 1, 2) at the render's N
     n = RENDER_N
     x = torch.rand((3, n), generator=gen, device=dev) * 2 - 1
@@ -4914,7 +5047,7 @@ def phase_bf16_read(dev, smi_line, spec, ns, flush):
             fail(f"{name}: the bound does not see the float32 read (the control): "
                  f"{rec['float32']['grad_share_vs_rounded']}")
     need = {"encode": step_launches["encode"], "dual_encode": step_launches["dual_encode"],
-            "dbary": step_launches["dbary"], "gather": hash_launches_["gather"],
+            "encode_dx": step_launches["encode_dx"], "gather": hash_launches_["gather"],
             "dual_gather": hash_launches_["dual_gather"],
             "hash_dbary": hash_launches_["dbary"]}
     missing = [k for k, v in need.items() if not v]
@@ -5131,9 +5264,26 @@ def main() -> None:
             if key in times_:
                 row[name_] = times_[key]
         rows.append(row)
+    r = bwd["encode_dx"]
+    row = {
+        "name": "encode_dx", "route": "cuda",
+        "source": "pagnerf_tpu_torch/ops/csrc/permuto_encode_bwd.cu",
+        "replaces": "pagnerf_tpu/ops/pallas_gather.py:110",
+        "also_replaces": "pagnerf_tpu/ops/permuto_encoding.py:204 _lattice_levels_bwd",
+        "launches": sum(p["encode_dx"] for p in paths.values()),
+        "launches_by_path": {p: c["encode_dx"] for p, c in paths.items()},
+        "dtype": "float32", "shapes": "training microbatch N=2,097,152",
+        **{k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "packed_rows_ms")},
+        "post_prune": post["encode_dx_B"]}
+    for key_, times_ in (("cli", cli_times), ("bup20", bup20_times), *variant_times.items()):
+        if "encode_dx" in times_:
+            row[key_] = times_["encode_dx"]
+    rows.append(row)
     rows += hash_kernel_rows(slice_paths, slice_times["panoptic_nerf"], sources)
     bf16_launch_key = {"permuto_encode_single": "encode", "permuto_encode_dual": "dual_encode",
-                       "gather_dbary": "dbary", "hash_gather_single": "gather",
+                       "gather_dbary": "dbary", "encode_dx": "encode_dx",
+                       "hash_gather_single": "gather",
                        "hash_gather_dual": "dual_gather", "hash_gather_dbary": "hash_dbary"}
     for row in rows:
         if row["name"] in bf16_rows_:

@@ -14,9 +14,12 @@ rounding) followed by the plain gathers of ``ops/table_gather.py``.
 Gradients: the encodes are differentiable in the tables and in the
 coordinates (``_Encode``). The table gradient is the table-gradient scatter
 of ``ops/table_gather.py`` over the forward's idx and bary; the coordinate
-gradient is ``dbary`` (from the A side of a dual encode only: the delta grid
-reads stop-gradient weights) turned into ``dx`` by ``_lattice_levels_dx``
-(the JAX package's ``_lattice_levels_bwd``). It forms dx on the rank the
+gradient is ``encode_dx`` (from the A side of a dual encode only: the delta
+grid reads stop-gradient weights): on the card one hand-written kernel
+(``csrc/permuto_encode_bwd.cu``) forms dbary and turns it into dx in
+registers; its plain version ``encode_dx_plain`` is ``gather_dbary_plain``
+followed by ``_lattice_levels_dx`` (the JAX package's Pallas dbary and
+``_lattice_levels_bwd``). It forms dx on the rank the
 forward computed, kept in one byte per level and sample (``pack_rank``; the
 kernel writes it beside idx and bary), not on a recomputed one: the card's
 ``E @ s`` rounds el in an order that cuBLAS picks by N, so a recomputed rank
@@ -30,8 +33,8 @@ Under ``PAGNERF_BF16_GATHER=1`` (``table_gather.bf16_gather``, read at each
 encode) float32 tables are read as rows rounded to bfloat16: the kernel
 takes a bfloat16 copy of the rows (the dual encode's packed copy made in
 bfloat16, ``table_pack``) and float32 weights and writes float32 features;
-the backward's dbary reads the same rounded rows, and the table gradients
-stay float32. ``compute_dtype=bfloat16`` is another function: its weights
+the backward's ``encode_dx`` reads the same rounded rows (the copy the
+forward read), and the table gradients stay float32. ``compute_dtype=bfloat16`` is another function: its weights
 and features are bfloat16 too.
 
 Layout: sample tensors are feature-major, coordinates ``[3, N]``, indices and
@@ -265,7 +268,8 @@ def _lattice_levels_dx(x: torch.Tensor, inv_scales, dbary: torch.Tensor,
     bary5[b] = sum_v (plus - minus)[b, v] * delta[v], delta = (el - gr) / 4 and
     el = E @ (x * inv_s), dx += inv_s * E^T @ ddelta / 4. ``rank`` [L, N]
     (``pack_rank``) is the rank of the simplex the forward gathered, so dx is
-    formed on that simplex whatever order another product would round el in."""
+    formed on that simplex whatever order another product would round el in.
+    x gives only dx's shape, dtype and device: the rank stands for it."""
     e_t = constant(_E, x.dtype, x.device).T                     # [3, 4]
     b5 = torch.arange(_VERTS + 1, dtype=torch.int32, device=x.device)[:, None, None]
     dx = torch.zeros_like(x)
@@ -453,13 +457,117 @@ def _launch_encode(x: torch.Tensor, tables: Tuple[torch.Tensor, ...],
     return outs, idx, bary, rank
 
 
+# ------------------------------------------------- the coordinate gradient
+def encode_dx_plain(rows: torch.Tensor, idx: torch.Tensor, rank: torch.Tensor,
+                    g: torch.Tensor, inv_scales, dtype=None) -> torch.Tensor:
+    """Plain version of ``encode_dx``: ``gather_dbary_plain`` of table A's
+    rows, dbary rounded to ``dtype`` (the tables' dtype; default the rows')
+    and widened, then ``_lattice_levels_dx`` on the forward's rank."""
+    f = g.shape[1]
+    table = rows if rows.shape[2] == f else rows[..., :f]
+    dbary = table_gather.gather_dbary_plain(table, idx, g)
+    like = g.new_empty((_D, idx.shape[2]))
+    return _lattice_levels_dx(like, inv_scales, dbary.to(dtype or rows.dtype).float(), rank)
+
+
+def _check_encode_dx(rows, idx, rank, g, inv_scales, dtype) -> None:
+    """Contract of ``encode_dx``: idx [L, 4, N] int32, rank [L, N] uint8, g
+    [L, F, N] float32 with F in (1, 2, 4), rows [L, C, F] or the packed
+    [L, C, 2F], rows and tables float32 / float32, bfloat16 / bfloat16 or
+    bfloat16 / float32 (the bf16 read), one scale per level, at most
+    ``table_gather.MAX_LEVELS`` levels; all contiguous, on one device."""
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.dim() != 3 or idx.shape[1] != _VERTS:
+        raise ValueError(f"idx must be [L, {_VERTS}, N], got {tuple(idx.shape)}")
+    l, _, n = idx.shape
+    if l > table_gather.MAX_LEVELS:
+        raise ValueError(f"the encode_dx kernel takes at most {table_gather.MAX_LEVELS} "
+                         f"levels, got {l}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g.dtype}")
+    if g.dim() != 3 or g.shape[0] != l or g.shape[2] != n or g.shape[1] not in table_gather._FEATS:
+        raise ValueError(f"g must be [L={l}, F, N={n}] with F in {table_gather._FEATS}, "
+                         f"got {tuple(g.shape)}")
+    f = g.shape[1]
+    if rank.dtype != torch.uint8:
+        raise TypeError(f"rank must be uint8, got {rank.dtype}")
+    if tuple(rank.shape) != (l, n):
+        raise ValueError(f"rank must be [L={l}, N={n}], got {tuple(rank.shape)}")
+    if rows.dim() != 3 or rows.shape[0] != l or rows.shape[2] not in (f, 2 * f):
+        raise ValueError(f"rows must be [L={l}, C, {f}] or packed [L={l}, C, {2 * f}], "
+                         f"got {tuple(rows.shape)}")
+    if (rows.dtype, dtype) not in table_gather._READ_CODE:
+        raise TypeError(f"rows {rows.dtype} for tables {dtype} not supported")
+    if len(np.asarray(inv_scales)) != l:
+        raise ValueError(f"{len(np.asarray(inv_scales))} scales for {l} levels")
+    table_gather._check_device((rows, idx, rank, g))
+
+
+@functools.cache
+def _encode_dx_kernel():
+    from . import _build
+    fn = _build.load("permuto_encode_bwd").pagnerf_encode_dx
+    f32p = ctypes.POINTER(ctypes.c_float)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [f32p] * 2 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def encode_dx(rows: torch.Tensor, idx: torch.Tensor, rank: torch.Tensor, g: torch.Tensor,
+              inv_scales, dtype=None, kernel=None) -> torch.Tensor:
+    """Coordinate gradient dx [3, N] float32 of an encode from the lattice
+    its forward kept -- idx [L, 4, N] int32 and the packed rank [L, N] uint8
+    (``pack_rank``) -- the cotangent g [L, F, N] of its A side and table A's
+    rows: a stack [L, C, F], or the dual kernels' packed [L, C, 2F] rows
+    (``table_pack.packed_tables``), of which A's half is read; float32, or
+    bfloat16 for bfloat16 tables (``dtype``, default the rows': dbary is
+    rounded to it) or for the bf16 table read (``dtype`` float32).
+    ``inv_scales`` [L]: each level's 1 / scale. CUDA tensors launch the
+    encode_dx kernel (``csrc/permuto_encode_bwd.cu``, counted in
+    ``.launches``; ``kernel``: another build of its C entry
+    ``pagnerf_encode_dx``, ``profile_encode_dx --parent``); CPU tensors take
+    ``encode_dx_plain``."""
+    dtype = dtype or rows.dtype
+    _check_encode_dx(rows, idx, rank, g, inv_scales, dtype)
+    if idx.device.type == "cpu":
+        return encode_dx_plain(rows, idx, rank, g, inv_scales, dtype)
+    l, c, w = rows.shape
+    n, f = idx.shape[2], g.shape[1]
+    dx = torch.empty((_D, n), dtype=torch.float32, device=idx.device)
+    if n == 0:
+        return dx
+    as_c = lambda a: (ctypes.c_float * len(a))(*a)
+    fn = kernel or _encode_dx_kernel()
+    with torch.cuda.device(idx.device):
+        err = fn(rows.data_ptr(), idx.data_ptr(), rank.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                 as_c(np.asarray(_E, dtype=np.float32).reshape(-1)),
+                 as_c(np.asarray(inv_scales, dtype=np.float32)), l, c, n, f, w,
+                 table_gather._READ_CODE[(rows.dtype, dtype)], table_gather._stream(idx.device))
+    table_gather._raise_on(err, "permuto_encode_bwd encode_dx")
+    table_gather.KERNELS["encode_dx"].launches += table_gather.launched()
+    return dx
+
+
+def _dx_rows(tables: Tuple[torch.Tensor, ...], bf16: bool) -> torch.Tensor:
+    """The rows of table A that ``encode_dx`` reads for an encode of
+    ``tables``: table A itself, or under the bf16 read the bfloat16 copy the
+    forward read -- on the card a dual encode's packed copy, A's half --
+    kept, so the backward makes no copy of its own."""
+    if not bf16:
+        return tables[0]
+    if len(tables) == 2 and tables[0].device.type == "cuda":
+        return packed_tables(*tables, torch.bfloat16)
+    return rows_as(tables[0], torch.bfloat16)
+
+
 class _Encode(torch.autograd.Function):
     """Single or dual fused encode. Forward: the kernel on the card, the
     plain lattice + gathers on the CPU; idx, bary and the packed rank are
     kept only when a gradient will be asked for (``grad``: grad mode was on
-    at the call). Backward: the (dual) table-gradient scatter, then dbary
-    from the A side and ``_lattice_levels_dx`` on the forward's rank for the
-    coordinates."""
+    at the call). Backward: the (dual) table-gradient scatter, and for the
+    coordinates ``encode_dx`` from the A side on the forward's rank (one
+    kernel on the card: dbary and the lattice backward together)."""
 
     @staticmethod
     def forward(ctx, x, st, grad, bf16, *tables):
@@ -481,8 +589,8 @@ class _Encode(torch.autograd.Function):
             ctx.save_for_backward(x, idx, bary, tables[0])
             ctx.rank = rank
             ctx.st = st
-            ctx.bf16 = bf16
             ctx.dtypes = tuple(t.dtype for t in tables)
+            ctx.dx_rows = _dx_rows(tables, bf16) if ctx.needs_input_grad[0] else None
         return outs
 
     @staticmethod
@@ -505,10 +613,7 @@ class _Encode(torch.autograd.Function):
             dtables = [d.to(dt) for d, dt in zip(dts, ctx.dtypes)]
         dx = None
         if ctx.needs_input_grad[0]:
-            dbary = table_gather.multilevel_gather_dbary(
-                table_gather.dbary_rows(table_a, ctx.bf16), idx, gs[0])
-            dx = _lattice_levels_dx(x, st.inv_scales, dbary.to(table_a.dtype).float(),
-                                    ctx.rank)
+            dx = encode_dx(ctx.dx_rows, idx, ctx.rank, gs[0], st.inv_scales, table_a.dtype)
         return (dx, None, None, None, *dtables)
 
 
@@ -561,7 +666,9 @@ def dual_encode_plain(tables_a: torch.Tensor, tables_b: torch.Tensor,
 # (and the rank) for a backward
 fused_encode.launches = fused_encode.launches_with_idx_bary = 0
 fused_encode_dual.launches = fused_encode_dual.launches_with_idx_bary = 0
-table_gather.KERNELS.update(encode=fused_encode, dual_encode=fused_encode_dual)
+encode_dx.launches = 0
+table_gather.KERNELS.update(encode=fused_encode, dual_encode=fused_encode_dual,
+                            encode_dx=encode_dx)
 
 
 def permuto_encode_T(tables: torch.Tensor, coordsT: torch.Tensor, scales,

@@ -26,7 +26,8 @@ PyTorch version beside it here, at V = 4 vertices (the permutohedral
 lattice's simplices) and V = 8 (the hash grid's voxel corners). The encodes
 of ``ops/permuto_encoding.py`` do not call the gathers: their fused kernel
 (``csrc/permuto_encode.cu``) computes the lattice and gathers in one launch,
-and its backward calls the scatters and dbary here. The hash encodes of
+and its backward calls the scatters here and, for the coordinates, its own
+``encode_dx`` (dbary and the lattice backward in one kernel). The hash encodes of
 ``ops/hash_encoding.py`` compute their indices and weights in PyTorch and
 call the gathers at V = 8, whose backward is the scatters and dbary. A
 wrapper launches the kernel for CUDA tensors (and counts the launch in its

@@ -83,12 +83,15 @@ def kernel_order_rank(x: torch.Tensor, inv_scales) -> torch.Tensor:
 def backward_rank_check(table: torch.Tensor, x: torch.Tensor, scales,
                         g: torch.Tensor) -> dict:
     """The fused encode's coordinate gradient (tables [L, C, F], x [3, N],
-    cotangent g [L, F, N]) against ``_lattice_levels_dx`` of the same dbary
-    on the rank of ``kernel_order_rank``, and how the rank and dx of a
-    recomputation through the card's ``E @ s`` (cuBLAS, which picks its
-    rounding order by N) would differ: dx max error over the largest |dx|,
-    and rank entries that differ. Launches the encode, dbary and scatter
-    kernels once each."""
+    cotangent g [L, F, N]) against ``encode_dx`` on the rank of
+    ``kernel_order_rank`` (``dx_bit_equal``: the kernel has no atomics, so
+    the backward's dx is that bit for bit when it used that rank) and
+    against the plain composition, ``_lattice_levels_dx`` of the same dbary
+    on that rank (``dx_err_over_max``, over the largest |dx|), and how the
+    rank and dx of a recomputation through the card's ``E @ s`` (cuBLAS,
+    which picks its rounding order by N) would differ: dx max error over the
+    largest |dx|, and rank entries that differ. Launches the encode, dbary
+    and scatter kernels once each and encode_dx twice."""
     from .ops import table_gather as tg
     st = pe.level_statics(scales, table.shape[1], table.shape[2])
     xx = x.detach().clone().requires_grad_()
@@ -103,11 +106,13 @@ def backward_rank_check(table: torch.Tensor, x: torch.Tensor, scales,
                           for s in st.inv_scales])
     dx_max = float(xx.grad.abs().max())
     with torch.no_grad():
+        same = pe.encode_dx(table.detach(), idx, ordered, g.float().contiguous(),
+                            st.inv_scales, table.dtype)
         ref = pe._lattice_levels_dx(x, st.inv_scales, dbary, ordered)
         recomputed = pe._lattice_levels_dx(x, st.inv_scales, dbary, cublas)
     return {"N": x.shape[1], "dx_max": dx_max,
             "dx_err_over_max": float((xx.grad - ref).abs().max()) / dx_max,
-            "dx_bit_equal": torch.equal(xx.grad, ref),
+            "dx_bit_equal": torch.equal(xx.grad, same),
             "rank_kept_vs_kernel_order_mismatches": int((kept != ordered).sum()),
             "rank_cublas_mismatches": int((cublas != ordered).sum()),
             "dx_cublas_rank_err_over_max": float((recomputed - ref).abs().max()) / dx_max,

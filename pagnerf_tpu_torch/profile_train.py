@@ -2,6 +2,7 @@
 
     python -m pagnerf_tpu_torch.profile_train [rgb|panoptic|post_prune]
     python -m pagnerf_tpu_torch.profile_train tuned_rgb [tuned_post_prune --pretrained CKPT]
+    python -m pagnerf_tpu_torch.profile_train --turns [stages ...]
 
 Prints one JSON object for one stage (default: all three, one object each):
 the wall time of a whole step and of one microbatch's forward + backward
@@ -9,9 +10,12 @@ the wall time of a whole step and of one microbatch's forward + backward
 device time of each part of a microbatch run on its own at the stage's
 shapes (CUDA events, median of 5: ray transform + march (+ packing), lattice
 + gather (the fused encode, writing idx/bary for the backward), decoders
-forward + backward, table-gradient scatter, dbary, lattice backward,
+forward + backward, table-gradient scatter, the lattice backward (the
+``encode_dx`` kernel: dbary and the lattice backward in one launch),
 optimizer update, the assignment kernel on the microbatch's own costs,
-where the stage has the instance loss), and the top
+where the stage has the instance loss; apart, ``replaced_part_ms``: the
+composition ``encode_dx`` replaced, dbary's kernel and the plain-torch
+``_lattice_levels_dx``), and the top
 device kernels of one profiled microbatch with their summed device time
 (``torch.profiler``; "not measured" if it reports none). The microbatch is
 one non-anchor camera's 4096 rays: 512 dense steps in the pre-prune stages
@@ -23,10 +27,14 @@ built by the factory (``cli``'s trainer): 'tuned_rgb' its epoch-0 stage, one
 image's 4096 rays x 96 dense steps (N = 393,216); 'tuned_post_prune' the
 stage of the last epoch a checkpoint of that config ran (``--pretrained``,
 e.g. the ``model.ckpt`` of a ``quality_run``: its trained prune's occupancy
-and packed budget).
+and packed budget). ``--turns`` also times the microbatch and the step with
+the coordinate gradient through the ``encode_dx`` kernel and through the
+composition it replaced (dbary's kernel, then the plain-torch lattice
+backward), in turns: kernel, replaced, replaced, kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -89,7 +97,33 @@ def _wall_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_stage(stage_name: str, card: str, device="cuda", pretrained=None) -> dict:
+def _dbary_then_lattice_dx(rows, idx, rank, g, inv_scales, dtype=None):
+    """The coordinate gradient as the backward composed it before
+    ``encode_dx``: dbary's kernel, rounded to the tables' dtype, then the
+    plain-torch ``_lattice_levels_dx``."""
+    dbary = table_gather.multilevel_gather_dbary(rows[..., :g.shape[1]].contiguous(), idx, g)
+    like = g.new_empty((3, idx.shape[2]))
+    return permuto_encoding._lattice_levels_dx(like, inv_scales,
+                                               dbary.to(dtype or rows.dtype).float(), rank)
+
+
+@contextlib.contextmanager
+def replaced_dx(on: bool):
+    """With ``on``, the encodes' backward forms dx as before ``encode_dx``
+    (``_dbary_then_lattice_dx``): the control of ``--turns``."""
+    if not on:
+        yield
+        return
+    kernel = permuto_encoding.encode_dx
+    permuto_encoding.encode_dx = _dbary_then_lattice_dx
+    try:
+        yield
+    finally:
+        permuto_encoding.encode_dx = kernel
+
+
+def profile_stage(stage_name: str, card: str, device="cuda", pretrained=None,
+                  with_turns: bool = False) -> dict:
     if stage_name == "tuned_rgb":
         trainer = tuned_trainer(device=device)
         stage = trainer.stage_for_epoch(0)
@@ -129,6 +163,16 @@ def profile_stage(stage_name: str, card: str, device="cuda", pretrained=None) ->
     grads, _ = trainer.grad_step(stage, sub, jitter)
     opt_ms = _wall_ms(lambda: trainer.opt.update(grads, trainer.frozen_fn(stage)))
     step_ms = _wall_ms(lambda: trainer.train_step(stage, batch), reps=2)
+    turns = None
+    if with_turns:
+        micro = lambda: trainer.grad_step(stage, sub, jitter)
+        step = lambda: trainer.train_step(stage, batch)
+        turns = {"order": ["kernel", "replaced", "replaced", "kernel"],
+                 "microbatch_wall_ms": [], "step_wall_ms": []}
+        for name in turns["order"]:
+            with replaced_dx(name == "replaced"):
+                turns["microbatch_wall_ms"].append(_wall_ms(micro))
+                turns["step_wall_ms"].append(_wall_ms(step, reps=2))
 
     dual = "semantics" in stage.channels
     spec = nef.grid.spec
@@ -180,15 +224,18 @@ def profile_stage(stage_name: str, card: str, device="cuda", pretrained=None) ->
         scatter = lambda: table_gather.dual_multilevel_table_grad(idx, bary, g, g, c, *plan)
     else:
         scatter = lambda: table_gather.multilevel_table_grad(idx, bary, g, c, *plan)
+    # the coordinate gradient as the backward runs it (table A's rows, the
+    # forward's idx and rank), and beside it the composition it replaced
+    lattice_bwd = lambda: permuto_encoding.encode_dx(ta, idx, rank, g, st.inv_scales)
     dbary_fn = lambda: table_gather.multilevel_gather_dbary(ta, idx, g)
     dbary = dbary_fn()
-    lattice_bwd = lambda: permuto_encoding._lattice_levels_dx(x, st.inv_scales, dbary,
-                                                                   rank)
+    lattice_bwd_plain = lambda: permuto_encoding._lattice_levels_dx(x, st.inv_scales,
+                                                                    dbary, rank)
     stages = {"march": _event_ms(march), "lattice_gather": _event_ms(encode),
               "decoders_fwd_bwd": _event_ms(decoders),
-              "scatter": _event_ms(scatter), "dbary": _event_ms(dbary_fn),
-              "lattice_bwd": _event_ms(lattice_bwd), "optimizer_wall": opt_ms,
-              "assignment": assign_ms}
+              "scatter": _event_ms(scatter), "lattice_bwd": _event_ms(lattice_bwd),
+              "optimizer_wall": opt_ms, "assignment": assign_ms}
+    replaced = {"dbary": _event_ms(dbary_fn), "lattice_bwd_plain": _event_ms(lattice_bwd_plain)}
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -218,7 +265,9 @@ def profile_stage(stage_name: str, card: str, device="cuda", pretrained=None) ->
         "microbatches_per_step": b, "step_wall_ms": step_ms,
         "rays_per_s": b * r / (step_ms / 1e3),
         "microbatch_wall_ms": micro_ms, "part_ms": stages,
-        "part_sum_ms": sum(stages.values()),
+        "part_sum_ms": sum(v for v in stages.values() if v is not None),
+        "replaced_part_ms": replaced,
+        "turns_kernel_vs_replaced": turns,
         "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "profiled_microbatch_wall_ms": profiled_wall,
         "profiled_kernel_ms": device_ms if rows else "not measured",
@@ -237,6 +286,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=20, check=True).stdout.strip()
     argv = sys.argv[1:]
+    with_turns = "--turns" in argv
+    argv = [a for a in argv if a != "--turns"]
     pretrained = None
     if "--pretrained" in argv:
         i = argv.index("--pretrained")
@@ -248,7 +299,8 @@ def main() -> None:
         if stage_name == "tuned_post_prune" and not pretrained:
             raise SystemExit("profile_train: tuned_post_prune needs --pretrained CKPT")
         torch.cuda.reset_peak_memory_stats()
-        print(json.dumps(profile_stage(stage_name, card, pretrained=pretrained)), flush=True)
+        print(json.dumps(profile_stage(stage_name, card, pretrained=pretrained,
+                                       with_turns=with_turns)), flush=True)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,10 @@ resume, no band), ``--flags`` appends command-line flags to both calls
 prune in place of the packed one), ``--no-cut`` trains on the whole dense
 march after the prunes (``--packed-compaction false`` and
 ``TrainerConfig.compact_steps_after_prune=0``, which no flag sets), and
-``--matmul-precision`` sets ``torch.set_float32_matmul_precision``.
+``--matmul-precision`` sets ``torch.set_float32_matmul_precision``, and
+``--plain-dx`` forms the encodes' coordinate gradient with
+``permuto_encoding.encode_dx_plain`` (the plain dbary and lattice backward)
+in place of its kernel: the control of the kernel's quality and walls.
 
 After the runs, ``pose_drift`` reads the learned extrinsics of each run's
 final checkpoint and prints how far every train and val camera moved from
@@ -46,6 +49,7 @@ drift.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import glob
 import json
@@ -60,7 +64,7 @@ import torch
 
 from . import cli
 from .models import tracer
-from .ops import packed
+from .ops import packed, permuto_encoding
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "synthetic", "schedule_preds_flagship_tuned_60ep.yaml")
@@ -199,12 +203,14 @@ def pose_drift(ckpt_path: str, config_argv: Sequence[str]) -> dict:
 
 def run(seed: int = 0, device: str = "cuda", out: str = "", log_root: str = "",
         epochs: int = 60, flags: Sequence[str] = (), name: str = "",
-        no_cut: bool = False) -> dict:
+        no_cut: bool = False, plain_dx: bool = False) -> dict:
     """The protocol (``epochs`` = 60: 60 epochs, then the resume to 70), or
     its first ``epochs`` < 60 epochs alone; ``flags`` are appended to both
     ``cli.main`` calls; ``no_cut`` trains on the whole dense march after
     the prunes (neither the packed nor the compacted layout: no ray loses a
-    sample). Writes ``<out>/quality_<name>.json``."""
+    sample); ``plain_dx`` forms the encodes' coordinate gradient with the
+    plain version of ``encode_dx`` (the control of its kernel). Writes
+    ``<out>/quality_<name>.json``."""
     name = name or f"seed{seed}"
     base = os.path.join(log_root or out, f"runs_{name}")
     pack_totals = {}
@@ -212,7 +218,9 @@ def run(seed: int = 0, device: str = "cuda", out: str = "", log_root: str = "",
     common = ["--config", CONFIG, "--device", device, "--log-dir", base, "--perf",
               *flags, *(["--packed-compaction", "false"] if no_cut else [])]
     fields = dict(seed=seed, **({"compact_steps_after_prune": 0} if no_cut else {}))
-    with packing(pack_totals):
+    dx = (mock.patch.object(permuto_encoding, "encode_dx", permuto_encoding.encode_dx_plain)
+          if plain_dx else contextlib.nullcontext())
+    with packing(pack_totals), dx:
         cli.main(common + ["--exp-name", "first", "--epochs", str(epochs)], **fields)
         run_dir, records = read_perf(base, "first")
         if epochs == 60:
@@ -237,6 +245,7 @@ def run(seed: int = 0, device: str = "cuda", out: str = "", log_root: str = "",
                  "within": abs(last[0][k] - record[69][k]) <= tol}
              for k, tol in BAND.items()} if last else {})
     result = {"seed": seed, "device": device, "flags": list(flags), "no_cut": no_cut,
+              "plain_dx": plain_dx,
               "matmul_precision": torch.get_float32_matmul_precision(),
               "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
               "wall_s": wall,
@@ -275,10 +284,12 @@ def main() -> None:
     ap.add_argument("--name", default="", help="the run's name (default seed<seed>)")
     ap.add_argument("--no-cut", action="store_true",
                     help="the whole dense march after the prunes: no ray loses a sample")
+    ap.add_argument("--plain-dx", action="store_true",
+                    help="the coordinate gradient through encode_dx's plain version")
     a = ap.parse_args()
     torch.set_float32_matmul_precision(a.matmul_precision)
     run(a.seed, a.device, a.out, a.log_root, a.epochs, shlex.split(a.flags), a.name,
-        a.no_cut)
+        a.no_cut, a.plain_dx)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: these tests build ``ops/csrc/permuto_encode.cu``,
-``ops/csrc/permuto_gather.cu`` and ``ops/csrc/permuto_scatter.cu`` with nvcc
+``ops/csrc/permuto_encode_bwd.cu``, ``ops/csrc/permuto_gather.cu`` and
+``ops/csrc/permuto_scatter.cu`` with nvcc
 and launch them, so on a host without a card they skip. Run them on the card
 with ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
 (``tests/conftest.py`` imports JAX, which the card's machine need not have).
@@ -22,7 +23,13 @@ fused encode against the plain lattice and gathers: idx equal on all but
 1e-6 of the entries (at least one allowed), features per level within
 (4 ulp_f32(max|el|) + 8 eps_f32) max|table| (one ulp of el moves each weight
 by at most ulp/4), plus one bf16 ulp of the largest output in bfloat16; the
-single encode bit-equal to the dual's A side.
+single encode bit-equal to the dual's A side. The encodes' coordinate
+gradient (``encode_dx``, dbary and the lattice backward in one kernel):
+within 1e-5 of the plain version's largest |dx| (the kernel sums E^T @
+ddelta's four products in another order), on the flagship's lattice at
+N = 0, 1, 4097, 65,536, 163,840 and 393,216, one table's rows and A's half
+of packed rows, float32, bfloat16 tables and the bf16 read; one launch and
+no dbary per backward, a refused launch raising.
 
 At V = 8 (the hash grid's voxel corners) the same contracts hold, the
 gathers' bound doubled for their 8 multiply-adds, at small shapes, at the
@@ -255,7 +262,7 @@ def test_autograd_on_card_launches_backward_kernels(dev):
     torch.cuda.synchronize()
     assert {k: f.launches for k, f in tg.KERNELS.items()} == {
         "gather": 0, "dual_gather": 1, "table_grad": 0, "dual_table_grad": 1,
-        "dbary": 0, "encode": 0, "dual_encode": 0}
+        "dbary": 0, "encode": 0, "dual_encode": 0, "encode_dx": 0}
     bary.requires_grad_()
     out = tg.multilevel_table_gather(ta, idx, bary)
     out.sum().backward()
@@ -379,7 +386,8 @@ def test_encode_gradients_match_plain_path(dev):
     """Through the Function, against the plain backward over the lattice
     the forward kept: table gradients within 64 eps_f32 of each entry's sum
     of |bary * g| of the plain float64 scatter; the coordinate gradient
-    within 1e-5 of its largest entry of the plain dbary -> dx."""
+    within 1e-5 of its largest entry of the plain dbary -> dx, through the
+    encode_dx kernel (dbary's kernel not launched)."""
     spec, x, ta, tb = _encode_case(dev, 2, 20000, torch.float32)
     g = torch.Generator(device=dev).manual_seed(3)
     g_a = torch.randn((spec.num_levels, 2, x.shape[1]), generator=g, device=dev)
@@ -391,8 +399,9 @@ def test_encode_gradients_match_plain_path(dev):
     ((oa * g_a).sum() + (ob * g_b).sum()).backward()
     torch.cuda.synchronize()
     assert {k: tg.KERNELS[k].launches for k in ("dual_encode", "dual_table_grad", "dbary",
-                                                  "dual_gather")} == {
-        "dual_encode": 1, "dual_table_grad": 1, "dbary": 1, "dual_gather": 0}
+                                                  "dual_gather", "encode_dx")} == {
+        "dual_encode": 1, "dual_table_grad": 1, "dbary": 0, "dual_gather": 0,
+        "encode_dx": 1}
     st = pe.level_statics(spec.scales, spec.capacity, 2)
     for got, gg in ((a.grad, g_a), (b.grad, g_b)):
         _assert_scatter_close(got, idx, bary, gg, spec.capacity, st.rows_used)
@@ -418,7 +427,109 @@ def test_encode_launches_and_lattice_outputs(dev):
     torch.cuda.synchronize()
     assert {k: f.launches for k, f in tg.KERNELS.items()} == {
         "gather": 0, "dual_gather": 0, "table_grad": 1, "dual_table_grad": 0,
-        "dbary": 0, "encode": 2, "dual_encode": 0}
+        "dbary": 0, "encode": 2, "dual_encode": 0, "encode_dx": 0}
+
+
+# ------------------------------------------------- the coordinate gradient
+# (rows dtype, tables' dtype): float32, bfloat16 tables, the bf16 table read
+DX_DTYPES = {"float32": (torch.float32, torch.float32),
+             "bfloat16": (torch.bfloat16, torch.bfloat16),
+             "bf16_read": (torch.bfloat16, torch.float32)}
+
+
+def _dx_case(dev, n, f=2, levels=24, log2_c=18, seed=5):
+    """The flagship's lattice (24 levels of 2^18 rows, direct and hashed) at
+    N random coordinates: idx and the packed rank from the encode kernel,
+    random tables and cotangents."""
+    spec, x, ta, tb = _encode_case(dev, f, max(n, 1), torch.float32, levels=levels,
+                                   log2_c=log2_c, seed=seed)
+    x = x[:, :n].contiguous()
+    st = pe.level_statics(spec.scales, spec.capacity, f)
+    _, idx, _, rank = pe._launch_encode(x, (ta,), st, True, False)
+    g = torch.randn((levels, f, n), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    return spec, st, ta, tb, idx, rank, g
+
+
+def _assert_dx_matches_plain(rows, idx, rank, g, st, dtype):
+    """The kernel within 1e-5 of the plain version's largest |dx|."""
+    before = pe.encode_dx.launches
+    got = pe.encode_dx(rows, idx, rank, g, st.inv_scales, dtype)
+    torch.cuda.synchronize()
+    assert pe.encode_dx.launches == before + int(idx.shape[2] > 0)
+    want = pe.encode_dx_plain(rows, idx, rank, g, st.inv_scales, dtype)
+    assert got.shape == want.shape == (3, idx.shape[2]) and got.dtype == torch.float32
+    if idx.shape[2]:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtypes", list(DX_DTYPES))
+@pytest.mark.parametrize("packed", [False, True], ids=["single", "dual_packed"])
+@pytest.mark.parametrize("n", [0, 1, 4097, 65536, 163840, 393216])
+def test_encode_dx_kernel_matches_plain(dev, dtypes, packed, n):
+    rows_dtype, dtype = DX_DTYPES[dtypes]
+    spec, st, ta, tb, idx, rank, g = _dx_case(dev, n)
+    a, b = ta.to(dtype), tb.to(dtype)
+    rows = (torch.cat((a, b), dim=2) if packed else a).to(rows_dtype).contiguous()
+    _assert_dx_matches_plain(rows, idx, rank, g, st, dtype)
+
+
+@pytest.mark.parametrize("f", [1, 4])
+@pytest.mark.parametrize("packed", [False, True], ids=["single", "dual_packed"])
+def test_encode_dx_kernel_feature_widths(dev, f, packed):
+    spec, st, ta, tb, idx, rank, g = _dx_case(dev, 20001, f=f, levels=8, log2_c=12)
+    rows = torch.cat((ta, tb), dim=2) if packed else ta
+    _assert_dx_matches_plain(rows, idx, rank, g, st, torch.float32)
+
+
+@pytest.mark.parametrize("dtypes", list(DX_DTYPES))
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_encode_backward_launches_encode_dx_once(dev, dtypes, dual, monkeypatch):
+    """One backward with a coordinate gradient: the encode_dx kernel once,
+    dbary's kernel never, ``_lattice_levels_dx`` never called; dx against
+    the plain version on the forward's lattice."""
+    rows_dtype, dtype = DX_DTYPES[dtypes]
+    if dtypes == "bf16_read":
+        monkeypatch.setenv("PAGNERF_BF16_GATHER", "1")
+    lattice_dx = pe._lattice_levels_dx
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain lattice backward ran on the card")
+    monkeypatch.setattr(pe, "_lattice_levels_dx", refuse)
+    spec, x, ta, tb = _encode_case(dev, 2, 30000, torch.float32)
+    a, b = (t.to(dtype).clone().requires_grad_() for t in (ta, tb))
+    xx = x.clone().requires_grad_()
+    g = torch.Generator(device=dev).manual_seed(4)
+    g_a = torch.randn((spec.num_levels, 2, x.shape[1]), generator=g, device=dev).to(dtype)
+    tg.reset_launches()
+    if dual:
+        oa, ob = pe.fused_encode_dual(a, b, xx, spec.scales)
+        loss = (oa * g_a).float().sum() + ob.float().sum()
+    else:
+        oa = pe.fused_encode(a, xx, spec.scales)
+        loss = (oa * g_a).float().sum()
+    _, idx, _, _ = oa.grad_fn.saved_tensors
+    rank = oa.grad_fn.rank
+    loss.backward()
+    torch.cuda.synchronize()
+    assert {k: tg.KERNELS[k].launches for k in ("encode_dx", "dbary")} == {
+        "encode_dx": 1, "dbary": 0}
+    monkeypatch.setattr(pe, "_lattice_levels_dx", lattice_dx)
+    st = pe.level_statics(spec.scales, spec.capacity, 2)
+    want = pe.encode_dx_plain(a.detach().to(rows_dtype), idx, rank, g_a.float(),
+                              st.inv_scales, dtype)
+    assert float((xx.grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_encode_dx_launch_failure_raises(dev):
+    """A launch the kernel refuses (rows not aligned for its vector load)
+    raises; nothing falls back to the plain version."""
+    spec, st, ta, tb, idx, rank, g = _dx_case(dev, 999, levels=8, log2_c=12)
+    buf = torch.empty(ta.numel() + 1, device=dev)
+    rows = buf[1:].view(ta.shape)
+    rows.copy_(ta)
+    with pytest.raises(RuntimeError, match="encode_dx"):
+        pe.encode_dx(rows, idx, rank, g, st.inv_scales)
 
 
 # ------------------------------------------------- the post-prune slice
@@ -441,7 +552,9 @@ def test_encode_backward_on_the_forward_simplex(dev, n):
 
 def test_encode_backward_unchanged_at_the_flagship_n(dev):
     """At a training microbatch's N cuBLAS rounds el in the kernel's order:
-    the kept rank is the recomputed one, so dx is what it was."""
+    the kept rank is the recomputed one, so dx is what it was: the backward's
+    dx is encode_dx's on that rank bit for bit, within 1e-5 of the plain
+    dbary -> dx's largest entry."""
     from pagnerf_tpu_torch.profile_encode import backward_rank_check
     from pagnerf_tpu_torch.profile_scatter import training_coords
     spec, x = training_coords(dev)
@@ -452,6 +565,7 @@ def test_encode_backward_unchanged_at_the_flagship_n(dev):
     r = backward_rank_check(ta, x, spec.scales, g)
     assert r["dx_bit_equal"] and r["rank_cublas_mismatches"] == 0, r
     assert r["dx_cublas_rank_err_over_max"] == 0.0, r
+    assert r["dx_err_over_max"] <= 1e-5, r
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

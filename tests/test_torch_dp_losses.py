@@ -289,6 +289,76 @@ def test_shared_blocks_layout():
         assert sorted(seen) == list(range(-(-n * world // blk) * blk))
 
 
+# ------------------------------------------------- the padding rays' rows
+# ``packed_chunk`` with a budget the padding rays' valid samples stay under
+# (56 a ray of the 64 steps), so each ray keeps every valid sample and the
+# 8 padding rays' kept counts (58-63 of their 64 samples along +z from the
+# origin cross the scene's occupied cells) move with their jitter rows
+PAD_OCC_FRAC = 0.75
+PAD_CASE = (dict(BASE, voxel_raymarch_epoch_start=0, micro_batch_imgs=2),
+            [{"do": "prune"}, {"do": "fixture", "occ_frac": PAD_OCC_FRAC},
+             {"do": "tracer", "ray_chunk": BLOCK}], 2)
+
+
+def _padded_spec(pad_rows):
+    """PAD_CASE's grads and a step on global jitters with rows for the
+    padding rays (``pad_rows``: drawn, or 0.5 where a process that is not
+    given them puts midpoints)."""
+    cfg, prelude, epoch = PAD_CASE
+    pipe, ds = entry.flagship(tiny=True, device="cpu", compute_dtype=torch.float32)
+    t = PanopticTrainer(pipe.requires_grad_(True), ds, TrainerConfig(**cfg), occ_level=5)
+    t._pruned = True
+    steps = t.stage_for_epoch(epoch).num_steps
+    rays = RAYS * cfg["micro_batch_imgs"]
+    pad = (-rays) % BLOCK
+    batch = ds.sample_batch(np.random.default_rng(13), cfg["batch_size"], RAYS)
+    jitter = np.random.default_rng(14).uniform(size=(rays + pad, steps)).astype(np.float32)
+    if pad_rows == "midpoints":
+        jitter[rays:] = 0.5
+    acts = list(prelude) + [
+        {"do": "grads", "epoch": epoch, "batch": batch, "jitter": jitter},
+        {"do": "step", "epoch": epoch, "batch": batch, "jitters": [jitter]}]
+    return {"tiny": True, "device": "cpu", "compute_dtype": "float32", "occ_level": 5,
+            "cfg": cfg, "actions": acts, "params": _spread_params()}, pad
+
+
+def test_padding_rays_rows_reach_the_last_rank(tmp_path):
+    """The jitter rows past the global rays go to the last rank, which holds
+    the padding rays of the last ``ray_chunk`` block (``trainer._draws``):
+    with them each block's kept samples, summed over the ranks' runs, equal
+    one process's, which traces the padding rays on those rows; the losses
+    within the bounds above. The padding block's kept count moves when those
+    rows are midpoints instead, so the test sees rows that do not arrive."""
+    spec, pad = _padded_spec("drawn")
+    assert pad == 8
+    images = PAD_CASE[0]["micro_batch_imgs"]
+    blocks = -(-images * RAYS // BLOCK)
+    single = record_packs(None, spec)
+    want = [c[1] for c in single["packs"][:blocks]]
+    valid = [c[3] for c in single["packs"][:blocks]]
+    assert [c[0] for c in single["packs"][:blocks]] == [BLOCK] * blocks
+    assert want == valid                      # no cap: every valid sample kept
+    mid = record_packs(None, _padded_spec("midpoints")[0])
+    got_mid = [c[1] for c in mid["packs"][:blocks]]
+    assert got_mid[:-1] == want[:-1] and got_mid[-1] != want[-1]
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PYTHONPATH", os.pathsep.join(
+        [TESTS] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    try:
+        ranks = run_ranks(2, WORKER, spec, "cpu", str(tmp_path))
+    finally:
+        mp.undo()
+    assert _block_kept(ranks, 2, images) == want
+    for r in ranks:
+        for a_dp, a_1 in zip(_acts(r, "step") + _acts(r, "grads"),
+                             _acts(single, "step") + _acts(single, "grads")):
+            for got, ref in zip(a_dp["losses"], a_1["losses"]):
+                for k in ref:
+                    np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, atol=1e-7,
+                                               err_msg=f"rank {r['rank']} {k}")
+        assert _acts(r, "step")[-1]["pack_overflows"] == 0
+
+
 # ----------------------------------------------------------- against JAX
 def _jax_trainer(case):
     """The JAX trainer of ``case`` (float32 decoders) and its state as the

@@ -148,6 +148,8 @@ def test_fixed_coordinates_skip_dbary_and_lattice_backward(monkeypatch):
         raise AssertionError("dbary / lattice backward called for fixed coordinates")
     monkeypatch.setattr(tg_t, "multilevel_gather_dbary", refuse)
     monkeypatch.setattr(pe_t, "_lattice_levels_dx", refuse)
+    monkeypatch.setattr(pe_t, "encode_dx", refuse)
+    monkeypatch.setattr(pe_t, "encode_dx_plain", refuse)
     oa, ob = pe_t.fused_encode_dual(a, b, torch.from_numpy(x), spec.scales)
     ((oa * torch.from_numpy(ga)).sum() + (ob * torch.from_numpy(gb)).sum()).backward()
     assert a.grad.shape == ta.shape and float(a.grad.abs().sum()) > 0
@@ -179,6 +181,7 @@ def test_cpu_dispatch_counts_no_launch_and_kernels_registered():
     spec, ta, tb, x, _, _ = _inputs(7, n=100)
     assert tg_t.KERNELS["encode"] is pe_t.fused_encode
     assert tg_t.KERNELS["dual_encode"] is pe_t.fused_encode_dual
+    assert tg_t.KERNELS["encode_dx"] is pe_t.encode_dx
     tg_t.reset_launches()
     a, b, xx = _t(ta, tb, x)
     pe_t.fused_encode(a, xx, spec.scales)

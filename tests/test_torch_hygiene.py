@@ -66,8 +66,12 @@ def test_build_uses_nvcc_and_ctypes_only():
         bad = [m for m in _imported_modules(path)
                if "cpp_extension" in m or m.split(".")[0] == "pybind11"]
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
-    for name in ("permuto_encode.cu", "permuto_gather.cu", "permuto_scatter.cu"):
-        with open(os.path.join(ROOT, "pagnerf_tpu_torch", "ops", "csrc", name)) as f:
+    csrc = os.path.join(ROOT, "pagnerf_tpu_torch", "ops", "csrc")
+    names = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+    assert {"permuto_encode.cu", "permuto_encode_bwd.cu", "permuto_gather.cu",
+            "permuto_scatter.cu", "lap_assign.cu"} <= set(names)
+    for name in names:
+        with open(os.path.join(csrc, name)) as f:
             includes = [ln for ln in f if ln.startswith("#include")]
         assert includes and not [i for i in includes
                                  if "torch" in i or "pybind" in i or "ATen" in i]
